@@ -5,18 +5,21 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from trino_tpu_torch/csrc (nvcc, sm_90a);
-  3. path: TPC-H Q1, Q3 and Q12 at SF 1 through StandaloneQueryRunner on
-     cuda — cold and warm wall time, peak device memory, rows checked
-     against a plain numpy evaluation of each query on the same generated
-     data, and the hash_insert / hash_probe launch counts of the run;
-  4. parity: the same queries at SF 0.1 on cuda and on cpu (and numpy);
-  5. per-operator time of one synchronized run per query;
+  2. build the CUDA kernels from trino_tpu_torch/csrc/*.cu (nvcc, sm_90a);
+  3. path: the 22 TPC-H queries and the two REAL-sum queries R1, R2 at SF 1
+     through StandaloneQueryRunner on cuda -- cold and warm wall time, peak
+     device memory and kernel launches per query; Q1, Q3, Q12, R1 and R2
+     rows checked against a plain numpy evaluation on the same generated
+     data;
+  4. parity: all 24 queries at SF 0.1 on cuda and on cpu (and numpy for
+     the five above);
+  5. per-operator time of one synchronized run of a subset of the queries;
   6. kernels: each kernel on the inputs the path gives it (recorded in one
-     more run of the queries, apart from the path run), held against its
-     plain torch version (exact: group ids, counts, probe ids), timed beside
-     the plain version and one PyTorch library call, with its bound.
-It prints one JSON line of kernels and ends with
+     more run of that subset, apart from the path run), held against its
+     plain torch version (exact for group ids, counts and probe ids; the
+     float32 segment sums to the tolerances stated below), timed beside the
+     plain version and one PyTorch library call, with its bound.
+It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -37,7 +40,29 @@ SECTOR = 32  # bytes of the smallest device-memory access
 
 PATH_SF = 1.0
 PARITY_SF = 0.1
-PATH_QUERIES = (1, 3, 12)
+# REAL sums per small integer category (GROUP BY keys that are not
+# dictionary codes, at most 64 groups): the masked_segment_sum_f32 route
+REAL_QUERIES = {
+    "R1": ("select l_linenumber, sum(cast(l_quantity as real)), "
+           "sum(cast(l_extendedprice as real)) from lineitem "
+           "group by l_linenumber order by l_linenumber"),
+    "R2": ("select l_quantity, sum(cast(l_extendedprice as real)) "
+           "from lineitem group by l_quantity order by l_quantity"),
+}
+ORACLE_QUERIES = ("Q1", "Q3", "Q12", "R1", "R2")
+# the per-operator and kernel-capture phases run on this subset only
+CAPTURE_QUERIES = ("Q1", "Q3", "Q12", "Q18", "Q21", "R1", "R2")
+# float tolerances: doubles (averages, ratios) differ only by summation
+# order; a REAL sum is a float32 sum.  The kernel adds in a fixed per-thread
+# then tree order (a numpy model of it is ~2e-7 from the float64 sum at
+# SF 1), while the plain version is a scatter-add into one float32 slot per
+# group, which drifts up to ~3e-4 at SF 1 (860 k rows per group) and ~8e-6
+# at SF 0.1 (same model, sequential order).
+DOUBLE_RTOL = 1e-9
+KERNEL_VS_F64_RTOL = 1e-5  # the kernel route against float64 numpy sums
+PLAIN_VS_F64_RTOL = 1e-3  # the plain version (scatter-add) at SF 1, and
+                          # the kernel against the plain version
+REAL_PARITY_RTOL = 1e-4  # cuda (kernel) vs cpu (plain) at SF 0.1
 
 
 def log(msg: str) -> None:
@@ -145,16 +170,46 @@ def oracle(conn, q: int) -> list[tuple]:
     raise ValueError(q)
 
 
-def same_rows(got: list, want: list, what: str) -> None:
+def real_oracle(conn, name: str) -> list[tuple]:
+    """R1 / R2: float64 sums of the float32-cast values per key."""
+    li = _table(conn, "lineitem", [
+        "l_linenumber", "l_quantity", "l_extendedprice"])
+    key = li["l_linenumber"] if name == "R1" else li["l_quantity"]
+    sums = ["l_quantity", "l_extendedprice"] if name == "R1" else [
+        "l_extendedprice"]
+    uk, inv = np.unique(key, return_inverse=True)
+    cols = [np.bincount(inv, weights=(li[c] / 100.0).astype(
+        np.float32).astype(np.float64), minlength=len(uk)) for c in sums]
+    keys = [int(k) if name == "R1" else _dec(k, 2) for k in uk]
+    return [(k, *(float(c[i]) for c in cols)) for i, k in enumerate(keys)]
+
+
+def evaluate(conn, name: str) -> list[tuple]:
+    return (real_oracle(conn, name) if name in REAL_QUERIES
+            else oracle(conn, int(name[1:])))
+
+
+def same_rows(got: list, want: list, what: str,
+              rel_tol: float = DOUBLE_RTOL) -> float:
+    """Rows equal: exact, floats to ``rel_tol``.  Returns the largest
+    relative float difference seen."""
     if len(got) != len(want):
         raise AssertionError(f"{what}: {len(got)} rows, expected "
                              f"{len(want)}")
+    worst = 0.0
     for g, w in zip(got, want):
+        if len(g) != len(w):
+            raise AssertionError(f"{what}: row {g} != {w}")
         for a, b in zip(g, w):
-            ok = (math.isclose(a, b, rel_tol=1e-9) if isinstance(b, float)
-                  else a == b)
+            if isinstance(b, float) and a is not None:
+                ok = math.isclose(a, b, rel_tol=rel_tol)
+                if b:
+                    worst = max(worst, abs(a - b) / abs(b))
+            else:
+                ok = a == b
             if not ok:
                 raise AssertionError(f"{what}: row {g} != {w}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +230,141 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _insert_case(torch, GK, orig_insert, orig_probe, args):
+    planes, h32, live, S = args
+    if live is None:  # a compacted input: every row live
+        live = torch.ones(planes.shape[1], dtype=torch.bool,
+                          device=planes.device)
+    got = orig_insert(planes, h32, live, S)
+    want = GK.hash_insert_plain(planes, h32, live, S)
+    torch.cuda.synchronize()
+    if got[1] != want[1] or not torch.equal(got[0], want[0]):
+        raise AssertionError("cuda hash_insert != plain")
+    err = int((got[0].long() - want[0].long()).abs().max())
+    # cross-probe: each table read by the other version's probe
+    a = GK.hash_probe_plain(got[2], got[3], planes, h32, live)
+    b = orig_probe(want[2], want[3], planes, h32, live)
+    expect = torch.where(live, got[0], -1)
+    if not (torch.equal(a, expect) and torch.equal(b, expect)):
+        raise AssertionError("hash_insert cross-probe mismatch")
+    ms = cuda_ms(torch, lambda: orig_insert(planes, h32, live, S), 10)
+    # the two kernels alone, without the wrapper's finish and syncs
+    owner = torch.empty(S, dtype=torch.int32, device=planes.device)
+    first = torch.empty_like(owner)
+    slot = torch.empty(planes.shape[1], dtype=torch.int32,
+                       device=planes.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        owner.fill_(-1)
+        first.fill_(2**31 - 1)
+        GK._lib().hash_insert_launch(
+            planes.data_ptr(), planes.shape[0], planes.shape[1],
+            h32.data_ptr(), live.data_ptr(), S, owner.data_ptr(),
+            slot.data_ptr(), first.data_ptr(), stream)
+
+    extra = f", kernels alone {cuda_ms(torch, raw, 10):.3f} ms"
+    plain_ms = cuda_ms(
+        torch, lambda: GK.hash_insert_plain(planes, h32, live, S), 3,
+        warmup=1)
+    lib_ms = cuda_ms(torch, lambda: torch.unique(
+        planes, dim=1, return_inverse=True), 10)
+    P, n = planes.shape
+    L = int(live.sum())
+    nbytes = (P * n * 4 + n * 4 + n  # planes, h32, live
+              + n * 4 + P * S * 4 + S * 4  # row_gid, table, ids
+              + SECTOR * L)  # one random slot sector per live row
+    shape = f"P={P} N={n} S={S} live={L} groups={got[1]}"
+    return err, ms, plain_ms, lib_ms, nbytes, shape, extra
+
+
+def _probe_case(torch, GK, orig_probe, args):
+    tp, sg, planes, h32, live = args
+    if live is None:
+        live = torch.ones(planes.shape[1], dtype=torch.bool,
+                          device=planes.device)
+    got = orig_probe(tp, sg, planes, h32, live)
+    want = GK.hash_probe_plain(tp, sg, planes, h32, live)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("cuda hash_probe != plain")
+    err = int((got.long() - want.long()).abs().max())
+    ms = cuda_ms(torch, lambda: orig_probe(tp, sg, planes, h32, live), 10)
+    plain_ms = cuda_ms(
+        torch, lambda: GK.hash_probe_plain(tp, sg, planes, h32, live), 3,
+        warmup=1)
+    # library yardstick: searchsorted of the probe hashes in the sorted
+    # build hashes (the reference's sort path)
+    occ = sg >= 0
+    bh = ((tp[1][occ].long() << 32) | (tp[0][occ].long() & 0xFFFFFFFF))
+    ph = (planes[1].long() << 32) | (planes[0].long() & 0xFFFFFFFF)
+    sorted_bh = torch.sort(bh).values
+    lib_ms = cuda_ms(torch, lambda: torch.searchsorted(sorted_bh, ph), 10)
+    P, n = planes.shape
+    S = int(sg.shape[0])
+    L = int(live.sum())
+    nbytes = P * n * 4 + n * 4 + n + n * 4 + SECTOR * L
+    shape = f"P={P} N={n} S={S} live={L} hits={int((got >= 0).sum())}"
+    return err, ms, plain_ms, lib_ms, nbytes, shape, ""
+
+
+def _segment_case(torch, GK, orig_seg, args):
+    vals, gid, live, G = args
+    got = orig_seg(vals, gid, live, G)
+    again = orig_seg(vals, gid, live, G)
+    want = GK.masked_segment_sum_f32_plain(vals, gid, live, G)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("masked_segment_sum_f32: two runs differ")
+    v, g = vals.cpu().numpy(), gid.cpu().numpy().astype(np.int64)
+    ok = (g >= 0) & (g < G)
+    if live is not None:
+        ok &= live.cpu().numpy()
+    exact = np.bincount(g[ok], weights=v[ok].astype(np.float64),
+                        minlength=G)[:G]
+    denom = np.maximum(np.abs(exact), 1e-30)
+    k_rel = float(np.max(np.abs(got.cpu().numpy() - exact) / denom))
+    p_rel = float(np.max(np.abs(want.cpu().numpy() - exact) / denom))
+    if k_rel > KERNEL_VS_F64_RTOL or p_rel > PLAIN_VS_F64_RTOL:
+        raise AssertionError(
+            f"masked_segment_sum_f32 vs float64: kernel {k_rel:.3g} "
+            f"(limit {KERNEL_VS_F64_RTOL}), plain {p_rel:.3g} "
+            f"(limit {PLAIN_VS_F64_RTOL})")
+    # kernel vs plain on the same inputs: within the plain version's drift
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=PLAIN_VS_F64_RTOL, atol=0.0):
+        raise AssertionError(f"masked_segment_sum_f32 != plain (max abs "
+                             f"diff {err}, rtol {PLAIN_VS_F64_RTOL})")
+    ms = cuda_ms(torch, lambda: orig_seg(vals, gid, live, G), 20)
+    plain_ms = cuda_ms(
+        torch, lambda: GK.masked_segment_sum_f32_plain(vals, gid, live, G),
+        10)
+    # library yardstick: one scatter-add; the ids of these inputs lie in
+    # [0, G], so a G + 1 slot output takes the same rows
+    if live is not None or int(gid.max()) > G or int(gid.min()) < 0:
+        raise AssertionError("segment-sum inputs outside the library "
+                             "call's contract")
+    out = torch.zeros(G + 1, dtype=torch.float32, device=vals.device)
+    lib_ms = cuda_ms(torch, lambda: out.zero_().index_add_(0, gid, vals),
+                     20)
+    n = int(vals.shape[0])
+    nbytes = n * 4 + n * 4 + (n if live is not None else 0) + G * 4
+    shape = f"N={n} G={G} live={'all' if live is None else 'mask'}"
+    extra = (f", rel err vs float64: kernel {k_rel:.3g}, plain "
+             f"{p_rel:.3g}")
+    return err, ms, plain_ms, lib_ms, nbytes, shape, extra
+
+
+SOURCES = {
+    "hash_insert": ("trino_tpu_torch/csrc/hash_table.cu",
+                    "trino_tpu/ops/pallas_kernels.py:139"),
+    "hash_probe": ("trino_tpu_torch/csrc/hash_table.cu",
+                   "trino_tpu/ops/pallas_kernels.py:199"),
+    "masked_segment_sum_f32": ("trino_tpu_torch/csrc/segment_sum.cu",
+                               "trino_tpu/ops/pallas_kernels.py:50"),
+}
+
+
 def main() -> int:
     import torch
 
@@ -187,6 +377,8 @@ def main() -> int:
     from trino_tpu_torch.ops import gpu_kernels as GK
     from trino_tpu_torch.runner import StandaloneQueryRunner
 
+    sqls = {f"Q{q}": QUERIES[q] for q in sorted(QUERIES)}
+    sqls.update(REAL_QUERIES)
     t_start = time.perf_counter()
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -198,75 +390,87 @@ def main() -> int:
     t0 = time.perf_counter()
     GK.build_library(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc trino_tpu_torch/csrc/hash_table.cu)")
+        f"(nvcc trino_tpu_torch/csrc/*.cu, one process per source)")
 
     # -- path: SF 1 on cuda ------------------------------------------------
     runner = StandaloneQueryRunner(default_catalog(PATH_SF), device="cuda")
-    path_rows, timings = {}, {}
-    per_query_launches = {}
+    path_rows, timings, per_query = {}, {}, {}
+    t_path = time.perf_counter()
     GK.reset_launch_counts()
-    for q in PATH_QUERIES:
+    for name, sql in sqls.items():
         before = dict(GK.LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        runner.execute(QUERIES[q])
+        runner.execute(sql)
         torch.cuda.synchronize()
         cold = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        res = runner.execute(QUERIES[q])
+        res = runner.execute(sql)
         torch.cuda.synchronize()
         warm = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated() / 2**20
-        path_rows[q] = res.rows()
-        timings[q] = (cold, warm, peak)
-        per_query_launches[q] = {k: GK.LAUNCHES[k] - before[k]
-                                 for k in GK.LAUNCHES}
-    launches = dict(GK.LAUNCHES)
-    for q in PATH_QUERIES:
-        cold, warm, peak = timings[q]
-        log(f"path SF{PATH_SF:g} Q{q}: {len(path_rows[q])} rows, cold "
+        path_rows[name] = res.rows()
+        timings[name] = (cold, warm, peak)
+        per_query[name] = {k: GK.LAUNCHES[k] - before[k]
+                           for k in GK.LAUNCHES}
+        log(f"path SF{PATH_SF:g} {name}: {len(path_rows[name])} rows, cold "
             f"{cold:.1f} ms, warm {warm:.1f} ms, peak device memory "
-            f"{peak:.1f} MiB, launches {per_query_launches[q]}")
-        log(f"  rows: {path_rows[q][:3]}")
-    log(f"path launches: {launches}")
-    for q in (3, 12):
-        if per_query_launches[q]["hash_insert"] <= 0:
-            raise AssertionError(f"Q{q} launched no hash_insert")
-    if per_query_launches[12]["hash_probe"] <= 0:
-        raise AssertionError("Q12 launched no hash_probe")
+            f"{peak:.1f} MiB, launches {per_query[name]}")
+    launches = dict(GK.LAUNCHES)
+    log(f"path launches: {launches} "
+        f"({time.perf_counter() - t_path:.1f} s for {len(sqls)} queries)")
+    required = {"Q3": ["hash_insert"], "Q12": ["hash_probe"],
+                "Q18": ["hash_insert"], "Q21": ["hash_insert", "hash_probe"],
+                "R1": ["masked_segment_sum_f32"],
+                "R2": ["masked_segment_sum_f32"]}
+    for name, kernels in required.items():
+        for k in kernels:
+            if per_query[name][k] <= 0:
+                raise AssertionError(f"{name} launched no {k}")
     if any(v <= 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     t0 = time.perf_counter()
     conn1 = runner.catalog.connector("tpch")
-    for q in PATH_QUERIES:
-        same_rows(path_rows[q], oracle(conn1, q), f"SF{PATH_SF:g} Q{q}")
-    log(f"path rows equal the numpy evaluation "
-        f"({time.perf_counter() - t0:.1f} s)")
+    for name in ORACLE_QUERIES:
+        rtol = KERNEL_VS_F64_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+        worst = same_rows(path_rows[name], evaluate(conn1, name),
+                          f"SF{PATH_SF:g} {name}", rtol)
+        log(f"path SF{PATH_SF:g} {name}: rows equal the numpy evaluation "
+            f"(largest float rel diff {worst:.3g}, limit {rtol:g})")
+    log(f"numpy evaluations: {time.perf_counter() - t0:.1f} s")
 
-    # -- parity: SF 0.1, cuda vs cpu vs numpy --------------------------------
+    # -- parity: SF 0.1, cuda vs cpu (vs numpy) ------------------------------
+    t0 = time.perf_counter()
     cat = default_catalog(PARITY_SF)
     r_gpu = StandaloneQueryRunner(cat, device="cuda")
     r_cpu = StandaloneQueryRunner(cat, device="cpu")
-    for q in PATH_QUERIES:
-        g = r_gpu.execute(QUERIES[q]).rows()
-        c = r_cpu.execute(QUERIES[q]).rows()
-        same_rows(g, c, f"SF{PARITY_SF:g} Q{q} cuda vs cpu")
-        same_rows(g, oracle(cat.connector("tpch"), q),
-                  f"SF{PARITY_SF:g} Q{q} cuda vs numpy")
-        log(f"parity SF{PARITY_SF:g} Q{q}: {len(g)} rows equal on cuda, "
-            f"cpu and numpy")
+    for name, sql in sqls.items():
+        g = r_gpu.execute(sql).rows()
+        c = r_cpu.execute(sql).rows()
+        real = name in REAL_QUERIES
+        worst = same_rows(g, c, f"SF{PARITY_SF:g} {name} cuda vs cpu",
+                          REAL_PARITY_RTOL if real else DOUBLE_RTOL)
+        msg = ""
+        if name in ORACLE_QUERIES:
+            same_rows(g, evaluate(cat.connector("tpch"), name),
+                      f"SF{PARITY_SF:g} {name} cuda vs numpy",
+                      KERNEL_VS_F64_RTOL if real else DOUBLE_RTOL)
+            msg = " and numpy"
+        log(f"parity SF{PARITY_SF:g} {name}: {len(g)} rows equal on cuda "
+            f"and cpu{msg} (largest float rel diff {worst:.3g})")
+    log(f"parity: {time.perf_counter() - t0:.1f} s")
 
     # -- per-operator time (synchronized after every operator call) --------
-    for q in PATH_QUERIES:
+    for name in CAPTURE_QUERIES:
         st = QueryStats(sync=True)
         t0 = time.perf_counter()
-        runner.execute(QUERIES[q], stats=st)
+        runner.execute(sqls[name], stats=st)
         total = (time.perf_counter() - t0) * 1e3
         ops = ", ".join(f"{k} {v * 1e3:.1f}"
                         for k, v in sorted(st.by_operator().items(),
                                            key=lambda kv: -kv[1]))
-        log(f"operators SF{PATH_SF:g} Q{q} (sync, {total:.1f} ms): {ops}")
+        log(f"operators SF{PATH_SF:g} {name} (sync, {total:.1f} ms): {ops}")
 
     # -- kernels vs plain versions at the path's shapes ---------------------
     # One more run per query records every wrapper call's arguments; it is
@@ -275,6 +479,7 @@ def main() -> int:
     captured: dict = {}  # (query, kernel) -> list of wrapper args
     current = {"q": None}
     orig_insert, orig_probe = GK.hash_insert, GK.hash_probe
+    orig_seg = GK.masked_segment_sum_f32
 
     def cap_insert(planes, hash32, live, num_slots):
         captured.setdefault((current["q"], "hash_insert"), []).append(
@@ -286,127 +491,77 @@ def main() -> int:
             (table_planes, slot_gid, planes, hash32, live))
         return orig_probe(table_planes, slot_gid, planes, hash32, live)
 
+    def cap_seg(values, gid, live, num_groups):
+        captured.setdefault((current["q"], "masked_segment_sum_f32"),
+                            []).append((values, gid, live, num_groups))
+        return orig_seg(values, gid, live, num_groups)
+
     GK.hash_insert, GK.hash_probe = cap_insert, cap_probe
+    GK.masked_segment_sum_f32 = cap_seg
     try:
-        for q in PATH_QUERIES:
-            current["q"] = q
-            runner.execute(QUERIES[q])
+        for name in CAPTURE_QUERIES:
+            current["q"] = name
+            runner.execute(sqls[name])
     finally:
         GK.hash_insert, GK.hash_probe = orig_insert, orig_probe
+        GK.masked_segment_sum_f32 = orig_seg
 
     def pick(q, kernel, pred):
         calls = [c for c in captured.get((q, kernel), []) if pred(c)]
         if not calls:
-            raise AssertionError(f"no captured {kernel} call of Q{q}")
-        return max(calls, key=lambda c: c[-3].shape[-1]
-                   if kernel == "hash_probe" else c[0].shape[1])
+            raise AssertionError(f"no captured {kernel} call of {q}")
+        if kernel == "hash_probe":
+            return max(calls, key=lambda c: c[-3].shape[-1])
+        if kernel == "hash_insert":
+            return max(calls, key=lambda c: c[0].shape[1])
+        return max(calls, key=lambda c: c[0].shape[0])
 
     cases = [
         ("hash_insert", "Q3 orders join index",
-         pick(3, "hash_insert", lambda c: c[0].shape[0] == 2)),
+         pick("Q3", "hash_insert", lambda c: c[0].shape[0] == 2)),
         ("hash_insert", "Q3 group-by (3 keys)",
-         pick(3, "hash_insert", lambda c: c[0].shape[0] > 2)),
+         pick("Q3", "hash_insert", lambda c: c[0].shape[0] > 2)),
         ("hash_insert", "Q12 lineitem join index",
-         pick(12, "hash_insert", lambda c: True)),
+         pick("Q12", "hash_insert", lambda c: True)),
+        ("hash_insert", "Q18 largest insert (lineitem by l_orderkey)",
+         pick("Q18", "hash_insert", lambda c: True)),
         ("hash_probe", "Q12 orders probe",
-         pick(12, "hash_probe", lambda c: True)),
+         pick("Q12", "hash_probe", lambda c: True)),
+        ("hash_probe", "Q21 largest probe (EXISTS over lineitem)",
+         pick("Q21", "hash_probe", lambda c: True)),
+        ("masked_segment_sum_f32", "R1 (7 groups, cap 8)",
+         pick("R1", "masked_segment_sum_f32", lambda c: True)),
+        ("masked_segment_sum_f32", "R2 (50 groups, cap 64)",
+         pick("R2", "masked_segment_sum_f32", lambda c: True)),
     ]
     entries = {}
     for kernel, label, args in cases:
         if kernel == "hash_insert":
-            planes, h32, live, S = args
-            if live is None:  # a compacted input: every row live
-                live = torch.ones(planes.shape[1], dtype=torch.bool,
-                                  device=planes.device)
-            got = orig_insert(planes, h32, live, S)
-            want = GK.hash_insert_plain(planes, h32, live, S)
-            torch.cuda.synchronize()
-            if got[1] != want[1] or not torch.equal(got[0], want[0]):
-                raise AssertionError(f"{label}: cuda hash_insert != plain")
-            err = int((got[0].long() - want[0].long()).abs().max())
-            # cross-probe: each table read by the other version's probe
-            a = GK.hash_probe_plain(got[2], got[3], planes, h32, live)
-            b = orig_probe(want[2], want[3], planes, h32, live)
-            expect = torch.where(live, got[0], -1)
-            if not (torch.equal(a, expect) and torch.equal(b, expect)):
-                raise AssertionError(f"{label}: cross-probe mismatch")
-            ms = cuda_ms(torch, lambda: orig_insert(planes, h32, live, S),
-                         10)
-            # the two kernels alone, without the wrapper's finish and syncs
-            owner = torch.empty(S, dtype=torch.int32, device=planes.device)
-            first = torch.empty_like(owner)
-            slot = torch.empty(planes.shape[1], dtype=torch.int32,
-                               device=planes.device)
-            stream = torch.cuda.current_stream().cuda_stream
-
-            def raw():
-                owner.fill_(-1)
-                first.fill_(2**31 - 1)
-                GK._lib().hash_insert_launch(
-                    planes.data_ptr(), planes.shape[0], planes.shape[1],
-                    h32.data_ptr(), live.data_ptr(), S, owner.data_ptr(),
-                    slot.data_ptr(), first.data_ptr(), stream)
-
-            kernel_only = f", kernels alone {cuda_ms(torch, raw, 10):.3f} ms"
-            plain_ms = cuda_ms(
-                torch, lambda: GK.hash_insert_plain(planes, h32, live, S),
-                3, warmup=1)
-            lib_ms = cuda_ms(torch, lambda: torch.unique(
-                planes, dim=1, return_inverse=True), 10)
-            P, n = planes.shape
-            L = int(live.sum())
-            nbytes = (P * n * 4 + n * 4 + n  # planes, h32, live
-                      + n * 4 + P * S * 4 + S * 4  # row_gid, table, ids
-                      + SECTOR * L)  # one random slot sector per live row
-            shape = f"P={P} N={n} S={S} live={L} groups={got[1]}"
+            res = _insert_case(torch, GK, orig_insert, orig_probe, args)
+        elif kernel == "hash_probe":
+            res = _probe_case(torch, GK, orig_probe, args)
         else:
-            tp, sg, planes, h32, live = args
-            if live is None:
-                live = torch.ones(planes.shape[1], dtype=torch.bool,
-                                  device=planes.device)
-            got = orig_probe(tp, sg, planes, h32, live)
-            want = GK.hash_probe_plain(tp, sg, planes, h32, live)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"{label}: cuda hash_probe != plain")
-            err = int((got.long() - want.long()).abs().max())
-            ms = cuda_ms(torch, lambda: orig_probe(tp, sg, planes, h32,
-                                                   live), 10)
-            plain_ms = cuda_ms(
-                torch, lambda: GK.hash_probe_plain(tp, sg, planes, h32,
-                                                   live), 3, warmup=1)
-            # library yardstick: searchsorted of the probe hashes in the
-            # sorted build hashes (the reference's sort path)
-            occ = sg >= 0
-            bh = ((tp[1][occ].long() << 32) | (tp[0][occ].long()
-                                                & 0xFFFFFFFF))
-            ph = (planes[1].long() << 32) | (planes[0].long() & 0xFFFFFFFF)
-            sorted_bh = torch.sort(bh).values
-            lib_ms = cuda_ms(torch, lambda: torch.searchsorted(
-                sorted_bh, ph), 10)
-            kernel_only = ""
-            P, n = planes.shape
-            S = int(sg.shape[0])
-            L = int(live.sum())
-            nbytes = P * n * 4 + n * 4 + n + n * 4 + SECTOR * L
-            shape = (f"P={P} N={n} S={S} live={L} "
-                     f"hits={int((got >= 0).sum())}")
+            res = _segment_case(torch, GK, orig_seg, args)
+        err, ms, plain_ms, lib_ms, nbytes, shape, extra = res
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"kernel {kernel} [{label}] {shape}: {ms:.3f} ms"
-            f"{kernel_only}, plain {plain_ms:.3f} ms, library "
-            f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes / "
-            f"3.35 TB/s), "
-            f"max_abs_err {err}")
-        entries.setdefault(kernel, {
-            "name": kernel, "route": "cuda",
-            "source": "trino_tpu_torch/csrc/hash_table.cu",
-            "replaces": ("trino_tpu/ops/pallas_kernels.py:139"
-                         if kernel == "hash_insert"
-                         else "trino_tpu/ops/pallas_kernels.py:199"),
-            "launches": launches[kernel], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": lib_ms, "shape": shape})
+        log(f"kernel {kernel} [{label}] {shape}: {ms:.4f} ms{extra}, plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({nbytes} bytes / 3.35 TB/s), max_abs_err "
+            f"{err}")
+        case = {"label": label, "shape": shape, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "max_abs_err": err}
+        src, replaces = SOURCES[kernel]
+        entry = entries.setdefault(kernel, {
+            "name": kernel, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[kernel],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+            "shape": shape, "cases": []})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["cases"].append(case)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(smi, flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

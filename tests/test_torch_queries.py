@@ -1,4 +1,6 @@
-"""TPC-H Q1, Q3 and Q12 through the torch port against the JAX reference.
+"""TPC-H Q1-Q12 through the torch port against the JAX reference
+(Q13-Q22 and the REAL-sum queries are in test_torch_queries_q13_q22.py,
+which shares this module's fixtures).
 
 Both runners read the same generated SF 0.01 data.  The reference is pinned
 to the paths that run here (sort-path hashing, no Pallas, no result cache,
@@ -39,48 +41,55 @@ def reference(monkeypatch):
     return RefRunner(ref_catalog(SF))
 
 
-def _same_rows(got, want):
+def _same_rows(got, want, rel_tol=1e-9):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert len(g) == len(w)
         for a, b in zip(g, w):
             if isinstance(b, float):
-                assert math.isclose(a, b, rel_tol=1e-9), (g, w)
+                assert math.isclose(a, b, rel_tol=rel_tol), (g, w)
             else:
                 assert type(a) is type(b) and a == b, (g, w)
 
 
 def _count_plain_calls(monkeypatch):
-    calls = {"insert": 0, "probe": 0}
-    ins, prb = GK.hash_insert_plain, GK.hash_probe_plain
+    calls = {"insert": 0, "probe": 0, "segment_sum": 0}
+    plain = {"insert": "hash_insert_plain", "probe": "hash_probe_plain",
+             "segment_sum": "masked_segment_sum_f32_plain"}
+    for key, name in plain.items():
+        def spy(*a, _key=key, _fn=getattr(GK, name), **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
 
-    def spy_insert(*a, **kw):
-        calls["insert"] += 1
-        return ins(*a, **kw)
-
-    def spy_probe(*a, **kw):
-        calls["probe"] += 1
-        return prb(*a, **kw)
-
-    monkeypatch.setattr(GK, "hash_insert_plain", spy_insert)
-    monkeypatch.setattr(GK, "hash_probe_plain", spy_probe)
+        monkeypatch.setattr(GK, name, spy)
     return calls
 
 
-# (query, hash_insert calls, hash_probe calls) on the port's path: Q3 builds
-# two join indexes and groups on three numeric keys; Q12 builds one index
-# and probes a non-unique (lineitem) build
-@pytest.mark.parametrize("q,inserts,probes", [(1, 0, 0), (3, 3, 0),
-                                              (12, 1, 1)])
-def test_query_matches_reference(port, reference, monkeypatch, q, inserts,
-                                 probes):
+def check_query(port, reference, monkeypatch, q, inserts, probes):
+    """Port rows == reference rows, and the port's plain-kernel calls: an
+    exact hash_insert count and at least ``probes`` hash_probe calls (none
+    when ``probes`` is 0)."""
     calls = _count_plain_calls(monkeypatch)
     got = port.execute(QUERIES[q]).rows()
     assert calls["insert"] == inserts and calls["probe"] >= probes
     assert (calls["probe"] > 0) == (probes > 0)
+    assert calls["segment_sum"] == 0  # no TPC-H query sums a REAL
     want = reference.execute(QUERIES[q]).rows()
-    assert len(want) > 0
     _same_rows(got, want)
+    return want
+
+
+# (query, hash_insert calls, hash_probe calls) on the port's path: Q3 builds
+# two join indexes and groups on three numeric keys; Q12 builds one index
+# and probes a non-unique (lineitem) build; Q4 and Q7 probe non-unique
+# builds too
+@pytest.mark.parametrize("q,inserts,probes", [
+    (1, 0, 0), (2, 9, 0), (3, 3, 0), (4, 1, 1), (5, 5, 0), (6, 0, 0),
+    (7, 6, 1), (8, 8, 0), (9, 6, 0), (10, 4, 0), (11, 5, 0), (12, 1, 1)])
+def test_query_matches_reference(port, reference, monkeypatch, q, inserts,
+                                 probes):
+    want = check_query(port, reference, monkeypatch, q, inserts, probes)
+    assert len(want) > 0
 
 
 # plan shapes off the three queries' path that the ported operators cover:

@@ -1,6 +1,7 @@
 """Hash-join execution on tensors: build, probe ranges, pair expansion.
 
-The port of the reference ``exec/join_exec.py`` (INNER joins):
+The port of the reference ``exec/join_exec.py`` (INNER, LEFT and SINGLE
+joins and the semi-join mark):
 
 - :func:`build_table` hashes and sorts the build keys (``hash_combine`` +
   argsort), then indexes the sorted hashes with an open-addressing table
@@ -8,9 +9,15 @@ The port of the reference ``exec/join_exec.py`` (INNER joins):
   unique dense integer key, a direct-address table (:func:`maybe_build_dense`);
 - :func:`probe_ranges_device` maps probe rows to (lo, counts) runs of the
   sorted build through the ``hash_probe`` kernel;
-- :func:`run_pairs` expands candidates, verifies keys exactly and gathers
-  the output columns; :func:`run_unique` is the one-match-per-row probe of a
-  unique build (dense or sorted-hash branch).
+- :func:`run_pairs` expands candidates, verifies keys exactly, applies the
+  residual and gathers the output columns, with per-probe match flags for
+  LEFT/SINGLE joins or the three-valued semi-join mark;
+  :func:`run_unique` is the one-match-per-row probe of a unique build (dense
+  or sorted-hash branch) with the same options.
+
+A residual is a callable over the pair layout (probe columns ++ build
+columns) returning a bool mask, with a ``refs`` attribute naming the
+channels it reads: only those are gathered to evaluate it.
 
 Hashes are int64 tensors holding uint64 bits (exec/kernels.py).  Sorted
 order is the UNSIGNED order of the reference: sorting and searching use the
@@ -30,7 +37,8 @@ from . import kernels as K
 from ..ops import gpu_kernels as GK
 
 __all__ = ["DeviceJoinTable", "JoinHashTable", "build_table",
-           "probe_ranges_device", "run_pairs", "run_unique"]
+           "probe_ranges_device", "run_pairs", "run_unique", "semi_mark",
+           "probe_key_remap"]
 
 _SENT_BUILD = -1  # 0xFFFFFFFFFFFFFFFF: build rows with NULL keys / dead rows
 _SENT_PROBE = -2  # 0xFFFFFFFFFFFFFFFE: probe rows with NULL keys
@@ -232,12 +240,49 @@ def probe_ranges_device(table: DeviceJoinTable, probe_keys: Sequence[tuple],
     return lo, counts, int(counts.sum())
 
 
+def _gather(cols, idx, only=None, offset: int = 0):
+    """Columns gathered at ``idx``; with ``only`` (a set of pair-layout
+    channels), the others are left as None."""
+    return [(d[idx], None if v is None else v[idx])
+            if only is None or i + offset in only else None
+            for i, (d, v) in enumerate(cols)]
+
+
+def _apply_residual(residual, ok, cols):
+    mask = residual(cols)
+    return ok & (mask.expand(ok.shape) if mask.dim() == 0 else mask)
+
+
+def semi_mark(matched, probe_keys, semi: tuple):
+    """Three-valued IN / EXISTS mark (data, valid): a non-match is UNKNOWN
+    when the join is null-aware (NOT IN) and the probe key is NULL or the
+    build holds a NULL key; IN over an empty build is FALSE even for a NULL
+    probe.  ``semi`` = (null_aware, has_null_build, build_nonempty)."""
+    null_aware, has_null_build, build_nonempty = semi
+    if not (null_aware and build_nonempty):
+        return matched, None
+    if has_null_build:
+        return matched, matched
+    null_probe = None
+    for _, v in probe_keys:
+        if v is not None:
+            null_probe = ~v if null_probe is None else (null_probe | ~v)
+    if null_probe is None:
+        return matched, None
+    return matched, matched | ~null_probe
+
+
 def run_pairs(table: DeviceJoinTable, lo, counts, total: int, probe_keys,
-              remaps, probe_cols, build_cols):
+              remaps, probe_cols, build_cols, residual=None,
+              need_matched: bool = False, semi: Optional[tuple] = None):
     """Expand the candidate runs into (probe, build) pairs, verify key
-    equality exactly, and gather every output column at the pairs.
-    Returns (pair_cols, ok): [(data, valid)] over probe then build columns,
-    and the per-pair match mask (the output batch's live mask)."""
+    equality exactly, apply ``residual``, and gather every output column at
+    the pairs.  Returns (pair_cols, ok, matches, mark): ``pair_cols``
+    [(data, valid)] over probe then build columns (None for a semi-join,
+    which gathers only what its residual reads), ``ok`` the per-pair match
+    mask (the output batch's live mask), ``matches`` the per-probe match
+    count when ``need_matched``, ``mark`` the semi-join mark (data, valid)
+    when ``semi`` is set."""
     dev = lo.device
     n_probe = int(counts.shape[0])
     probe_id = torch.repeat_interleave(
@@ -249,19 +294,34 @@ def run_pairs(table: DeviceJoinTable, lo, counts, total: int, probe_keys,
     ok = torch.ones(total, dtype=torch.bool, device=dev)
     for pk, bk in zip(pkeys, table.key_datas):
         ok = ok & ~K._neq(pk[probe_id], bk[build_id])
-    pairs = [(d[probe_id], None if v is None else v[probe_id])
-             for d, v in probe_cols]
-    pairs += [(d[build_id], None if v is None else v[build_id])
-              for d, v in build_cols]
-    return pairs, ok
+    pairs = None
+    if semi is None or residual is not None:
+        only = residual.refs if semi is not None else None
+        np_cols = len(probe_cols)
+        pairs = (_gather(probe_cols, probe_id, only)
+                 + _gather(build_cols, build_id, only, np_cols))
+    if residual is not None:
+        ok = _apply_residual(residual, ok, pairs)
+    matches = mark = None
+    if need_matched or semi is not None:
+        matches = torch.zeros(n_probe, dtype=torch.int64,
+                              device=dev).index_add_(0, probe_id,
+                                                     ok.to(torch.int64))
+    if semi is not None:
+        mark = semi_mark(matches > 0, probe_keys, semi)
+        pairs = None
+    return pairs, ok, matches, mark
 
 
 def run_unique(table: DeviceJoinTable, probe_keys, remaps, build_cols,
-               live=None):
+               live=None, residual=None, probe_cols=(),
+               semi: Optional[tuple] = None):
     """Probe a unique build: at most one match per probe row, so the output
-    keeps the probe batch's shape.  Returns (build_out, ok_live):
-    build columns gathered per probe row (valid folds the match mask) and
-    the per-probe match mask & live."""
+    keeps the probe batch's shape.  ``residual`` reads ``probe_cols`` ++ the
+    gathered build columns.  Returns (build_out, ok_live, mark):
+    build columns gathered per probe row (valid folds the match mask), the
+    per-probe match mask & live, and the semi-join mark when ``semi`` is
+    set (then ``build_out`` is None)."""
     dev = probe_keys[0][0].device
     nb = table.num_rows
     if table.dense is not None and len(probe_keys) == 1:
@@ -289,10 +349,17 @@ def run_unique(table: DeviceJoinTable, probe_keys, remaps, build_cols,
         bid = table.perm[pos]
         for pk, bk in zip(pkeys, table.key_datas):
             ok = ok & ~K._neq(pk, bk[bid])
+    if residual is not None:
+        np_cols = len(probe_cols)
+        cols = (list(probe_cols)
+                + _gather(build_cols, bid, residual.refs, np_cols))
+        ok = _apply_residual(residual, ok, cols)
     ok_live = ok if live is None else (ok & live)
+    if semi is not None:
+        return None, ok_live, semi_mark(ok, probe_keys, semi)
     out = [(d[bid], ok_live if v is None else (v[bid] & ok_live))
            for d, v in build_cols]
-    return out, ok_live
+    return out, ok_live, None
 
 
 def probe_key_remap(pdict: Optional[np.ndarray],

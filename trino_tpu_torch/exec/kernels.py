@@ -298,13 +298,17 @@ def small_grouped_aggregate(key_cols, live, aggs: Sequence[tuple], n: int,
         fused = torch.where(live, fused, total)  # dead rows -> trash slot
     results = []
     for entry in aggs:
-        fn, data, valid, dtype, _distinct = entry[:5]
+        fn, data, valid, dtype, distinct = entry[:5]
         pre = entry[5] if len(entry) > 5 else None
-        if fn == "count_star" or data is None:
-            fn = "count_star" if valid is None else "count"
-        d, v = _reduce_into(fn, fused, None if data is None
-                            else _prep(data, pre), valid, total + 1,
-                            _torch_dtype(dtype))
+        if distinct and data is not None:
+            d, v = _distinct_reduce(fn, fused, _prep(data, pre), valid,
+                                    total + 1, _torch_dtype(dtype))
+        else:
+            if fn == "count_star" or data is None:
+                fn = "count_star" if valid is None else "count"
+            d, v = _reduce_into(fn, fused, None if data is None
+                                else _prep(data, pre), valid, total + 1,
+                                _torch_dtype(dtype))
         if fn in ("sum", "min", "max") and v is None:
             # an empty group's sum/min/max is NULL, not the fill value
             v = torch.zeros(total + 1, dtype=torch.int64,
@@ -336,23 +340,73 @@ def _torch_dtype(dtype):
 # grouped reduction over (perm, gid) (reference: kernels.py:1000)
 
 
+def _distinct_reduce(fn: str, g, data, valid, n_out: int, dtype):
+    """count/sum DISTINCT into ``n_out`` slots (reference: the ``distinct``
+    branch of _reduce_fn): sort rows by (group, validity, value), keep the
+    first row of each run, and reduce only the kept valid rows."""
+    if data.is_floating_point():
+        data = _canon_float(data)  # NaN is ONE distinct value
+    order = lexsort([data] + ([valid] if valid is not None else []) + [g])
+    d2, g2 = data[order], g[order]
+    first = torch.ones(d2.shape, dtype=torch.bool, device=d2.device)
+    first[1:] = _neq(d2[1:], d2[:-1]) | (g2[1:] != g2[:-1])
+    keep = first
+    if valid is not None:
+        v2 = valid[order]
+        first[1:] |= v2[1:] != v2[:-1]
+        keep = first & v2
+    if fn == "count":
+        return torch.zeros(n_out, dtype=torch.int64,
+                           device=g.device).index_add_(
+            0, g2, keep.to(torch.int64)), None
+    if fn == "sum":
+        return _reduce_into("sum", g2, d2, keep, n_out, dtype)
+    raise NotImplementedError(f"distinct {fn}")
+
+
+def _real_sum(g, cap: int, data, valid):
+    """The REAL-sum route: the ``masked_segment_sum_f32`` kernel over the
+    sorted rows (``g`` carries dead rows at an id >= the group count, which
+    the kernel skips) and the any-valid bit as a scatter-add."""
+    vals = data.to(torch.float32).contiguous()
+    g32 = g.to(torch.int32)
+    s = GK.masked_segment_sum_f32(vals, g32, valid, cap)
+    anyv = None
+    if valid is not None:
+        anyv = torch.zeros(cap + 1, dtype=torch.int64,
+                           device=g.device).index_add_(
+            0, g, valid.to(torch.int64)) > 0
+    return s, anyv
+
+
 def grouped_reduce(perm, gid, num_groups: int, aggs: Sequence[tuple]):
     """aggs: [(fn, data|None, valid|None, dtype, distinct[, pre]), ...] over
     ORIGINAL row order; ``perm``/``gid`` from :func:`hash_group_ids`.
-    Returns per-agg (values, valid|None) of length ``num_groups``."""
+    Returns per-agg (values, valid|None) of length ``num_groups``.
+
+    A non-distinct REAL sum over at most 64 groups (``bucket(num_groups)``)
+    goes through the ``masked_segment_sum_f32`` kernel, as in the
+    reference."""
+    cap = bucket(num_groups)
     g = torch.clamp(gid.to(torch.int64), max=num_groups)  # dead -> trash
     out = []
     for entry in aggs:
         fn, data, valid, dtype, distinct = entry[:5]
         pre = entry[5] if len(entry) > 5 else None
-        if distinct:
-            raise NotImplementedError("DISTINCT aggregate")
-        if fn == "count_star" or data is None:
-            fn = "count_star" if valid is None else "count"
-        d = None if data is None else _prep(data[perm], pre)
-        v = None if valid is None else valid[perm]
-        vals, anyv = _reduce_into(fn, g, d, v, num_groups + 1,
-                                  _torch_dtype(dtype))
+        tdtype = _torch_dtype(dtype)
+        v = None if valid is None else valid[perm].contiguous()
+        if (fn == "sum" and data is not None and not distinct and pre is None
+                and tdtype == torch.float32
+                and cap <= GK.SEGMENT_SUM_MAX_GROUPS):
+            vals, anyv = _real_sum(g, cap, data[perm], v)
+        elif distinct and data is not None:
+            vals, anyv = _distinct_reduce(fn, g, _prep(data[perm], pre), v,
+                                          num_groups + 1, tdtype)
+        else:
+            if fn == "count_star" or data is None:
+                fn = "count_star" if valid is None else "count"
+            d = None if data is None else _prep(data[perm], pre)
+            vals, anyv = _reduce_into(fn, g, d, v, num_groups + 1, tdtype)
         out.append((vals[:num_groups],
                     None if anyv is None else anyv[:num_groups]))
     return out

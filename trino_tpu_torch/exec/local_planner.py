@@ -27,6 +27,7 @@ from .operators import (
     OutputCollector,
     RenameOperator,
     ScanOperator,
+    SemiJoinOperator,
     SortOperator,
     TopNOperator,
 )
@@ -116,6 +117,19 @@ class LocalPlanner:
             chain = self._chain(node.left)
             chain.append(LookupJoinOperator(
                 bridge, node.left_keys, node.join_type, node.residual,
+                node.output_names, node.output_types))
+            return chain
+
+        if isinstance(node, P.SemiJoin):
+            bridge = JoinBridge()
+            build = self._chain(node.filter_source)
+            build.append(JoinBuildSink(
+                bridge, node.filter_keys, node.filter_source.output_types,
+                node.filter_source.output_names, self.device))
+            self.pipelines.append(build)
+            chain = self._chain(node.source)
+            chain.append(SemiJoinOperator(
+                bridge, node.source_keys, node.null_aware, node.residual,
                 node.output_names, node.output_types))
             return chain
 

@@ -5,7 +5,8 @@ operator/Operator.java:21 — ``needs_input``/``add_input``/``get_output``/
 ``is_finished``) for the operators the ported queries use:
 
 - streaming: ScanOperator (synchronous path), FilterProjectOperator,
-  LookupJoinOperator (INNER), LimitOperator, RenameOperator;
+  LookupJoinOperator (INNER, LEFT, SINGLE; keyed or nested-loop),
+  SemiJoinOperator (IN / EXISTS mark), LimitOperator, RenameOperator;
 - blocking: HashAggregationOperator (SINGLE step), JoinBuildSink,
   SortOperator / TopNOperator; OutputCollector is the sink.
 
@@ -26,16 +27,17 @@ from ..ops.expr import (compile_expression, expr_condition_mask,
 from ..planner.plan import AggCall, SortKey
 from ..spi.batch import Column, ColumnBatch, as_tensor, torch_dtype
 from ..spi.connector import Connector, Split
-from ..spi.types import DOUBLE, DecimalType, Type
-from ..sql.ir import RowExpression
+from ..spi.errors import SUBQUERY_MULTIPLE_ROWS, TrinoError
+from ..spi.types import BOOLEAN, DOUBLE, DecimalType, Type
+from ..sql.ir import RowExpression, referenced_inputs
 from . import join_exec as JX
 from . import kernels as K
 
 __all__ = [
     "Operator", "ScanOperator", "FilterProjectOperator",
     "HashAggregationOperator", "JoinBridge", "JoinBuildSink",
-    "LookupJoinOperator", "SortOperator", "TopNOperator", "LimitOperator",
-    "RenameOperator", "OutputCollector",
+    "LookupJoinOperator", "SemiJoinOperator", "SortOperator",
+    "TopNOperator", "LimitOperator", "RenameOperator", "OutputCollector",
 ]
 
 
@@ -296,30 +298,30 @@ class HashAggregationOperator(Operator):
         finalize plan; avg expands to a (scale-free f64 sum, count) pair."""
         specs, plan = [], []
         for a in self.aggs:
-            if a.distinct:
-                raise NotImplementedError("DISTINCT aggregate")
             if a.fn == "count" and a.arg < 0:
                 plan.append(("count", len(specs)))
                 specs.append(("count_star", None, None, np.int64, False))
                 continue
             col = inp.columns[a.arg]
+            dist = bool(a.distinct)
             if a.fn == "avg":
                 scale = (col.type.scale if isinstance(col.type, DecimalType)
                          else 0)
                 plan.append(("avg", len(specs)))
-                specs.append(("sum", col.data, col.valid, np.float64, False,
+                specs.append(("sum", col.data, col.valid, np.float64, dist,
                               ("scale", scale)))
-                specs.append(("count", col.data, col.valid, np.int64, False))
+                specs.append(("count", col.data, col.valid, np.int64, dist))
             elif a.fn == "sum":
                 dtype = (np.float64 if a.type == DOUBLE
                          else np.float32 if a.type.name == "real"
                          else np.int64)
                 plan.append(("sum", len(specs)))
-                specs.append(("sum", col.data, col.valid, dtype, False))
+                specs.append(("sum", col.data, col.valid, dtype, dist))
             elif a.fn == "count":
                 plan.append(("count", len(specs)))
-                specs.append(("count", col.data, col.valid, np.int64, False))
+                specs.append(("count", col.data, col.valid, np.int64, dist))
             elif a.fn in ("min", "max"):
+                # DISTINCT does not change a min or a max
                 plan.append((a.fn, len(specs)))
                 specs.append((a.fn, col.data, col.valid, None, False))
             else:
@@ -397,7 +399,7 @@ class JoinBridge:
 
     @property
     def ready(self) -> bool:
-        return self.table is not None
+        return self.batch is not None
 
 
 class JoinBuildSink(Operator):
@@ -430,32 +432,221 @@ class JoinBuildSink(Operator):
         self._batches = []
         keys = [(batch.columns[ch].data, batch.columns[ch].valid)
                 for ch in self.key_channels]
-        self.bridge.batch = batch
         self.bridge.key_dicts = [batch.columns[ch].dictionary
                                  for ch in self.key_channels]
-        self.bridge.table = JX.build_table(keys, live=batch.live)
+        # a keyless (nested-loop) join reads the batch alone
+        self.bridge.table = (JX.build_table(keys, live=batch.live) if keys
+                             else None)
+        self.bridge.batch = batch
 
     def is_finished(self) -> bool:
         return self.input_done
 
 
+class _Residual:
+    """A join's residual predicate over the pair layout (probe columns ++
+    build columns), compiled once per set of probe/build dictionaries.
+    Calling the bound program returns the bool mask (NULL = no match)."""
+
+    def __init__(self, expr: RowExpression):
+        self.expr = expr
+        self.refs = referenced_inputs(expr)
+        self._dicts = None
+        self._prog = None
+
+    def bind(self, probe: ColumnBatch, build: ColumnBatch):
+        cols = list(probe.columns) + list(build.columns)
+        dicts = [c.dictionary for c in cols]
+        if self._dicts is None or not all(
+                a is b for a, b in zip(self._dicts, dicts)):
+            ce = compile_expression(self.expr, [c.type for c in cols],
+                                    dicts, probe.device)
+
+            def prog(pair_cols):
+                d, v = ce(pair_cols)
+                return d if v is None else (d & v)
+
+            prog.refs = self.refs
+            self._dicts, self._prog = dicts, prog
+        return self._prog
+
+
+def _null_columns(build: ColumnBatch, n: int, device) -> list[Column]:
+    """All-NULL stand-ins for the build columns over ``n`` rows."""
+    return [Column(c.type, torch.zeros(n, dtype=c.data.dtype, device=device),
+                   torch.zeros(n, dtype=torch.bool, device=device),
+                   c.dictionary)
+            for c in build.columns]
+
+
+def _nested_loop_pairs(probe: ColumnBatch, build: ColumnBatch, residual):
+    """Nested-loop pair expansion of two compacted batches (operator/join/
+    NestedLoopJoinOperator.java:45): the full probe x build product, kept
+    where the residual holds.  Returns (probe idx, build idx)."""
+    dev = probe.device
+    nb, npr = build.num_rows, probe.num_rows
+    pi = torch.arange(npr, device=dev).repeat_interleave(nb)
+    bi = torch.arange(nb, device=dev).repeat(npr)
+    if residual is None or not len(pi):
+        return pi, bi
+    prog = residual.bind(probe, build)
+    cols = ([(c.data[pi], None if c.valid is None else c.valid[pi])
+             for c in probe.columns]
+            + [(c.data[bi], None if c.valid is None else c.valid[bi])
+               for c in build.columns])
+    mask = prog(cols)
+    if mask.dim() == 0:
+        mask = mask.expand(pi.shape)
+    return pi[mask], bi[mask]
+
+
+def _probe_keys(batch: ColumnBatch, channels, bridge: "JoinBridge"):
+    """Probe key (data, valid) pairs and the dictionary remaps into the
+    build's code space."""
+    keys = [(batch.columns[ch].data, batch.columns[ch].valid)
+            for ch in channels]
+    remaps = [JX.probe_key_remap(batch.columns[ch].dictionary,
+                                 bridge.key_dicts[k], batch.device)
+              for k, ch in enumerate(channels)]
+    return keys, remaps
+
+
+def _cols(batch: ColumnBatch) -> list:
+    return [(c.data, c.valid) for c in batch.columns]
+
+
 class LookupJoinOperator(Operator):
-    """Probe side of the INNER equi-join (operator/join/
-    LookupJoinOperator.java:37).  A unique build (every FK->PK edge) keeps
-    the probe batch's shape (dense or sorted-hash lookup); a build with
-    duplicate keys expands candidate runs found by the ``hash_probe``
-    kernel."""
+    """Probe side of the equi-join (operator/join/LookupJoinOperator.java:37)
+    for INNER, LEFT and SINGLE joins, with an optional residual.  A unique
+    build (every FK->PK edge) keeps the probe batch's shape (dense or
+    sorted-hash lookup); a build with duplicate keys expands candidate runs
+    found by the ``hash_probe`` kernel.  LEFT/SINGLE keep every probe row:
+    an unmatched one is NULL-extended.  A SINGLE join (a scalar subquery)
+    whose build gives a probe row more than one match raises
+    SUBQUERY_MULTIPLE_ROWS.  Keyless joins run as a nested loop."""
 
     def __init__(self, bridge: JoinBridge, left_keys: Sequence[int],
                  join_type: str, residual: Optional[RowExpression],
                  output_names: Sequence[str], output_types: Sequence[Type]):
-        if join_type != "INNER" or residual is not None or not left_keys:
-            raise NotImplementedError(
-                f"{join_type} join (residual={residual is not None}, "
-                f"keys={len(left_keys)})")
+        if join_type not in ("INNER", "LEFT", "SINGLE"):
+            raise NotImplementedError(f"{join_type} join")
         self.bridge = bridge
         self.left_keys = list(left_keys)
         self.join_type = join_type
+        self.residual = _Residual(residual) if residual is not None else None
+        self.output_names = list(output_names)
+        self.output_types = list(output_types)
+        self._pending: "deque[ColumnBatch]" = deque()
+
+    @property
+    def _outer(self) -> bool:
+        return self.join_type in ("LEFT", "SINGLE")
+
+    def needs_input(self) -> bool:
+        return (self.bridge.ready and not self._pending
+                and super().needs_input())
+
+    def _emit(self, cols, live=None) -> None:
+        self._pending.append(ColumnBatch(self.output_names, cols, live))
+
+    def _null_extended(self, probe: ColumnBatch, live) -> None:
+        """Unmatched probe rows keep the probe batch's shape under ``live``;
+        the build columns read NULL."""
+        self._emit(list(probe.columns) + _null_columns(
+            self.bridge.batch, probe.num_rows, probe.device), live)
+
+    def _too_many_rows(self) -> TrinoError:
+        return TrinoError(SUBQUERY_MULTIPLE_ROWS,
+                          "scalar subquery returned multiple rows")
+
+    def _add_cross_input(self, probe: ColumnBatch) -> None:
+        probe = probe.compact()
+        build = self.bridge.batch
+        if (self.join_type == "SINGLE" and build.num_rows > 1
+                and probe.num_rows):
+            raise self._too_many_rows()
+        pi, bi = _nested_loop_pairs(probe, build, self.residual)
+        if self._outer:
+            matched = torch.zeros(probe.num_rows, dtype=torch.bool,
+                                  device=probe.device)
+            matched[pi] = True
+            un = torch.nonzero(~matched).flatten()
+            if len(un):
+                self._emit([c.take(un) for c in probe.columns]
+                           + _null_columns(build, len(un), probe.device))
+        if len(pi):
+            self._emit([c.take(pi) for c in probe.columns]
+                       + [c.take(bi) for c in build.columns])
+
+    def add_input(self, probe: ColumnBatch) -> None:
+        if probe.num_rows == 0:
+            return
+        if not self.left_keys:
+            self._add_cross_input(probe)
+            return
+        build = self.bridge.batch
+        table = self.bridge.table
+        if table.num_rows == 0:  # empty build: every probe row unmatched
+            if self._outer:
+                self._null_extended(probe, probe.live)
+            return
+        keys, remaps = _probe_keys(probe, self.left_keys, self.bridge)
+        residual = (self.residual.bind(probe, build)
+                    if self.residual is not None else None)
+        build_cols = _cols(build)
+        if table.unique:
+            b_out, ok_live, _ = JX.run_unique(
+                table, keys, remaps, build_cols, live=probe.live,
+                residual=residual,
+                probe_cols=_cols(probe) if residual is not None else ())
+            right = [Column(c.type, d, v, c.dictionary)
+                     for c, (d, v) in zip(build.columns, b_out)]
+            # LEFT/SINGLE: unmatched rows stay live, their build side NULL
+            self._emit(list(probe.columns) + right,
+                       probe.live if self._outer else ok_live)
+            return
+        lo, counts, total = JX.probe_ranges_device(table, keys, remaps,
+                                                   probe.live)
+        if total == 0:
+            if self._outer:
+                self._null_extended(probe, probe.live)
+            return
+        pairs, ok, matches, _ = JX.run_pairs(
+            table, lo, counts, total, keys, remaps, _cols(probe),
+            build_cols, residual=residual, need_matched=self._outer)
+        if self.join_type == "SINGLE" and int(matches.max()) > 1:
+            raise self._too_many_rows()
+        cols = list(probe.columns) + list(build.columns)
+        self._emit([Column(c.type, d, v, c.dictionary)
+                    for c, (d, v) in zip(cols, pairs)], ok)
+        if self._outer:
+            unmatched = matches == 0
+            self._null_extended(probe, unmatched if probe.live is None
+                                else probe.live & unmatched)
+
+    def get_output(self) -> Optional[ColumnBatch]:
+        return self._pending.popleft() if self._pending else None
+
+    def is_finished(self) -> bool:
+        return self._closed or (self.input_done and not self._pending)
+
+
+class SemiJoinOperator(Operator):
+    """Mark join for IN / EXISTS (operator/HashSemiJoinOperator.java:47):
+    output = source channels + a BOOLEAN match column.  Null-aware IN is
+    three-valued: a non-match is NULL when the probe key is NULL or the
+    build holds a NULL key, so a downstream ``$not`` yields NULL and the
+    row is filtered (NOT IN); IN over an empty build is FALSE.  A keyless
+    semi-join (EXISTS with only non-equi conjuncts) runs as a nested loop
+    where the residual alone decides the mark."""
+
+    def __init__(self, bridge: JoinBridge, source_keys: Sequence[int],
+                 null_aware: bool, residual: Optional[RowExpression],
+                 output_names: Sequence[str], output_types: Sequence[Type]):
+        self.bridge = bridge
+        self.source_keys = list(source_keys)
+        self.null_aware = null_aware
+        self.residual = _Residual(residual) if residual is not None else None
         self.output_names = list(output_names)
         self.output_types = list(output_types)
         self._pending: "deque[ColumnBatch]" = deque()
@@ -464,37 +655,50 @@ class LookupJoinOperator(Operator):
         return (self.bridge.ready and not self._pending
                 and super().needs_input())
 
-    def add_input(self, probe: ColumnBatch) -> None:
-        build = self.bridge.batch
+    def _emit(self, batch: ColumnBatch, data, valid=None) -> None:
+        self._pending.append(ColumnBatch(
+            self.output_names,
+            list(batch.columns) + [Column(BOOLEAN, data, valid)], batch.live))
+
+    def _add_keyless_input(self, batch: ColumnBatch) -> None:
+        batch = batch.compact()
+        pi, _ = _nested_loop_pairs(batch, self.bridge.batch, self.residual)
+        matched = torch.zeros(batch.num_rows, dtype=torch.bool,
+                              device=batch.device)
+        matched[pi] = True
+        self._emit(batch, matched)
+
+    def add_input(self, batch: ColumnBatch) -> None:
+        if not self.source_keys:
+            self._add_keyless_input(batch)
+            return
         table = self.bridge.table
-        if probe.num_rows == 0 or table.num_rows == 0:
+        build = self.bridge.batch
+        no_match = torch.zeros(batch.num_rows, dtype=torch.bool,
+                               device=batch.device)
+        if table.num_rows == 0 or batch.num_rows == 0:
+            self._emit(batch, no_match)  # IN over the empty set is FALSE
             return
-        dev = probe.device
-        keys = [(probe.columns[ch].data, probe.columns[ch].valid)
-                for ch in self.left_keys]
-        remaps = [JX.probe_key_remap(probe.columns[ch].dictionary,
-                                     self.bridge.key_dicts[k], dev)
-                  for k, ch in enumerate(self.left_keys)]
-        build_cols = [(c.data, c.valid) for c in build.columns]
+        keys, remaps = _probe_keys(batch, self.source_keys, self.bridge)
+        semi = (self.null_aware, table.has_null_key, table.live_rows > 0)
+        residual = (self.residual.bind(batch, build)
+                    if self.residual is not None else None)
+        probe_cols = _cols(batch) if residual is not None else []
+        build_cols = _cols(build) if residual is not None else []
         if table.unique:
-            b_out, ok_live = JX.run_unique(table, keys, remaps, build_cols,
-                                           live=probe.live)
-            right = [Column(c.type, d, v, c.dictionary)
-                     for c, (d, v) in zip(build.columns, b_out)]
-            self._pending.append(ColumnBatch(
-                self.output_names, list(probe.columns) + right, ok_live))
-            return
-        lo, counts, total = JX.probe_ranges_device(table, keys, remaps,
-                                                   probe.live)
-        if total == 0:
-            return
-        probe_cols = [(c.data, c.valid) for c in probe.columns]
-        pairs, ok = JX.run_pairs(table, lo, counts, total, keys, remaps,
-                                 probe_cols, build_cols)
-        cols = list(probe.columns) + list(build.columns)
-        out = [Column(c.type, d, v, c.dictionary)
-               for c, (d, v) in zip(cols, pairs)]
-        self._pending.append(ColumnBatch(self.output_names, out, ok))
+            _, _, mark = JX.run_unique(
+                table, keys, remaps, build_cols, live=batch.live,
+                residual=residual, probe_cols=probe_cols, semi=semi)
+        else:
+            lo, counts, total = JX.probe_ranges_device(table, keys, remaps,
+                                                       batch.live)
+            if total == 0:
+                mark = JX.semi_mark(no_match, keys, semi)
+            else:
+                mark = JX.run_pairs(
+                    table, lo, counts, total, keys, remaps, probe_cols,
+                    build_cols, residual=residual, semi=semi)[3]
+        self._emit(batch, *mark)
 
     def get_output(self) -> Optional[ColumnBatch]:
         return self._pending.popleft() if self._pending else None

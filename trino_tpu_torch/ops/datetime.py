@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["civil_from_days", "days_from_civil", "add_months"]
+__all__ = ["civil_from_days", "days_from_civil", "add_months", "year_of",
+           "month_of", "day_of", "quarter_of", "MICROS_PER_DAY"]
+
+MICROS_PER_DAY = 86_400_000_000
 
 
 def _fdiv(a, b):
@@ -41,6 +44,22 @@ def days_from_civil(y, m, d):
     doy = _fdiv(153 * mp + 2, 5) + d - 1
     doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
     return era * 146097 + doe - 719468
+
+
+def year_of(days):
+    return civil_from_days(days)[0]
+
+
+def month_of(days):
+    return civil_from_days(days)[1]
+
+
+def day_of(days):
+    return civil_from_days(days)[2]
+
+
+def quarter_of(days):
+    return _fdiv(civil_from_days(days)[1] + 2, 3)
 
 
 _DAYS_IN_MONTH = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)

@@ -2,8 +2,9 @@
 
 The port of the reference ``ops/expr.py`` for the functions the ported
 queries use: decimal/integer/double arithmetic on scaled int64, date
-arithmetic and ``add_months``, comparisons (dictionary-aware for strings),
-three-valued AND/OR/NOT, ``$if``/CASE, ``$in`` and CAST.  Unported
+arithmetic, ``add_months`` and calendar fields (``year`` ...), comparisons
+(dictionary-aware for strings), three-valued AND/OR/NOT, IS NULL,
+``$if``/CASE, ``$in``, LIKE, ``substring`` and CAST.  Unported
 functions raise NotImplementedError at compile time.
 
 Evaluation model, as in the reference:
@@ -36,12 +37,14 @@ from ..spi.types import (
     BOOLEAN,
     DATE,
     TIMESTAMP,
+    VARCHAR,
     DecimalType,
     Type,
     is_string,
 )
 from ..sql.ir import Call, InputRef, Literal, RowExpression
 from . import datetime as dt
+from .like_dfa import like_mask
 
 __all__ = ["CompiledExpression", "compile_expression", "QueryError",
            "expr_error_scope", "expr_condition_mask", "reduce_error_lanes",
@@ -422,6 +425,18 @@ def _not_handler(out_type, args, device):
     return Lowered(BOOLEAN, None, fn)
 
 
+def _is_null_handler(out_type, args, device):
+    (a,) = args
+
+    def fn(cols: Cols):
+        v, vv = a.fn(cols)
+        if vv is None:
+            return torch.zeros(v.shape, dtype=torch.bool, device=device), None
+        return ~vv, None
+
+    return Lowered(BOOLEAN, None, fn)
+
+
 # ---------------------------------------------------------------------------
 # conditionals
 
@@ -507,6 +522,63 @@ def _in_handler(out_type, args, device):
 
 
 # ---------------------------------------------------------------------------
+# LIKE and string functions as dictionary transforms (host) + gathers
+
+
+def _like_handler(out_type, args, device):
+    col, pat = args[0], args[1]
+    esc = args[2] if len(args) > 2 else None
+    if (col.dictionary is None or pat.dictionary is None
+            or len(pat.dictionary) != 1):
+        raise NotImplementedError(
+            "LIKE requires a dictionary column and literal pattern")
+    escape = (str(esc.dictionary[0])
+              if esc is not None and esc.dictionary is not None else None)
+    mask = torch.as_tensor(
+        like_mask(col.dictionary, str(pat.dictionary[0]), escape),
+        device=device)
+
+    def fn(cols: Cols):
+        codes, valid = col.fn(cols)
+        return mask[codes.long()], valid
+
+    return Lowered(BOOLEAN, None, fn)
+
+
+def _dict_transform(col: Lowered, pyfn, out_type: Type, device) -> Lowered:
+    """str -> str function as a host dictionary transform + device remap."""
+    vals = np.array([pyfn(str(v)) for v in col.dictionary], dtype=object)
+    newdict, remap = np.unique(vals, return_inverse=True)
+    remap_t = torch.as_tensor(remap.astype(np.int32), device=device)
+
+    def fn(cols: Cols):
+        codes, valid = col.fn(cols)
+        return remap_t[codes.long()], valid
+
+    return Lowered(out_type, newdict, fn)
+
+
+def _literal_int(x: Lowered) -> int:
+    if x.literal is None or x.dictionary is not None:
+        raise NotImplementedError("expected integer literal argument")
+    return int(x.literal)
+
+
+def _substring_handler(out_type, args, device):
+    col = args[0]
+    start = _literal_int(args[1])
+    length = _literal_int(args[2]) if len(args) > 2 else None
+    if col.dictionary is None:
+        raise NotImplementedError("substring on non-dictionary column")
+
+    def sub(s: str) -> str:
+        i = start - 1 if start > 0 else len(s) + start
+        return s[i: i + length] if length is not None else s[i:]
+
+    return _dict_transform(col, sub, VARCHAR, device)
+
+
+# ---------------------------------------------------------------------------
 # casts and elementwise functions
 
 
@@ -529,7 +601,8 @@ def _cast_handler(out_type, args, device):
                 data = torch.round(v * (10.0 ** ds)).to(torch.int64)
         elif isinstance(src, DecimalType):
             if out_dtype.is_floating_point:
-                data = (v / (10.0 ** ss)).to(out_dtype)
+                # in float64: int64 / a python float would give float32
+                data = (v.to(torch.float64) / (10.0 ** ss)).to(out_dtype)
             else:
                 data = _decimal_rescale(v, ss, 0).to(out_dtype)
         elif src == DATE and out_type == TIMESTAMP:
@@ -559,6 +632,24 @@ def _elementwise(tfn):
     return handler
 
 
+def _days_field_handler(field_fn):
+    """Calendar field extraction over DATE (days) or TIMESTAMP (micros)."""
+
+    def handler(out_type, args, device):
+        (a,) = args
+        dtype = torch_dtype(out_type.storage_dtype)
+
+        def fn(cols: Cols):
+            v, vv = a.fn(cols)
+            if a.type == TIMESTAMP:
+                v = torch.div(v, dt.MICROS_PER_DAY, rounding_mode="floor")
+            return field_fn(v).to(dtype), vv
+
+        return Lowered(out_type, None, fn)
+
+    return handler
+
+
 HANDLERS: dict[str, Callable] = {
     "add": _arith_handler("add"),
     "subtract": _arith_handler("subtract"),
@@ -575,9 +666,17 @@ HANDLERS: dict[str, Callable] = {
     "$or": _or_handler,
     "$not": _not_handler,
     "$if": _if_handler,
+    "$is_null": _is_null_handler,
     "$in": _in_handler,
+    "$like": _like_handler,
     "$cast": _cast_handler,
     "add_months": _elementwise(dt.add_months),
+    "year": _days_field_handler(dt.year_of),
+    "month": _days_field_handler(dt.month_of),
+    "day": _days_field_handler(dt.day_of),
+    "quarter": _days_field_handler(dt.quarter_of),
+    "substring": _substring_handler,
+    "substr": _substring_handler,
 }
 
 

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the open-addressing hash table.
+"""Hand-written Hopper kernels: the open-addressing hash table and the
+masked per-group float32 sum.
 
 Ports the Pallas kernels of the reference ``trino_tpu/ops/pallas_kernels.py``:
 
@@ -6,12 +7,16 @@ Ports the Pallas kernels of the reference ``trino_tpu/ops/pallas_kernels.py``:
   build a linear-probing table over [P, N] 32-bit key planes and give every
   row a dense group id in first-occurrence order;
 - :func:`hash_probe` replaces ``_hash_probe_kernel`` (``hash_probe``):
-  look rows up in a built table (group id, or -1 for a miss / dead row).
+  look rows up in a built table (group id, or -1 for a miss / dead row);
+- :func:`masked_segment_sum_f32` replaces ``_segment_sum_kernel``
+  (``masked_segment_sum_f32``): per-group float32 sums under a live mask,
+  at most 64 groups.
 
-The CUDA source is ``csrc/hash_table.cu`` (its header comment states the
-design and what bounds it); it is compiled with ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` at first use and bound with ctypes.  Planes and slot
-hashes are int32 tensors holding the reference's uint32 bit patterns.
+The CUDA sources are ``csrc/*.cu`` (each header comment states the design
+and what bounds it); :func:`build_library` compiles them with ``nvcc`` for
+``sm_90a`` into one library under ``build/kernels/`` at first use, and it is
+bound with ctypes.  Planes and slot hashes are int32 tensors holding the
+reference's uint32 bit patterns.
 
 Each wrapper launches its kernel for a CUDA tensor and takes the plain torch
 version for a CPU tensor; there is no fallback between the two.  ``LAUNCHES``
@@ -30,17 +35,20 @@ from typing import Optional
 import torch
 
 __all__ = ["hash_insert", "hash_probe", "hash_insert_plain",
-           "hash_probe_plain", "build_library", "LAUNCHES",
-           "reset_launch_counts"]
+           "hash_probe_plain", "masked_segment_sum_f32",
+           "masked_segment_sum_f32_plain", "build_library", "LAUNCHES",
+           "reset_launch_counts", "SEGMENT_SUM_MAX_GROUPS"]
 
-LAUNCHES = {"hash_insert": 0, "hash_probe": 0}
+LAUNCHES = {"hash_insert": 0, "hash_probe": 0, "masked_segment_sum_f32": 0}
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "hash_table.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = (Path(__file__).resolve().parent.parent.parent / "build"
               / "kernels")
+_LIB_NAME = "libtrino_kernels.so"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-Xcompiler", "-fPIC"]
 _INT32_MAX = 2**31 - 1
+SEGMENT_SUM_MAX_GROUPS = 64
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -56,23 +64,44 @@ def _nvcc() -> str:
     return str(cand) if cand.exists() else "nvcc"
 
 
+def _run_all(cmds: list) -> list:
+    """Start every command at once; wait for all; raise on any failure.
+    Returns each command's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]  # every process ends here
+    for cmd, p, err in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({p.returncode}):"
+                               f"\n{err}")
+    return errs
+
+
 def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/hash_table.cu`` into ``build/kernels/`` (skipped when
-    the library is newer than its source).  Returns the library path."""
-    out = _BUILD_DIR / "libhash_table.so"
-    if out.exists() and out.stat().st_mtime >= _SRC.stat().st_mtime:
+    """Compile every ``csrc/*.cu`` into one library under ``build/kernels/``
+    (one ``nvcc`` per source, all started together, then one link).  The
+    build is skipped when the library is newer than every source.  Returns
+    the library path."""
+    out = _BUILD_DIR / _LIB_NAME
+    srcs = sorted(_CSRC.glob("*.cu"))
+    if out.exists() and all(out.stat().st_mtime >= s.stat().st_mtime
+                            for s in srcs):
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS]
+    tag = os.getpid()
+    objs = [_BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    errs = _run_all([[_nvcc(), *_NVCC_FLAGS, *ptxas, "-c", "-o", str(o),
+                      str(s)] for s, o in zip(srcs, objs)])
+    tmp = out.with_suffix(f".{tag}.tmp")
+    _run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr.strip())
+        for s, e in zip(srcs, errs):
+            if e.strip():
+                print(f"{s.name}:\n{e.strip()}")
     os.replace(tmp, out)
     return out
 
@@ -89,6 +118,8 @@ def _lib():
             lib.hash_probe_launch.argtypes = [p, p, i64, p, i, i64, p, p, p,
                                               p]
             lib.hash_probe_launch.restype = i
+            lib.segment_sum_launch.argtypes = [p, p, p, i64, i, i, p, p, p]
+            lib.segment_sum_launch.restype = i
             _LIB = lib
     return _LIB
 
@@ -268,3 +299,70 @@ def hash_probe(table_planes, slot_gid, planes, hash32,
         gid.data_ptr(), stream), "hash_probe")
     LAUNCHES["hash_probe"] += 1
     return gid
+
+
+# ---------------------------------------------------------------------------
+# masked per-group float32 sum
+
+
+def masked_segment_sum_f32_plain(values, gid, live, num_groups: int):
+    """Per-group sums of [N] float32 ``values`` by [N] int32 ``gid``: rows
+    that are dead (``live`` False) or whose id lies outside [0, G) add
+    nothing.  One scatter-add into G slots plus a trash slot."""
+    G = int(num_groups)
+    g = gid.long()
+    ok = (g >= 0) & (g < G)
+    if live is not None:
+        ok = ok & live
+    x = torch.where(ok, values, torch.zeros((), dtype=values.dtype,
+                                            device=values.device))
+    out = torch.zeros(G + 1, dtype=torch.float32, device=values.device)
+    return out.index_add_(0, torch.where(ok, g, G), x)[:G]
+
+
+# pass-1 blocks the scratch buffer holds: above the resident blocks of an
+# H100 at any G (132 SMs x at most 8 blocks of 256 threads)
+_SEGMENT_MAX_BLOCKS = 2048
+
+
+def masked_segment_sum_f32(values, gid, live: Optional[torch.Tensor],
+                           num_groups: int):
+    """Per-group sums of an f32 column: [N] float32 ``values``, [N] int32
+    group ids, [N] bool ``live`` (None = all live), ``num_groups`` G in
+    [1, 64] -> [G] float32.  Dead rows and ids outside [0, G) add nothing.
+    Inputs must be contiguous 1-D tensors of exactly these types; the CUDA
+    kernel adds in a fixed order, so one input gives the same bits on every
+    run."""
+    G = int(num_groups)
+    if not 1 <= G <= SEGMENT_SUM_MAX_GROUPS:
+        raise ValueError(f"num_groups must be in [1, "
+                         f"{SEGMENT_SUM_MAX_GROUPS}], got {G}")
+    if values.dim() != 1 or values.dtype != torch.float32:
+        raise TypeError("values must be an [N] float32 tensor")
+    n = int(values.shape[0])
+    if gid.shape != (n,) or gid.dtype != torch.int32:
+        raise TypeError("gid must be an [N] int32 tensor")
+    if live is not None and (live.shape != (n,) or live.dtype != torch.bool):
+        raise TypeError("live must be an [N] bool tensor or None")
+    ins = [values, gid] + ([] if live is None else [live])
+    if len({t.device for t in ins}) != 1:
+        raise ValueError("inputs on several devices")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("inputs must be contiguous")
+    if values.device.type == "cpu":
+        return masked_segment_sum_f32_plain(values, gid, live, G)
+    if values.device.type != "cuda":
+        raise ValueError(f"unsupported device {values.device}")
+    dev = values.device
+    partial = torch.empty(_SEGMENT_MAX_BLOCKS * G, dtype=torch.float32,
+                          device=dev)
+    out = torch.empty(G, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check(_lib().segment_sum_launch(
+            values.data_ptr(), gid.data_ptr(),
+            None if live is None else live.data_ptr(), n, G,
+            _SEGMENT_MAX_BLOCKS, partial.data_ptr(), out.data_ptr(), stream),
+            "masked_segment_sum_f32")
+    LAUNCHES["masked_segment_sum_f32"] += 1
+    return out

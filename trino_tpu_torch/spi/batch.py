@@ -98,6 +98,11 @@ class Column:
         valid = None if self.valid is None else self.valid[mask]
         return Column(self.type, self.data[mask], valid, self.dictionary)
 
+    def take(self, idx: torch.Tensor) -> "Column":
+        """Rows at integer positions ``idx`` (same device)."""
+        valid = None if self.valid is None else self.valid[idx]
+        return Column(self.type, self.data[idx], valid, self.dictionary)
+
     def slice_rows(self, start: int, stop: int) -> "Column":
         valid = None if self.valid is None else self.valid[start:stop]
         return Column(self.type, self.data[start:stop], valid,
