@@ -18,7 +18,10 @@ Phases (any failure exits non-zero before the final line):
      more run of that subset, apart from the path run), held against its
      plain torch version (exact for group ids, counts and probe ids; the
      float32 segment sums to the tolerances stated below), timed beside the
-     plain version and one PyTorch library call, with its bound.
+     plain version and one PyTorch library call (in turns: kernel, library,
+     library, kernel), with its bound, the raw launch alone and the host
+     time per wrapper call (and, for the probe, per piece of its launch
+     path).
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -37,6 +40,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SECTOR = 32  # bytes of the smallest device-memory access
+ENQUEUE_CALLS = 200  # wrapper calls per host-enqueue measurement
+GRAPH_REPS = 20  # raw launches per CUDA graph (device-only time)
 
 PATH_SF = 1.0
 PARITY_SF = 0.1
@@ -230,82 +235,161 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def enqueue_us(torch, fn, calls: int = ENQUEUE_CALLS) -> float:
+    """Host time per call: a host clock around ``calls`` back-to-back calls
+    with no synchronize in between (one after the last)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def graph_ms(torch, fn, reps: int = GRAPH_REPS) -> float:
+    """Device time per call of ``fn`` (launches only: no allocation, no
+    sync): ``reps`` calls captured in one CUDA graph, the graph replayed
+    under CUDA events, so the host's launch rate does not bound the time
+    as it does for back-to-back calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(torch, graph.replay, 5, warmup=1) / reps
+    del graph
+    return ms
+
+
+def in_turns(torch, kernel, library, iters: int) -> tuple:
+    """Kernel and library call timed in turns (kernel, library, library,
+    kernel); returns the mean of each pair and the four times in order."""
+    k1 = cuda_ms(torch, kernel, iters)
+    l1 = cuda_ms(torch, library, iters)
+    l2 = cuda_ms(torch, library, iters)
+    k2 = cuda_ms(torch, kernel, iters)
+    return (k1 + k2) / 2, (l1 + l2) / 2, [k1, l1, l2, k2]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _insert_case(torch, GK, orig_insert, orig_probe, args):
     planes, h32, live, S = args
-    if live is None:  # a compacted input: every row live
-        live = torch.ones(planes.shape[1], dtype=torch.bool,
-                          device=planes.device)
+    live_t = live if live is not None else torch.ones(
+        planes.shape[1], dtype=torch.bool, device=planes.device)
     got = orig_insert(planes, h32, live, S)
-    want = GK.hash_insert_plain(planes, h32, live, S)
+    want = GK.hash_insert_plain(planes, h32, live_t, S)
     torch.cuda.synchronize()
     if got[1] != want[1] or not torch.equal(got[0], want[0]):
         raise AssertionError("cuda hash_insert != plain")
     err = int((got[0].long() - want[0].long()).abs().max())
     # cross-probe: each table read by the other version's probe
-    a = GK.hash_probe_plain(got[2], got[3], planes, h32, live)
-    b = orig_probe(want[2], want[3], planes, h32, live)
-    expect = torch.where(live, got[0], -1)
+    a = GK.hash_probe_plain(got[2], got[3], planes, h32, live_t)
+    b = orig_probe(want[2], want[3], planes, h32, live_t)
+    expect = torch.where(live_t, got[0], -1)
     if not (torch.equal(a, expect) and torch.equal(b, expect)):
         raise AssertionError("hash_insert cross-probe mismatch")
-    ms = cuda_ms(torch, lambda: orig_insert(planes, h32, live, S), 10)
-    # the two kernels alone, without the wrapper's finish and syncs
-    owner = torch.empty(S, dtype=torch.int32, device=planes.device)
-    first = torch.empty_like(owner)
-    slot = torch.empty(planes.shape[1], dtype=torch.int32,
-                       device=planes.device)
-    stream = torch.cuda.current_stream().cuda_stream
+    ms, lib_ms, turns = in_turns(
+        torch, lambda: orig_insert(planes, h32, live, S),
+        lambda: torch.unique(planes, dim=1, return_inverse=True), 10)
+    # the kernels alone: the raw launch (all six kernels), without the
+    # wrapper's allocations, checks and host sync
+    P, n = planes.shape
+    lib = GK._lib()  # loaded, so the launch geometry is known
+    dev = planes.get_device()
+    buckets = torch.empty((S, GK.bucket_width(P)), dtype=torch.int32,
+                          device=planes.device)
+    row_gid = torch.empty_like(h32)
+    nb = -(-n // GK._INSERT_ROWS_PER_BLOCK)
+    scratch = torch.empty(S + n + nb + 1, dtype=torch.int32,
+                          device=planes.device)
+    base = scratch.data_ptr()
 
     def raw():
-        owner.fill_(-1)
-        first.fill_(2**31 - 1)
-        GK._lib().hash_insert_launch(
-            planes.data_ptr(), planes.shape[0], planes.shape[1],
-            h32.data_ptr(), live.data_ptr(), S, owner.data_ptr(),
-            slot.data_ptr(), first.data_ptr(), stream)
+        lib.hash_insert_launch(
+            planes.data_ptr(), P, n, h32.data_ptr(), _ptr(live), S,
+            buckets.data_ptr(), buckets.shape[1], base, base + 4 * S,
+            row_gid.data_ptr(), base + 4 * (S + n), GK._stream(dev))
 
-    extra = f", kernels alone {cuda_ms(torch, raw, 10):.3f} ms"
+    alone_ms = cuda_ms(torch, raw, 10)
+    device_ms = graph_ms(torch, raw)
+    enq = enqueue_us(torch, lambda: orig_insert(planes, h32, live, S))
     plain_ms = cuda_ms(
-        torch, lambda: GK.hash_insert_plain(planes, h32, live, S), 3,
+        torch, lambda: GK.hash_insert_plain(planes, h32, live_t, S), 3,
         warmup=1)
-    lib_ms = cuda_ms(torch, lambda: torch.unique(
-        planes, dim=1, return_inverse=True), 10)
-    P, n = planes.shape
-    L = int(live.sum())
-    nbytes = (P * n * 4 + n * 4 + n  # planes, h32, live
-              + n * 4 + P * S * 4 + S * 4  # row_gid, table, ids
+    L = int(live_t.sum())
+    nbytes = (P * n * 4 + n * 4 + (0 if live is None else n)  # planes, h32,
+              + n * 4 + P * S * 4 + S * 4  # live; row_gid, table, ids
               + SECTOR * L)  # one random slot sector per live row
     shape = f"P={P} N={n} S={S} live={L} groups={got[1]}"
-    return err, ms, plain_ms, lib_ms, nbytes, shape, extra
+    return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                nbytes=nbytes, shape=shape, alone_ms=alone_ms, enq_us=enq,
+                turns=turns, extra="", device_ms=device_ms)
 
 
 def _probe_case(torch, GK, orig_probe, args):
     tp, sg, planes, h32, live = args
-    if live is None:
-        live = torch.ones(planes.shape[1], dtype=torch.bool,
-                          device=planes.device)
+    live_t = live if live is not None else torch.ones(
+        planes.shape[1], dtype=torch.bool, device=planes.device)
     got = orig_probe(tp, sg, planes, h32, live)
-    want = GK.hash_probe_plain(tp, sg, planes, h32, live)
+    want = GK.hash_probe_plain(tp, sg, planes, h32, live_t)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("cuda hash_probe != plain")
     err = int((got.long() - want.long()).abs().max())
-    ms = cuda_ms(torch, lambda: orig_probe(tp, sg, planes, h32, live), 10)
-    plain_ms = cuda_ms(
-        torch, lambda: GK.hash_probe_plain(tp, sg, planes, h32, live), 3,
-        warmup=1)
     # library yardstick: searchsorted of the probe hashes in the sorted
     # build hashes (the reference's sort path)
     occ = sg >= 0
     bh = ((tp[1][occ].long() << 32) | (tp[0][occ].long() & 0xFFFFFFFF))
     ph = (planes[1].long() << 32) | (planes[0].long() & 0xFFFFFFFF)
     sorted_bh = torch.sort(bh).values
-    lib_ms = cuda_ms(torch, lambda: torch.searchsorted(sorted_bh, ph), 10)
+    ms, lib_ms, turns = in_turns(
+        torch, lambda: orig_probe(tp, sg, planes, h32, live),
+        lambda: torch.searchsorted(sorted_bh, ph), 10)
     P, n = planes.shape
     S = int(sg.shape[0])
-    L = int(live.sum())
-    nbytes = P * n * 4 + n * 4 + n + n * 4 + SECTOR * L
+    dev = planes.get_device()
+    gid = torch.empty(n, dtype=torch.int32, device=planes.device)
+
+    def raw():
+        GK._lib().hash_probe_launch(
+            sg.data_ptr(), GK.bucket_width(P), S, planes.data_ptr(), P, n,
+            h32.data_ptr(), _ptr(live), gid.data_ptr(), GK._stream(dev))
+
+    alone_ms = cuda_ms(torch, raw, 20)
+    device_ms = graph_ms(torch, raw)
+    enq = enqueue_us(torch, lambda: orig_probe(tp, sg, planes, h32, live))
+    # the wrapper's host time piece by piece (us per call)
+    parts = {
+        "checks": enqueue_us(torch, lambda: (
+            GK._check_rows(planes, h32, live),
+            GK._bucket_layout(tp, sg, P))),
+        "empty_like": enqueue_us(torch, lambda: torch.empty_like(h32)),
+        "current_stream().cuda_stream": enqueue_us(
+            torch, lambda: torch.cuda.current_stream().cuda_stream),
+        "raw stream": enqueue_us(torch, lambda: GK._stream(dev)),
+        "ctypes launch": enqueue_us(torch, raw),
+    }
+    plain_ms = cuda_ms(
+        torch, lambda: GK.hash_probe_plain(tp, sg, planes, h32, live_t), 3,
+        warmup=1)
+    L = int(live_t.sum())
+    nbytes = (P * n * 4 + n * 4 + (0 if live is None else n) + n * 4
+              + SECTOR * L)
     shape = f"P={P} N={n} S={S} live={L} hits={int((got >= 0).sum())}"
-    return err, ms, plain_ms, lib_ms, nbytes, shape, ""
+    extra = ", launch path us/call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in parts.items())
+    return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                nbytes=nbytes, shape=shape, alone_ms=alone_ms, enq_us=enq,
+                turns=turns, extra=extra, parts=parts, device_ms=device_ms)
 
 
 def _segment_case(torch, GK, orig_seg, args):
@@ -335,24 +419,39 @@ def _segment_case(torch, GK, orig_seg, args):
     if not torch.allclose(got, want, rtol=PLAIN_VS_F64_RTOL, atol=0.0):
         raise AssertionError(f"masked_segment_sum_f32 != plain (max abs "
                              f"diff {err}, rtol {PLAIN_VS_F64_RTOL})")
-    ms = cuda_ms(torch, lambda: orig_seg(vals, gid, live, G), 20)
-    plain_ms = cuda_ms(
-        torch, lambda: GK.masked_segment_sum_f32_plain(vals, gid, live, G),
-        10)
     # library yardstick: one scatter-add; the ids of these inputs lie in
     # [0, G], so a G + 1 slot output takes the same rows
     if live is not None or int(gid.max()) > G or int(gid.min()) < 0:
         raise AssertionError("segment-sum inputs outside the library "
                              "call's contract")
     out = torch.zeros(G + 1, dtype=torch.float32, device=vals.device)
-    lib_ms = cuda_ms(torch, lambda: out.zero_().index_add_(0, gid, vals),
-                     20)
+    ms, lib_ms, turns = in_turns(
+        torch, lambda: orig_seg(vals, gid, live, G),
+        lambda: out.zero_().index_add_(0, gid, vals), 20)
     n = int(vals.shape[0])
+    stream = torch.cuda.current_stream().cuda_stream
+    partial = torch.empty(GK._SEGMENT_MAX_BLOCKS * G, dtype=torch.float32,
+                          device=vals.device)
+    res = torch.empty(G, dtype=torch.float32, device=vals.device)
+
+    def raw():
+        GK._lib().segment_sum_launch(
+            vals.data_ptr(), gid.data_ptr(), _ptr(live), n, G,
+            GK._SEGMENT_MAX_BLOCKS, partial.data_ptr(), res.data_ptr(),
+            stream)
+
+    alone_ms = cuda_ms(torch, raw, 20)
+    enq = enqueue_us(torch, lambda: orig_seg(vals, gid, live, G))
+    plain_ms = cuda_ms(
+        torch, lambda: GK.masked_segment_sum_f32_plain(vals, gid, live, G),
+        10)
     nbytes = n * 4 + n * 4 + (n if live is not None else 0) + G * 4
     shape = f"N={n} G={G} live={'all' if live is None else 'mask'}"
     extra = (f", rel err vs float64: kernel {k_rel:.3g}, plain "
              f"{p_rel:.3g}")
-    return err, ms, plain_ms, lib_ms, nbytes, shape, extra
+    return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                nbytes=nbytes, shape=shape, alone_ms=alone_ms, enq_us=enq,
+                turns=turns, extra=extra)
 
 
 SOURCES = {
@@ -542,23 +641,37 @@ def main() -> int:
             res = _probe_case(torch, GK, orig_probe, args)
         else:
             res = _segment_case(torch, GK, orig_seg, args)
-        err, ms, plain_ms, lib_ms, nbytes, shape, extra = res
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"kernel {kernel} [{label}] {shape}: {ms:.4f} ms{extra}, plain "
-            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({nbytes} bytes / 3.35 TB/s), max_abs_err "
-            f"{err}")
-        case = {"label": label, "shape": shape, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bound_ms, "max_abs_err": err}
+        bound_ms = res["nbytes"] / HBM_BYTES_PER_S * 1e3
+        on_device = (f" (on the device, CUDA graph of {GRAPH_REPS}: "
+                     f"{res['device_ms']:.4f} ms)" if "device_ms" in res
+                     else "")
+        log(f"kernel {kernel} [{label}] {res['shape']}: {res['ms']:.4f} ms"
+            f"{res['extra']}, kernels alone {res['alone_ms']:.4f} ms"
+            f"{on_device}, host enqueue {res['enq_us']:.1f} us/call, plain "
+            f"{res['plain_ms']:.4f} ms, library {res['lib_ms']:.4f} ms "
+            f"(in turns: kernel, library, library, kernel = "
+            f"{', '.join(f'{t:.4f}' for t in res['turns'])} ms), bound "
+            f"{bound_ms:.4f} ms ({res['nbytes']} bytes / 3.35 TB/s), "
+            f"max_abs_err {res['err']}")
+        case = {"label": label, "shape": res["shape"], "ms": res["ms"],
+                "kernels_alone_ms": res["alone_ms"],
+                "device_ms": res.get("device_ms"),
+                "host_enqueue_us": res["enq_us"],
+                "host_parts_us": res.get("parts"),
+                "plain_ms": res["plain_ms"], "library_ms": res["lib_ms"],
+                "turns_ms": res["turns"], "bound_ms": bound_ms,
+                "max_abs_err": res["err"]}
         src, replaces = SOURCES[kernel]
         entry = entries.setdefault(kernel, {
             "name": kernel, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[kernel],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
-            "shape": shape, "cases": []})
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            "max_abs_err": res["err"], "ms": res["ms"],
+            "kernels_alone_ms": res["alone_ms"],
+            "device_ms": res.get("device_ms"),
+            "host_enqueue_us": res["enq_us"], "plain_ms": res["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": res["lib_ms"], "shape": res["shape"], "cases": []})
+        entry["max_abs_err"] = max(entry["max_abs_err"], res["err"])
         entry["cases"].append(case)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

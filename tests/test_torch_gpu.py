@@ -61,6 +61,113 @@ def test_cuda_kernels_equal_plain_versions(cuda, P, distinct, collide):
     assert GK.LAUNCHES["hash_probe"] == before["hash_probe"] + 1
 
 
+def _by_gid(table, sgid, count):
+    """[P, count] planes of the occupied buckets in id order (each id
+    0..count-1 in exactly one bucket): layout-free table contents."""
+    occ = sgid >= 0
+    assert torch.equal(torch.sort(sgid[occ]).values,
+                       torch.arange(count, dtype=torch.int32,
+                                    device=sgid.device))
+    out = torch.zeros((table.shape[0], count), dtype=torch.int32,
+                      device=table.device)
+    out[:, sgid[occ].long()] = table[:, occ]
+    return out
+
+
+def _hold_insert_to_plain(planes, h32, live, S, probe_rows=4000):
+    """CUDA insert vs the plain version on the same card tensors: ids,
+    count and each id's planes exact; each table answers both probes."""
+    rng = np.random.default_rng(planes.shape[1])
+    P, n = planes.shape
+    before = dict(GK.LAUNCHES)
+    got = GK.hash_insert(planes, h32, live, S)
+    torch.cuda.synchronize()
+    assert GK.LAUNCHES["hash_insert"] == before["hash_insert"] + 1
+    want = GK.hash_insert_plain(planes, h32, live, S)
+    assert got[1] == want[1]
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(_by_gid(got[2], got[3], got[1]),
+                       _by_gid(want[2], want[3], want[1]))
+    assert torch.equal(got[2][:, got[3] < 0],
+                       torch.zeros_like(got[2][:, got[3] < 0]))
+    # probe rows: present keys (live or dead) and absent ones
+    k = min(n, probe_rows // 2)
+    absent = _planes(rng, P, 100, probe_rows - k).cuda()
+    pp = torch.cat([planes[:, :k], absent], 1).contiguous()
+    ph = torch.cat([h32[:k], K.slot_hash32(
+        K.hash_combine(list(absent.long())))]).contiguous()
+    for plive in (None, torch.from_numpy(
+            rng.random(pp.shape[1]) < 0.8).cuda()):
+        expect = GK.hash_probe_plain(want[2], want[3], pp, ph, plive)
+        for tp, sg in ((got[2], got[3]), (want[2], want[3])):
+            n_probe = GK.LAUNCHES["hash_probe"]
+            pg = GK.hash_probe(tp, sg, pp, ph, plive)
+            assert GK.LAUNCHES["hash_probe"] == n_probe + 1
+            assert torch.equal(pg, expect)
+            assert torch.equal(GK.hash_probe_plain(tp, sg, pp, ph, plive),
+                               expect)
+    torch.cuda.synchronize()
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 100_003, 1_000_000])
+@pytest.mark.parametrize("P", [1, 2, 3, 8])
+def test_cuda_hash_equals_plain(cuda, n, P):
+    rng = np.random.default_rng(n * 10 + P)
+    planes = _planes(rng, P, max(1, n // 4), n).cuda()
+    h32 = K.slot_hash32(K.hash_combine(list(planes.long()))).contiguous()
+    live = torch.from_numpy(rng.random(n) < 0.9).cuda()
+    got = _hold_insert_to_plain(planes, h32, live, K.bucket(2 * max(n, 8)))
+    if n == 0:
+        assert got[1] == 0 and bool((got[3] == -1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_slot", "all_dead", "live_none"])
+def test_cuda_hash_edges(cuda, case):
+    rng = np.random.default_rng(5)
+    n, S = 3000, 8192
+    planes = _planes(rng, 3, 700, n).cuda()
+    h32 = K.slot_hash32(K.hash_combine(list(planes.long()))).contiguous()
+    live = torch.from_numpy(rng.random(n) < 0.9).cuda()
+    if case == "one_slot":  # every key starts at the last slot and wraps
+        h32 = torch.full((n,), S - 1, dtype=torch.int32, device="cuda")
+    elif case == "all_dead":
+        live = torch.zeros(n, dtype=torch.bool, device="cuda")
+    else:
+        live = None
+    got = _hold_insert_to_plain(planes, h32, live, S)
+    if case == "all_dead":
+        assert got[1] == 0 and bool((got[0] == S).all())
+        assert bool((got[3] == -1).all())
+
+
+@pytest.mark.gpu
+def test_cuda_hash_q18_shape(cuda):
+    # Q18's group-by: 6.0 M lineitem rows by l_orderkey, 1.5 M keys
+    rng = np.random.default_rng(18)
+    n, keys = 6_000_000, 1_500_000
+    k = torch.from_numpy(rng.integers(1, 4 * keys, keys)[
+        rng.integers(0, keys, n)]).cuda()
+    planes = torch.stack(K.key_planes([(k, None)])).contiguous()
+    h32 = K.slot_hash32(K.hash_combine(list(planes.long()))).contiguous()
+    got = _hold_insert_to_plain(planes, h32, None, 1 << 24)
+    assert got[1] == int(torch.unique(k).numel())
+
+
+@pytest.mark.gpu
+def test_cuda_probe_takes_only_bucket_storage(cuda):
+    planes = _planes(np.random.default_rng(1), 2, 100, 1000).cuda()
+    h32 = K.slot_hash32(K.hash_combine(list(planes.long()))).contiguous()
+    _, _, tp, sg = GK.hash_insert(planes, h32, None, 2048)
+    with pytest.raises(ValueError, match="bucket storage"):
+        GK.hash_probe(tp.contiguous(), sg.contiguous(), planes, h32)
+    with pytest.raises(ValueError, match="contiguous"):
+        GK.hash_probe(tp, sg, planes, torch.cat([h32, h32])[::2])
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 255, 257, 100_003, 1_000_000])
 @pytest.mark.parametrize("G", [1, 7, 64])

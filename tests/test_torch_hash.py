@@ -157,6 +157,99 @@ def test_plain_insert_probe_match_serial_model(P, distinct, slot_mod):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _table_by_gid(table, sgid, count):
+    """[P, count] planes of the occupied buckets in id order; each id
+    0..count-1 must sit in exactly one bucket."""
+    table, sgid = np.asarray(table), np.asarray(sgid)
+    occ = sgid >= 0
+    ids = np.sort(sgid[occ])
+    np.testing.assert_array_equal(ids, np.arange(count))
+    out = np.zeros((table.shape[0], count), table.dtype)
+    out[:, sgid[occ]] = table[:, occ]
+    return out
+
+
+def _bucket_case(case):
+    """(planes, h32, live, S) numpy inputs for the bucket-storage cases."""
+    rng = np.random.default_rng(len(case) * 7 + 1)
+    P, n, distinct = {"p8": (8, 1500, 200), "live_none": (2, 1500, 300),
+                      "all_dead": (2, 600, 50), "empty": (3, 0, 1),
+                      "one_slot_wrap": (3, 400, 120),
+                      "p1": (1, 1000, 900)}[case]
+    S = K.bucket(2 * max(n, 1))
+    vocab = rng.integers(0, 2**32, (P, distinct), dtype=np.uint64).astype(
+        np.uint32)
+    pick = rng.integers(0, distinct, n)
+    planes = vocab[:, pick]
+    h32 = (pick.astype(np.uint64) * 2654435761 % 2**32).astype(np.uint32)
+    live = rng.random(n) < 0.9
+    if case == "live_none":
+        live = None
+    elif case == "all_dead":
+        live = np.zeros(n, bool)
+    elif case == "one_slot_wrap":  # every key starts at the last slot
+        h32 = np.full(n, S - 1, np.uint32)
+    return planes, h32, live, S
+
+
+@pytest.mark.parametrize("case", ["p8", "live_none", "all_dead", "empty",
+                                  "one_slot_wrap", "p1"])
+def test_plain_insert_builds_bucket_storage(case):
+    planes, h32, live, S = _bucket_case(case)
+    P, n = planes.shape
+    lv = np.ones(n, bool) if live is None else live
+    gid_m, count_m, table_m, sgid_m = _serial_insert(planes, h32, lv, S)
+    gid, count, table, sgid = GK.hash_insert(
+        _t32(planes), _t32(h32), None if live is None
+        else torch.from_numpy(live), S)
+    assert count == count_m
+    np.testing.assert_array_equal(gid.numpy(), gid_m)
+    # the reference's shapes and values: [P, S] planes and [S] ids, -1 and
+    # zero planes in empty slots, each id once with its key's planes
+    assert table.shape == (P, S) and sgid.shape == (S,)
+    assert table.dtype == sgid.dtype == torch.int32
+    t, g = table.numpy().view(np.uint32), sgid.numpy()
+    assert (g >= 0).sum() == count and (t[:, g < 0] == 0).all()
+    np.testing.assert_array_equal(_table_by_gid(t, g, count),
+                                  _table_by_gid(table_m, sgid_m, count_m))
+    # every occupied bucket holds the planes of the first row with its id
+    for k in range(count):
+        first = int(np.argmax(gid_m == k))
+        np.testing.assert_array_equal(t[:, g == k][:, 0], planes[:, first])
+    # both are views of one [S, W] bucket storage, W = 4 * ceil((P + 1) / 4)
+    W = GK.bucket_width(P)
+    assert W % 4 == 0 and W >= P + 1 > W - 4
+    assert sgid.stride() == (W,) and table.stride() == (1, W)
+    assert table.data_ptr() == sgid.data_ptr() + 4
+    assert sgid.data_ptr() % 16 == 0
+    # probes: through the plain table, live=None and a mask
+    pl = torch.from_numpy(live) if live is not None else None
+    got = GK.hash_probe(table, sgid, _t32(planes), _t32(h32), pl)
+    want = _serial_probe(table_m, sgid_m, planes, h32, lv)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if live is None:
+        got_all = GK.hash_probe(table, sgid, _t32(planes), _t32(h32))
+        np.testing.assert_array_equal(got_all.numpy(), gid_m)
+
+
+def test_probe_raises_on_other_tables():
+    planes, h32, live, S = _bucket_case("p1")
+    gid, count, table, sgid = GK.hash_insert(
+        _t32(planes), _t32(h32), torch.from_numpy(live), S)
+    p, h = _t32(planes[:, :50]), _t32(h32[:50])
+    GK.hash_probe(table, sgid, p, h)  # the views hash_insert returned
+    with pytest.raises(ValueError, match="bucket storage"):  # repacked
+        GK.hash_probe(table.contiguous(), sgid.contiguous(), p, h)
+    with pytest.raises(ValueError, match="bucket storage"):
+        GK.hash_probe(table.clone(), sgid, p, h)
+    with pytest.raises(ValueError, match="bucket storage"):  # wrong width
+        GK.hash_probe(table, sgid, torch.cat([p, p]), h)
+    with pytest.raises(TypeError):
+        GK.hash_probe(table.long(), sgid, p, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        GK.hash_probe(table, sgid, _t32(planes)[:, ::20], h)
+
+
 def test_insert_checks_its_inputs():
     planes = torch.zeros((1, 8), dtype=torch.int32)
     h = torch.zeros(8, dtype=torch.int32)
@@ -166,6 +259,9 @@ def test_insert_checks_its_inputs():
         GK.hash_insert(planes, h, None, 8)  # fewer than 2 x rows
     with pytest.raises(TypeError):
         GK.hash_insert(planes.long(), h, None, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        GK.hash_insert(torch.zeros((1, 16), dtype=torch.int32)[:, ::2], h,
+                       None, 16)
 
 
 # ---------------------------------------------------------------------------

@@ -18,9 +18,16 @@ and what bounds it); :func:`build_library` compiles them with ``nvcc`` for
 bound with ctypes.  Planes and slot hashes are int32 tensors holding the
 reference's uint32 bit patterns.
 
+A hash table is one [S, W] int32 bucket array (:func:`bucket_width`): word 0
+the group id (-1 = empty slot), words 1..P the key planes, zeros after.  The
+public table keeps the reference's layout, ``table_planes`` [P, S] and
+``slot_gid`` [S], as two views of the buckets; :func:`hash_probe` takes only
+such views.
+
 Each wrapper launches its kernel for a CUDA tensor and takes the plain torch
-version for a CPU tensor; there is no fallback between the two.  ``LAUNCHES``
-counts kernel launches per wrapper (plain calls are not counted).
+version for a CPU tensor; there is no fallback between the two.  Inputs must
+be contiguous: the wrappers raise rather than copy.  ``LAUNCHES`` counts
+kernel launches per wrapper (plain calls are not counted).
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import torch
 __all__ = ["hash_insert", "hash_probe", "hash_insert_plain",
            "hash_probe_plain", "masked_segment_sum_f32",
            "masked_segment_sum_f32_plain", "build_library", "LAUNCHES",
-           "reset_launch_counts", "SEGMENT_SUM_MAX_GROUPS"]
+           "reset_launch_counts", "SEGMENT_SUM_MAX_GROUPS", "bucket_width"]
 
 LAUNCHES = {"hash_insert": 0, "hash_probe": 0, "masked_segment_sum_f32": 0}
 
@@ -48,10 +55,12 @@ _LIB_NAME = "libtrino_kernels.so"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC"]
 _INT32_MAX = 2**31 - 1
+_MAX_SLOTS = 1 << 30  # the dead-row id S must fit an int32
 SEGMENT_SUM_MAX_GROUPS = 64
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
+_INSERT_ROWS_PER_BLOCK = 0  # read from the library when it is loaded
 
 
 def reset_launch_counts() -> None:
@@ -107,20 +116,28 @@ def build_library(verbose: bool = False) -> Path:
 
 
 def _lib():
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build_library()))
-            p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.hash_insert_launch.argtypes = [p, i, i64, p, p, i64, p, p, p,
-                                               p]
-            lib.hash_insert_launch.restype = i
-            lib.hash_probe_launch.argtypes = [p, p, i64, p, i, i64, p, p, p,
-                                              p]
-            lib.hash_probe_launch.restype = i
-            lib.segment_sum_launch.argtypes = [p, p, p, i64, i, i, p, p, p]
-            lib.segment_sum_launch.restype = i
-            _LIB = lib
+    """The kernel library, built and bound at first use.  The lock is taken
+    only until then; ctypes keeps each bound function as an attribute, so a
+    launch afterwards is two attribute reads."""
+    global _LIB, _INSERT_ROWS_PER_BLOCK
+    if _LIB is None:
+        with _LIB_LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(str(build_library()))
+                p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+                lib.hash_insert_launch.argtypes = [p, i, i64, p, p, i64, p, i,
+                                                   p, p, p, p, p]
+                lib.hash_insert_launch.restype = i
+                lib.hash_insert_rows_per_block.argtypes = []
+                lib.hash_insert_rows_per_block.restype = i
+                lib.hash_probe_launch.argtypes = [p, i, i64, p, i, i64, p, p,
+                                                  p, p]
+                lib.hash_probe_launch.restype = i
+                lib.segment_sum_launch.argtypes = [p, p, p, i64, i, i, p, p,
+                                                   p]
+                lib.segment_sum_launch.restype = i
+                _INSERT_ROWS_PER_BLOCK = lib.hash_insert_rows_per_block()
+                _LIB = lib
     return _LIB
 
 
@@ -129,42 +146,78 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def _check_inputs(planes, hash32, live) -> int:
-    if planes.dim() != 2 or planes.dtype != torch.int32:
+def _stream(device_index: int) -> int:
+    """The raw handle of the current stream on a CUDA device: the same
+    handle as ``torch.cuda.current_stream().cuda_stream`` without building
+    a Stream object, which costs several microseconds a call (chip_smoke.py
+    prints both beside the probe)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def _check_rows(planes, hash32, live) -> int:
+    """[P, N] int32 planes, [N] int32 hash32, [N] bool live (or None), all
+    contiguous and on one device.  Returns N."""
+    if planes.dtype is not torch.int32 or planes.ndim != 2:
         raise TypeError("planes must be a [P, N] int32 tensor")
-    n = int(planes.shape[1])
-    if hash32.shape != (n,) or hash32.dtype != torch.int32:
+    n = planes.shape[1]
+    if hash32.dtype is not torch.int32 or hash32.shape != (n,):
         raise TypeError("hash32 must be an [N] int32 tensor")
-    if live.shape != (n,) or live.dtype != torch.bool:
-        raise TypeError("live must be an [N] bool tensor")
-    devs = {planes.device, hash32.device, live.device}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
-    if n > _INT32_MAX:
-        raise ValueError("more than 2^31 - 1 rows")
+    if live is not None and (live.dtype is not torch.bool
+                             or live.shape != (n,)):
+        raise TypeError("live must be an [N] bool tensor or None")
+    dev = planes.get_device()
+    if hash32.get_device() != dev or (live is not None
+                                      and live.get_device() != dev):
+        raise ValueError("inputs on several devices")
+    if not (planes.is_contiguous() and hash32.is_contiguous()
+            and (live is None or live.is_contiguous())):
+        raise ValueError("inputs must be contiguous")
     return n
 
 
-def _assemble(planes, owner, row_slot, first_row, S: int):
-    """Shared finish of both insert versions (outside the kernels): rank
-    the occupied slots by their first row, so ids follow first-occurrence
-    order (the serial TPU kernel's numbering); map every row to its slot's
-    id; gather the owners' planes into the table."""
-    dev = planes.device
-    occ_slots = torch.nonzero(owner >= 0).flatten()
-    count = int(occ_slots.numel())
-    slot_gid = torch.full((S,), -1, dtype=torch.int32, device=dev)
-    order = torch.argsort(first_row[occ_slots])
-    slot_gid[occ_slots[order]] = torch.arange(count, dtype=torch.int32,
-                                              device=dev)
-    live_rows = row_slot >= 0
-    safe = torch.where(live_rows, row_slot, 0).long()
-    row_gid = torch.where(live_rows, slot_gid[safe],
-                          torch.tensor(S, dtype=torch.int32, device=dev))
-    table = torch.zeros((planes.shape[0], S), dtype=torch.int32, device=dev)
-    if count:
-        table[:, occ_slots] = planes[:, owner[occ_slots].long()]
-    return row_gid, count, table, slot_gid
+def bucket_width(P: int) -> int:
+    """Words per bucket for P key planes: the id plus the planes, rounded
+    up to a whole number of 16-byte loads."""
+    return 4 * ((P + 4) // 4)
+
+
+def _new_buckets(S: int, P: int, device) -> torch.Tensor:
+    """Empty [S, W] bucket storage: ids -1, planes 0 (the plain version's
+    fill; the CUDA insert fills its own)."""
+    buckets = torch.zeros((S, bucket_width(P)), dtype=torch.int32,
+                          device=device)
+    buckets[:, 0] = -1
+    return buckets
+
+
+def _views(buckets, P: int):
+    """hash_insert's public table: [P, S] planes and [S] ids, as views of
+    the bucket storage (the reference's layout and values)."""
+    return buckets[:, 1:P + 1].t(), buckets[:, 0]
+
+
+def _bucket_layout(table_planes, slot_gid, P: int) -> tuple:
+    """(S, W) of the bucket storage behind hash_insert's two views; raises
+    on any other table (a probe never repacks one).  The views share one
+    storage exactly when the planes start one word after the ids, with the
+    bucket stride, inside the ids' storage."""
+    if (table_planes.dtype is not torch.int32
+            or slot_gid.dtype is not torch.int32
+            or table_planes.ndim != 2 or slot_gid.ndim != 1):
+        raise TypeError("table must be hash_insert's [P, S] int32 planes "
+                        "and [S] int32 ids")
+    S = slot_gid.shape[0]
+    W = bucket_width(P)
+    base = slot_gid.data_ptr()
+    if (table_planes.shape != (P, S) or S <= 0 or S & (S - 1)
+            or slot_gid.stride() != (W,) or table_planes.stride() != (1, W)
+            or table_planes.data_ptr() != base + 4 or base % 16
+            or slot_gid.untyped_storage().nbytes()
+            < (slot_gid.storage_offset() + S * W) * 4):
+        raise ValueError("table is not the bucket storage hash_insert "
+                         f"returns for {P} planes ([S, {W}] int32 buckets, "
+                         "16-byte aligned)")
+    return S, W
 
 
 # ---------------------------------------------------------------------------
@@ -174,14 +227,18 @@ def _assemble(planes, owner, row_slot, first_row, S: int):
 def hash_insert_plain(planes, hash32, live, num_slots: int):
     """Linear-probing insert in rounds: every unfinished row proposes its
     current slot; an empty slot goes to its lowest proposing row; rows that
-    meet an owner with equal planes stop, the rest step to the next slot."""
+    meet an owner with equal planes stop, the rest step to the next slot.
+    Then the kernels' numbering: a row is the first of its key when it is
+    the smallest row in its slot, and a first row's id is the count of first
+    rows before it (a cumulative sum over the flags)."""
     S = int(num_slots)
     dev = planes.device
-    n = int(planes.shape[1])
+    P, n = planes.shape
     mask = S - 1
     owner = torch.full((S,), -1, dtype=torch.int32, device=dev)
-    row_slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    active = torch.nonzero(live).flatten()
+    row_slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    active = (torch.arange(n, device=dev) if live is None
+              else torch.nonzero(live).flatten())
     slot = (hash32[active].long() & mask)
     while active.numel():
         # claim: empty proposed slots go to the smallest proposing row
@@ -194,27 +251,39 @@ def hash_insert_plain(planes, hash32, live, num_slots: int):
             owner[won] = cand[won].to(torch.int32)
         own = owner[slot].long()
         eq = (planes[:, active] == planes[:, own]).all(dim=0)
-        row_slot[active[eq]] = slot[eq].to(torch.int32)
+        row_slot[active[eq]] = slot[eq]
         active, slot = active[~eq], (slot[~eq] + 1) & mask
-    first_row = torch.full((S,), _INT32_MAX, dtype=torch.int64, device=dev)
     done = row_slot >= 0
-    first_row.scatter_reduce_(0, row_slot[done].long(),
-                              torch.nonzero(done).flatten(), "amin")
-    return _assemble(planes, owner, row_slot, first_row, S)
+    safe = torch.where(done, row_slot, 0)
+    rows = torch.arange(n, device=dev)
+    first_row = torch.full((S,), _INT32_MAX, dtype=torch.int64, device=dev)
+    first_row.scatter_reduce_(0, safe[done], rows[done], "amin")
+    flag = done & (first_row[safe] == rows)
+    rank = torch.cumsum(flag, 0) - 1
+    buckets = _new_buckets(S, P, dev)
+    first = row_slot[flag]
+    buckets[first, 0] = rank[flag].to(torch.int32)
+    buckets[first, 1:P + 1] = planes[:, flag].t()
+    row_gid = torch.where(done, buckets[safe, 0],
+                          torch.tensor(S, dtype=torch.int32, device=dev))
+    return (row_gid, int(flag.sum()), *_views(buckets, P))
 
 
 def hash_probe_plain(table_planes, slot_gid, planes, hash32, live):
     """Read-only lookup in rounds (gid, or -1 for a miss or a dead row)."""
-    S = int(slot_gid.shape[0])
+    P, n = planes.shape
+    S, W = _bucket_layout(table_planes, slot_gid, P)
+    buckets = slot_gid.as_strided((S, W), (W, 1))
     mask = S - 1
-    n = int(planes.shape[1])
     gid = torch.full((n,), -1, dtype=torch.int32, device=planes.device)
-    active = torch.nonzero(live).flatten()
+    active = (torch.arange(n, device=planes.device) if live is None
+              else torch.nonzero(live).flatten())
     slot = hash32[active].long() & mask
     while active.numel():
-        g = slot_gid[slot]
+        b = buckets[slot]
+        g = b[:, 0]
         empty = g < 0
-        eq = (table_planes[:, slot] == planes[:, active]).all(dim=0) & ~empty
+        eq = (b[:, 1:P + 1] == planes[:, active].t()).all(dim=1) & ~empty
         gid[active[eq]] = g[eq]
         keep = ~(eq | empty)
         active, slot = active[keep], (slot[keep] + 1) & mask
@@ -228,76 +297,79 @@ def hash_probe_plain(table_planes, slot_gid, planes, hash32, live):
 def hash_insert(planes, hash32, live: Optional[torch.Tensor], num_slots: int):
     """Build an open-addressing table over ``planes`` [P, N] int32 key
     planes (plane equality == key equality), ``hash32`` [N] int32 slot
-    hashes, ``live`` [N] bool (None = all live).  ``num_slots`` must be a
-    power of two >= 2 * N (all rows, dead ones included, so the check needs
-    no device-to-host sync).
+    hashes, ``live`` [N] bool (None = all live), all contiguous.
+    ``num_slots`` must be a power of two in [2 * N, 2^30] (N counts all
+    rows, dead ones included, so the check needs no device-to-host sync).
 
     Returns (row_gid, count, table_planes, slot_gid): ``row_gid`` [N] int32
     dense ids in first-occurrence order (dead rows get ``num_slots``);
-    ``count`` the number of groups (host int); the last two are the table
-    state for :func:`hash_probe`."""
+    ``count`` the number of groups (host int); ``table_planes`` [P, S] and
+    ``slot_gid`` [S] (-1 = empty slot) are the table for :func:`hash_probe`,
+    views of one [S, W] bucket storage (:func:`bucket_width`).  On the card
+    the count is the call's one device-to-host copy."""
     S = int(num_slots)
-    if S <= 0 or S & (S - 1):
-        raise ValueError(f"num_slots must be a power of two, got {S}")
-    if live is None:
-        live = torch.ones(planes.shape[1], dtype=torch.bool,
-                          device=planes.device)
-    n = _check_inputs(planes, hash32, live)
+    if S <= 0 or S & (S - 1) or S > _MAX_SLOTS:
+        raise ValueError(f"num_slots must be a power of two <= 2^30, got {S}")
+    n = _check_rows(planes, hash32, live)
     if S < 2 * n:
         raise ValueError(f"num_slots {S} < 2 x {n} rows")
-    if planes.device.type == "cpu":
+    P = planes.shape[0]
+    if P < 1:
+        raise ValueError("no key planes")
+    if not planes.is_cuda:
+        if planes.device.type != "cpu":
+            raise ValueError(f"unsupported device {planes.device}")
         return hash_insert_plain(planes, hash32, live, S)
-    if planes.device.type != "cuda":
-        raise ValueError(f"unsupported device {planes.device}")
-    planes = planes.contiguous()
-    hash32 = hash32.contiguous()
-    live = live.contiguous()
-    dev = planes.device
-    owner = torch.full((S,), -1, dtype=torch.int32, device=dev)
-    row_slot = torch.empty((n,), dtype=torch.int32, device=dev)
-    first_row = torch.full((S,), _INT32_MAX, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _check(_lib().hash_insert_launch(
-        planes.data_ptr(), int(planes.shape[0]), n, hash32.data_ptr(),
-        live.data_ptr(), S, owner.data_ptr(), row_slot.data_ptr(),
-        first_row.data_ptr(), stream), "hash_insert")
+    dev = planes.get_device()
+    if dev != torch.cuda.current_device():
+        raise ValueError("inputs must be on the current CUDA device")
+    lib = _lib()
+    buckets = torch.empty((S, bucket_width(P)), dtype=torch.int32,
+                          device=planes.device)
+    if buckets.data_ptr() % 16:
+        raise RuntimeError("bucket storage is not 16-byte aligned")
+    row_gid = torch.empty_like(hash32)
+    nb = -(-n // _INSERT_ROWS_PER_BLOCK)
+    # owner [S], row_slot [N], then the per-block offsets and the count
+    scratch = torch.empty(S + n + nb + 1, dtype=torch.int32,
+                          device=planes.device)
+    base = scratch.data_ptr()
+    _check(lib.hash_insert_launch(
+        planes.data_ptr(), P, n, hash32.data_ptr(),
+        None if live is None else live.data_ptr(), S, buckets.data_ptr(),
+        buckets.shape[1], base, base + 4 * S, row_gid.data_ptr(),
+        base + 4 * (S + n), _stream(dev)), "hash_insert")
     LAUNCHES["hash_insert"] += 1
-    return _assemble(planes, owner, row_slot, first_row, S)
+    count = int(scratch[S + n + nb].item()) if n else 0
+    return (row_gid, count, *_views(buckets, P))
 
 
 def hash_probe(table_planes, slot_gid, planes, hash32,
                live: Optional[torch.Tensor] = None):
-    """Look up [P, N] ``planes`` rows in a table built by
-    :func:`hash_insert`.  Returns [N] int32 group ids; -1 = miss or dead."""
-    if live is None:
-        live = torch.ones(planes.shape[1], dtype=torch.bool,
-                          device=planes.device)
-    n = _check_inputs(planes, hash32, live)
-    S = int(slot_gid.shape[0])
-    if S <= 0 or S & (S - 1):
-        raise ValueError(f"table size must be a power of two, got {S}")
-    if (table_planes.dtype != torch.int32 or slot_gid.dtype != torch.int32
-            or table_planes.shape != (planes.shape[0], S)):
-        raise TypeError("table must be [P, S] int32 planes + [S] int32 ids")
-    if table_planes.device != planes.device or \
-            slot_gid.device != planes.device:
+    """Look up [P, N] ``planes`` rows (``hash32`` [N] int32, ``live`` [N]
+    bool or None = all live, all contiguous) in the table
+    (``table_planes``, ``slot_gid``) that :func:`hash_insert` returned.
+    Returns [N] int32 group ids; -1 = miss or dead.  Any other table
+    raises."""
+    n = _check_rows(planes, hash32, live)
+    P = planes.shape[0]
+    S, W = _bucket_layout(table_planes, slot_gid, P)
+    dev = planes.get_device()
+    if slot_gid.get_device() != dev:
         raise ValueError("table and probe rows on different devices")
-    if planes.device.type == "cpu":
+    if not planes.is_cuda:
+        if planes.device.type != "cpu":
+            raise ValueError(f"unsupported device {planes.device}")
         return hash_probe_plain(table_planes, slot_gid, planes, hash32, live)
-    if planes.device.type != "cuda":
-        raise ValueError(f"unsupported device {planes.device}")
-    table_planes = table_planes.contiguous()
-    slot_gid = slot_gid.contiguous()
-    planes = planes.contiguous()
-    hash32 = hash32.contiguous()
-    live = live.contiguous()
-    gid = torch.empty((n,), dtype=torch.int32, device=planes.device)
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    _check(_lib().hash_probe_launch(
-        table_planes.data_ptr(), slot_gid.data_ptr(), S, planes.data_ptr(),
-        int(planes.shape[0]), n, hash32.data_ptr(), live.data_ptr(),
-        gid.data_ptr(), stream), "hash_probe")
-    LAUNCHES["hash_probe"] += 1
+    if dev != torch.cuda.current_device():
+        raise ValueError("inputs must be on the current CUDA device")
+    gid = torch.empty_like(hash32)
+    if n:
+        _check(_lib().hash_probe_launch(
+            slot_gid.data_ptr(), W, S, planes.data_ptr(), P, n,
+            hash32.data_ptr(), None if live is None else live.data_ptr(),
+            gid.data_ptr(), _stream(dev)), "hash_probe")
+        LAUNCHES["hash_probe"] += 1
     return gid
 
 
