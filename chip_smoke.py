@@ -19,9 +19,12 @@ Phases (any failure exits non-zero before the final line):
      plain torch version (exact for group ids, counts and probe ids; the
      float32 segment sums to the tolerances stated below), timed beside the
      plain version and one PyTorch library call (in turns: kernel, library,
-     library, kernel), with its bound, the raw launch alone and the host
-     time per wrapper call (and, for the probe, per piece of its launch
-     path).
+     library, kernel), with its bound, the raw launch alone, the raw launch
+     replayed from a CUDA graph (device time) and the host time per wrapper
+     call (and, for the probe, per piece of its launch path).  The segment
+     sum is also run on R2's rows with a seeded 50 % live mask and under a
+     seeded permutation, and torch.sum over R2's values gives the read rate
+     of a library reduction on the card.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -419,17 +422,22 @@ def _segment_case(torch, GK, orig_seg, args):
     if not torch.allclose(got, want, rtol=PLAIN_VS_F64_RTOL, atol=0.0):
         raise AssertionError(f"masked_segment_sum_f32 != plain (max abs "
                              f"diff {err}, rtol {PLAIN_VS_F64_RTOL})")
-    # library yardstick: one scatter-add; the ids of these inputs lie in
-    # [0, G], so a G + 1 slot output takes the same rows
-    if live is not None or int(gid.max()) > G or int(gid.min()) < 0:
-        raise AssertionError("segment-sum inputs outside the library "
-                             "call's contract")
-    out = torch.zeros(G + 1, dtype=torch.float32, device=vals.device)
-    ms, lib_ms, turns = in_turns(
-        torch, lambda: orig_seg(vals, gid, live, G),
-        lambda: out.zero_().index_add_(0, gid, vals), 20)
+    if live is None:
+        # library yardstick: one scatter-add; the ids of these inputs lie
+        # in [0, G], so a G + 1 slot output takes the same rows
+        if int(gid.max()) > G or int(gid.min()) < 0:
+            raise AssertionError("segment-sum inputs outside the library "
+                                 "call's contract")
+        out = torch.zeros(G + 1, dtype=torch.float32, device=vals.device)
+        ms, lib_ms, turns = in_turns(
+            torch, lambda: orig_seg(vals, gid, live, G),
+            lambda: out.zero_().index_add_(0, gid, vals), 20)
+    else:  # no single library call takes the mask
+        turns = [cuda_ms(torch, lambda: orig_seg(vals, gid, live, G), 20)
+                 for _ in range(2)]
+        ms, lib_ms = sum(turns) / 2, None
     n = int(vals.shape[0])
-    stream = torch.cuda.current_stream().cuda_stream
+    dev = vals.get_device()
     partial = torch.empty(GK._SEGMENT_MAX_BLOCKS * G, dtype=torch.float32,
                           device=vals.device)
     res = torch.empty(G, dtype=torch.float32, device=vals.device)
@@ -438,20 +446,45 @@ def _segment_case(torch, GK, orig_seg, args):
         GK._lib().segment_sum_launch(
             vals.data_ptr(), gid.data_ptr(), _ptr(live), n, G,
             GK._SEGMENT_MAX_BLOCKS, partial.data_ptr(), res.data_ptr(),
-            stream)
+            GK._stream(dev))
 
     alone_ms = cuda_ms(torch, raw, 20)
+    device_ms = graph_ms(torch, raw)
     enq = enqueue_us(torch, lambda: orig_seg(vals, gid, live, G))
     plain_ms = cuda_ms(
         torch, lambda: GK.masked_segment_sum_f32_plain(vals, gid, live, G),
         10)
     nbytes = n * 4 + n * 4 + (n if live is not None else 0) + G * 4
-    shape = f"N={n} G={G} live={'all' if live is None else 'mask'}"
+    shape = (f"N={n} G={G} live="
+             + ("all" if live is None else str(int(live.sum()))))
     extra = (f", rel err vs float64: kernel {k_rel:.3g}, plain "
              f"{p_rel:.3g}")
     return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                 nbytes=nbytes, shape=shape, alone_ms=alone_ms, enq_us=enq,
-                turns=turns, extra=extra)
+                turns=turns, extra=extra, device_ms=device_ms)
+
+
+def _segment_variants(torch, args) -> list:
+    """R2's captured call with a seeded 50 % live mask, and under one
+    seeded permutation of its rows (the path's ids arrive sorted)."""
+    vals, gid, live, G = args
+    n = int(vals.shape[0])
+    rng = np.random.default_rng(4)
+    mask = torch.from_numpy(rng.random(n) < 0.5).to(vals.device)
+    perm = torch.from_numpy(rng.permutation(n)).to(vals.device)
+    return [("R2 masked (seeded 50 % live)", (vals, gid, mask, G)),
+            ("R2 shuffled (one seeded permutation)",
+             (vals[perm].contiguous(), gid[perm].contiguous(), live, G))]
+
+
+def library_read_rate(torch, vals) -> str:
+    """torch.sum over a float32 column: the read rate a library reduction
+    reaches on this card, beside the segment sum's bound."""
+    ms = cuda_ms(torch, lambda: torch.sum(vals), 20)
+    nbytes = vals.numel() * 4
+    return (f"library reduction: torch.sum over {vals.numel()} float32 "
+            f"({nbytes} bytes): {ms:.4f} ms = {nbytes / ms / 1e9:.3f} TB/s "
+            f"(bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s)")
 
 
 SOURCES = {
@@ -633,6 +666,10 @@ def main() -> int:
         ("masked_segment_sum_f32", "R2 (50 groups, cap 64)",
          pick("R2", "masked_segment_sum_f32", lambda c: True)),
     ]
+    r2 = cases[-1][2]
+    cases += [("masked_segment_sum_f32", label, args)
+              for label, args in _segment_variants(torch, r2)]
+    log(library_read_rate(torch, r2[0]))
     entries = {}
     for kernel, label, args in cases:
         if kernel == "hash_insert":
@@ -645,12 +682,15 @@ def main() -> int:
         on_device = (f" (on the device, CUDA graph of {GRAPH_REPS}: "
                      f"{res['device_ms']:.4f} ms)" if "device_ms" in res
                      else "")
+        turns = ', '.join(f'{t:.4f}' for t in res['turns'])
+        library = ("library — (no single call takes the mask; kernel "
+                   f"timed twice: {turns} ms)" if res["lib_ms"] is None
+                   else f"library {res['lib_ms']:.4f} ms (in turns: kernel, "
+                   f"library, library, kernel = {turns} ms)")
         log(f"kernel {kernel} [{label}] {res['shape']}: {res['ms']:.4f} ms"
             f"{res['extra']}, kernels alone {res['alone_ms']:.4f} ms"
             f"{on_device}, host enqueue {res['enq_us']:.1f} us/call, plain "
-            f"{res['plain_ms']:.4f} ms, library {res['lib_ms']:.4f} ms "
-            f"(in turns: kernel, library, library, kernel = "
-            f"{', '.join(f'{t:.4f}' for t in res['turns'])} ms), bound "
+            f"{res['plain_ms']:.4f} ms, {library}, bound "
             f"{bound_ms:.4f} ms ({res['nbytes']} bytes / 3.35 TB/s), "
             f"max_abs_err {res['err']}")
         case = {"label": label, "shape": res["shape"], "ms": res["ms"],
