@@ -437,20 +437,34 @@ def _segment_case(torch, GK, orig_seg, args):
                  for _ in range(2)]
         ms, lib_ms = sum(turns) / 2, None
     n = int(vals.shape[0])
+    # the raw launch: the wrapper's one kernel launch with the launch state
+    # of the current stream (the graph's capture stream gets its own)
     dev = vals.get_device()
-    partial = torch.empty(GK._SEGMENT_MAX_BLOCKS * G, dtype=torch.float32,
-                          device=vals.device)
     res = torch.empty(G, dtype=torch.float32, device=vals.device)
 
+    def state():
+        stream = GK._stream(dev)
+        return (stream, *(GK._SEGMENT_STATE.get((dev, stream, G))
+                          or GK._segment_state(dev, stream, G))[:3])
+
     def raw():
+        stream, grid, ticket, partials = state()
         GK._lib().segment_sum_launch(
-            vals.data_ptr(), gid.data_ptr(), _ptr(live), n, G,
-            GK._SEGMENT_MAX_BLOCKS, partial.data_ptr(), res.data_ptr(),
-            GK._stream(dev))
+            vals.data_ptr(), gid.data_ptr(), _ptr(live), n, G, grid,
+            partials, ticket, res.data_ptr(), stream)
 
     alone_ms = cuda_ms(torch, raw, 20)
     device_ms = graph_ms(torch, raw)
     enq = enqueue_us(torch, lambda: orig_seg(vals, gid, live, G))
+    # the wrapper's host time piece by piece (us per call)
+    parts = {
+        "checks": enqueue_us(
+            torch, lambda: GK._check_segment_args(vals, gid, live, G)),
+        "device, stream and launch state": enqueue_us(
+            torch, lambda: (torch.cuda.current_device(), state())),
+        "new_empty": enqueue_us(torch, lambda: vals.new_empty((G,))),
+        "raw launch": enqueue_us(torch, raw),
+    }
     plain_ms = cuda_ms(
         torch, lambda: GK.masked_segment_sum_f32_plain(vals, gid, live, G),
         10)
@@ -458,10 +472,11 @@ def _segment_case(torch, GK, orig_seg, args):
     shape = (f"N={n} G={G} live="
              + ("all" if live is None else str(int(live.sum()))))
     extra = (f", rel err vs float64: kernel {k_rel:.3g}, plain "
-             f"{p_rel:.3g}")
+             f"{p_rel:.3g}, launch path us/call: "
+             + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     return dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                 nbytes=nbytes, shape=shape, alone_ms=alone_ms, enq_us=enq,
-                turns=turns, extra=extra, device_ms=device_ms)
+                turns=turns, extra=extra, parts=parts, device_ms=device_ms)
 
 
 def _segment_variants(torch, args) -> list:
@@ -481,10 +496,14 @@ def library_read_rate(torch, vals) -> str:
     """torch.sum over a float32 column: the read rate a library reduction
     reaches on this card, beside the segment sum's bound."""
     ms = cuda_ms(torch, lambda: torch.sum(vals), 20)
+    out = torch.empty((), dtype=torch.float32, device=vals.device)
+    dev_ms = graph_ms(torch, lambda: torch.sum(vals, 0, out=out))
     nbytes = vals.numel() * 4
     return (f"library reduction: torch.sum over {vals.numel()} float32 "
             f"({nbytes} bytes): {ms:.4f} ms = {nbytes / ms / 1e9:.3f} TB/s "
-            f"(bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s)")
+            f"back to back, {dev_ms:.4f} ms = {nbytes / dev_ms / 1e9:.3f} "
+            f"TB/s on the device (CUDA graph of {GRAPH_REPS}); bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
 
 
 SOURCES = {
@@ -680,8 +699,7 @@ def main() -> int:
             res = _segment_case(torch, GK, orig_seg, args)
         bound_ms = res["nbytes"] / HBM_BYTES_PER_S * 1e3
         on_device = (f" (on the device, CUDA graph of {GRAPH_REPS}: "
-                     f"{res['device_ms']:.4f} ms)" if "device_ms" in res
-                     else "")
+                     f"{res['device_ms']:.4f} ms)")
         turns = ', '.join(f'{t:.4f}' for t in res['turns'])
         library = ("library — (no single call takes the mask; kernel "
                    f"timed twice: {turns} ms)" if res["lib_ms"] is None
@@ -695,7 +713,7 @@ def main() -> int:
             f"max_abs_err {res['err']}")
         case = {"label": label, "shape": res["shape"], "ms": res["ms"],
                 "kernels_alone_ms": res["alone_ms"],
-                "device_ms": res.get("device_ms"),
+                "device_ms": res["device_ms"],
                 "host_enqueue_us": res["enq_us"],
                 "host_parts_us": res.get("parts"),
                 "plain_ms": res["plain_ms"], "library_ms": res["lib_ms"],
@@ -707,7 +725,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
-            "device_ms": res.get("device_ms"),
+            "device_ms": res["device_ms"],
             "host_enqueue_us": res["enq_us"], "plain_ms": res["plain_ms"],
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": res["lib_ms"], "shape": res["shape"], "cases": []})

@@ -168,39 +168,143 @@ def test_cuda_probe_takes_only_bucket_storage(cuda):
     torch.cuda.synchronize()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 255, 257, 100_003, 1_000_000])
-@pytest.mark.parametrize("G", [1, 7, 64])
-def test_cuda_segment_sum_equals_plain(cuda, n, G):
-    # positive values so relative errors mean something; ids cover the
-    # groups plus out-of-range ids (G, G + 3, -1) that must add nothing
-    rng = np.random.default_rng(n * 100 + G)
+def _f64_sums(vals, gid, live, G):
+    """float64 sums of the rows that count (live, id in [0, G))."""
+    ok = (gid >= 0) & (gid < G)
+    if live is not None:
+        ok &= live
+    return np.bincount(gid[ok], weights=vals[ok].astype(np.float64),
+                       minlength=G)[:G]
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _segment_inputs(n, G, seed, sort=True):
+    """Positive values (so relative errors mean something), ids over the
+    groups plus out-of-range ids (-1, G .. G + 3) that must add nothing,
+    sorted by id as on the path, and an 80 % live mask."""
+    rng = np.random.default_rng(seed)
     vals = rng.uniform(0, 100, n).astype(np.float32)
     gid = rng.integers(-1, G + 4, n).astype(np.int32)
-    live = rng.random(n) < 0.8
-    v, g, lv = (torch.from_numpy(x).cuda() for x in (vals, gid, live))
-    before = GK.LAUNCHES["masked_segment_sum_f32"]
-    got = GK.masked_segment_sum_f32(v, g, lv, G)
-    again = GK.masked_segment_sum_f32(v, g, lv, G)
+    return vals, np.sort(gid) if sort else gid, rng.random(n) < 0.8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 255, 257, 4097, 1_000_003,
+                               5_998_321])
+@pytest.mark.parametrize("G", [1, 7, 8, 33, 64])
+def test_cuda_segment_sum_equals_plain(cuda, n, G):
+    vals, sorted_gid, live = _segment_inputs(n, G, n * 100 + G)
+    rng = np.random.default_rng(n + G)
+    for gid in (sorted_gid, rng.permutation(sorted_gid)):
+        for lv in (live, None):
+            v, g = torch.from_numpy(vals).cuda(), torch.from_numpy(gid).cuda()
+            lt = None if lv is None else torch.from_numpy(lv).cuda()
+            before = GK.LAUNCHES["masked_segment_sum_f32"]
+            got = GK.masked_segment_sum_f32(v, g, lt, G)
+            again = GK.masked_segment_sum_f32(v, g, lt, G)
+            torch.cuda.synchronize()
+            assert GK.LAUNCHES["masked_segment_sum_f32"] == before + 2
+            # a fixed summation order: the same bits on every run
+            assert _same_bits(got, again)
+            exact = _f64_sums(vals, gid, lv, G)
+            # the kernel's per-thread + tree order: ~1e-7 relative here
+            np.testing.assert_allclose(got.cpu().numpy(), exact, rtol=1e-5,
+                                       atol=1e-3)
+            # the plain version's atomic scatter-add drifts more
+            plain = GK.masked_segment_sum_f32_plain(v, g, lt, G)
+            np.testing.assert_allclose(plain.cpu().numpy(), exact,
+                                       rtol=1e-4, atol=1e-3)
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       plain.cpu().numpy(), rtol=1e-3,
+                                       atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ov,og,ol", [
+    (1, 0, 0), (2, 0, 0), (3, 0, 0), (0, 1, 0), (0, 2, 0), (0, 3, 0),
+    (0, 0, 1), (0, 0, 2), (0, 0, 3), (1, 1, 1), (2, 2, 2), (3, 3, 3),
+    (1, 2, 3), (3, 1, 0)])
+def test_cuda_segment_sum_offsets(cuda, ov, og, ol):
+    # views that start 0-3 elements into their storage: a shared offset
+    # takes the 16-byte path with a peeled head, any other the 4-byte path
+    n, G = 100_003, 33
+    vals, gid, live = _segment_inputs(n + 3, G, ov * 16 + og * 4 + ol)
+    v = torch.from_numpy(vals).cuda()[ov:ov + n]
+    g = torch.from_numpy(gid).cuda()[og:og + n]
+    lt = torch.from_numpy(live).cuda()[ol:ol + n]
+    assert v.is_contiguous() and g.is_contiguous() and lt.is_contiguous()
+    for mask, lv in ((lt, live[ol:ol + n]), (None, None)):
+        got = GK.masked_segment_sum_f32(v, g, mask, G)
+        again = GK.masked_segment_sum_f32(v, g, mask, G)
+        torch.cuda.synchronize()
+        assert _same_bits(got, again)
+        np.testing.assert_allclose(
+            got.cpu().numpy(),
+            _f64_sums(vals[ov:ov + n], gid[og:og + n], lv, G), rtol=1e-5,
+            atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_segment_sum_same_bits_on_other_streams(cuda):
+    # each stream has its own ticket word: calls on two streams at once
+    # give the bits of the calls on the current stream
+    n, G = 1_000_003, 64
+    inputs = [tuple(torch.from_numpy(x).cuda() for x in
+                    _segment_inputs(n, G, seed)) for seed in (1, 2)]
+    want = [GK.masked_segment_sum_f32(v, g, lv, G) for v, g, lv in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(5):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[k].append(GK.masked_segment_sum_f32(*inputs[k], G))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
     torch.cuda.synchronize()
-    assert GK.LAUNCHES["masked_segment_sum_f32"] == before + 2
-    # a fixed summation order: the same bits on every run
-    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
-    ok = live & (gid >= 0) & (gid < G)
-    exact = np.array([vals[ok & (gid == k)].astype(np.float64).sum()
-                      for k in range(G)])
-    # the kernel's per-thread + tree order: ~1e-7 relative at these sizes
-    np.testing.assert_allclose(got.cpu().numpy(), exact, rtol=1e-5,
-                               atol=1e-3)
-    # the plain version's atomic scatter-add drifts more (rtol 1e-4)
-    np.testing.assert_allclose(
-        GK.masked_segment_sum_f32_plain(v, g, lv, G).cpu().numpy(), exact,
-        rtol=1e-4, atol=1e-3)
-    no_live = GK.masked_segment_sum_f32(v, g, None, G).cpu().numpy()
-    ok = (gid >= 0) & (gid < G)
-    np.testing.assert_allclose(
-        no_live, [vals[ok & (gid == k)].astype(np.float64).sum()
-                  for k in range(G)], rtol=1e-5, atol=1e-3)
+    for k in range(2):
+        assert all(_same_bits(r, want[k]) for r in got[k])
+
+
+@pytest.mark.gpu
+def test_cuda_segment_sum_after_empty_and_all_dead(cuda):
+    # the ticket word is back at 0 after every call, whatever its grid
+    n, G = 1_000_003, 8
+    v, g, lv = (torch.from_numpy(x).cuda()
+                for x in _segment_inputs(n, G, 3))
+    want = GK.masked_segment_sum_f32(v, g, lv, G)
+    empty_v = torch.zeros(0, device="cuda")
+    empty_g = torch.zeros(0, dtype=torch.int32, device="cuda")
+    dead = torch.zeros(n, dtype=torch.bool, device="cuda")
+    for other in ((empty_v, empty_g, None), (v, g, dead)):
+        zeros = GK.masked_segment_sum_f32(*other, G)
+        after = GK.masked_segment_sum_f32(v, g, lv, G)
+        torch.cuda.synchronize()
+        assert zeros.tolist() == [0.0] * G
+        assert _same_bits(after, want)
+
+
+@pytest.mark.gpu
+def test_cuda_segment_sum_graph_replay(cuda):
+    n, G = 1_000_003, 64
+    v, g, lv = (torch.from_numpy(x).cuda()
+                for x in _segment_inputs(n, G, 4))
+    eager = GK.masked_segment_sum_f32(v, g, lv, G)  # sets up the launch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = GK.masked_segment_sum_f32(v, g, lv, G)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same_bits(out, eager)
+    v.mul_(2)  # a replay reads the inputs anew
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same_bits(out, GK.masked_segment_sum_f32(v, g, lv, G))
 
 
 @pytest.mark.gpu

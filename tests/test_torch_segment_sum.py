@@ -54,7 +54,7 @@ def _plain(values, gid, live, G):
 
 
 @pytest.mark.parametrize("n,G", [(5000, 7), (4096, 1), (3 * 1024 + 17, 64),
-                                 (250_003, 8)])
+                                 (250_003, 8), (3, 8), (4, 1), (5, 64)])
 def test_plain_matches_pallas_model(n, G):
     # N = 3089 and 250003 are not multiples of any block size (1024 rows
     # in the Pallas kernel, 256 threads in the CUDA kernel)
@@ -105,6 +105,54 @@ def test_wrapper_rejects_bad_inputs():
         GK.masked_segment_sum_f32(v, g.long(), None, 4)
     with pytest.raises(ValueError):
         GK.masked_segment_sum_f32(torch.ones(20)[::2], g, None, 4)
+
+
+@pytest.mark.parametrize("what,exc", [
+    ("G=0", ValueError), ("G=65", ValueError),
+    ("values float64", TypeError), ("values int32", TypeError),
+    ("values 2-D", TypeError), ("gid int64", TypeError),
+    ("gid short", TypeError), ("live uint8", TypeError),
+    ("live short", TypeError), ("gid strided", ValueError),
+    ("live strided", ValueError)])
+def test_wrapper_host_checks(what, exc):
+    n = 12
+    args = {"values": torch.ones(n), "gid": torch.zeros(n, dtype=torch.int32),
+            "live": torch.ones(n, dtype=torch.bool), "num_groups": 4}
+    bad = {
+        "G=0": ("num_groups", 0), "G=65": ("num_groups", 65),
+        "values float64": ("values", torch.ones(n, dtype=torch.float64)),
+        "values int32": ("values", torch.ones(n, dtype=torch.int32)),
+        "values 2-D": ("values", torch.ones(n, 1)),
+        "gid int64": ("gid", torch.zeros(n, dtype=torch.int64)),
+        "gid short": ("gid", torch.zeros(n - 1, dtype=torch.int32)),
+        "live uint8": ("live", torch.ones(n, dtype=torch.uint8)),
+        "live short": ("live", torch.ones(n - 1, dtype=torch.bool)),
+        "gid strided": ("gid", torch.zeros(2 * n, dtype=torch.int32)[::2]),
+        "live strided": ("live", torch.ones(2 * n, dtype=torch.bool)[::2]),
+    }
+    key, value = bad[what]
+    args[key] = value
+    with pytest.raises(exc):
+        GK.masked_segment_sum_f32(**args)
+
+
+@pytest.mark.parametrize("ov,og,ol", [(1, 0, 0), (0, 2, 0), (0, 0, 3),
+                                      (3, 3, 3), (1, 2, 3)])
+def test_wrapper_accepts_offset_views(ov, og, ol):
+    # a contiguous view may start at any element (the CUDA kernel peels an
+    # unaligned head or takes its 4-byte path); no copy, no error
+    n, G = 5003, 33
+    rng = np.random.default_rng(ov * 16 + og * 4 + ol)
+    vals = rng.standard_normal(n + 3).astype(np.float32) * 100
+    gid = np.sort(rng.integers(-1, G + 4, n + 3)).astype(np.int32)
+    live = rng.random(n + 3) > 0.3
+    v = torch.from_numpy(vals)[ov:ov + n]
+    g = torch.from_numpy(gid)[og:og + n]
+    lv = torch.from_numpy(live)[ol:ol + n]
+    got = GK.masked_segment_sum_f32(v, g, lv, G).numpy()
+    np.testing.assert_allclose(
+        got, pallas_model(vals[ov:ov + n], gid[og:og + n], live[ol:ol + n],
+                          G), rtol=1e-4, atol=1e-3)
 
 
 def _grouped_inputs(rng, n, G):

@@ -133,8 +133,10 @@ def _lib():
                 lib.hash_probe_launch.argtypes = [p, i, i64, p, i, i64, p, p,
                                                   p, p]
                 lib.hash_probe_launch.restype = i
+                lib.segment_sum_setup.argtypes = [i, ctypes.POINTER(i)]
+                lib.segment_sum_setup.restype = i
                 lib.segment_sum_launch.argtypes = [p, p, p, i64, i, i, p, p,
-                                                   p]
+                                                   p, p]
                 lib.segment_sum_launch.restype = i
                 _INSERT_ROWS_PER_BLOCK = lib.hash_insert_rows_per_block()
                 _LIB = lib
@@ -392,9 +394,86 @@ def masked_segment_sum_f32_plain(values, gid, live, num_groups: int):
     return out.index_add_(0, torch.where(ok, g, G), x)[:G]
 
 
-# pass-1 blocks the scratch buffer holds: above the resident blocks of an
-# H100 at any G (132 SMs x at most 8 blocks of 256 threads)
-_SEGMENT_MAX_BLOCKS = 2048
+# Launch state of the segment sum, made at the first call for its key and
+# then only read: (device, stream handle, G) -> (grid limit, address of the
+# stream's ticket word, address of the stream's [grid, G] float32 partials,
+# the partials tensor).  Calls on one stream run one after another, so a
+# stream's ticket and partials are never in use twice at once; calls on two
+# streams may overlap and use their own.  The ticket words are one zeroed
+# int32 tensor per device, a word per stream; the kernel leaves its word at
+# 0, so it is never reset.  A CUDA graph keeps the words of the stream it
+# was captured on: replay such a graph on one stream at a time.
+_SEGMENT_STATE: dict = {}
+_SEGMENT_GRID: dict = {}  # (device, G) -> grid limit (segment_sum_setup)
+_SEGMENT_TICKETS: dict = {}  # device -> (ticket words, {stream: address})
+_SEGMENT_TICKET_WORDS = 1024
+_SEGMENT_LOCK = threading.Lock()
+
+
+def _segment_state(dev: int, stream: int, G: int) -> tuple:
+    """Set up (dev, stream, G) on the current CUDA device ``dev``: the
+    kernel's shared-memory limit and grid at the first call for (dev, G),
+    the device's ticket words (zeroed, then synced, so a stream met later
+    finds its word at 0) at its first call, the stream's ticket word, and
+    the partials.  The first call for (dev, G) must not be captured into a
+    CUDA graph."""
+    with _SEGMENT_LOCK:
+        state = _SEGMENT_STATE.get((dev, stream, G))
+        if state is not None:
+            return state
+        capturing = torch.cuda.is_current_stream_capturing()
+        if capturing and ((dev, G) not in _SEGMENT_GRID
+                          or dev not in _SEGMENT_TICKETS):
+            raise RuntimeError("masked_segment_sum_f32: make one call on "
+                               "this device with this num_groups outside "
+                               "CUDA graph capture first")
+        cuda = torch.device("cuda", dev)
+        if (dev, G) not in _SEGMENT_GRID:
+            blocks = ctypes.c_int(0)
+            _check(_lib().segment_sum_setup(G, ctypes.byref(blocks)),
+                   "masked_segment_sum_f32 setup")
+            _SEGMENT_GRID[(dev, G)] = blocks.value
+        if dev not in _SEGMENT_TICKETS:
+            words = torch.zeros(_SEGMENT_TICKET_WORDS, dtype=torch.int32,
+                                device=cuda)
+            torch.cuda.current_stream(dev).synchronize()
+            _SEGMENT_TICKETS[dev] = (words, {})
+        words, given = _SEGMENT_TICKETS[dev]
+        if stream not in given:
+            if len(given) == _SEGMENT_TICKET_WORDS:
+                raise RuntimeError(f"masked_segment_sum_f32: more than "
+                                   f"{_SEGMENT_TICKET_WORDS} streams on "
+                                   f"{cuda}")
+            given[stream] = words.data_ptr() + 4 * len(given)
+        grid = _SEGMENT_GRID[(dev, G)]
+        partials = torch.empty(grid * G, dtype=torch.float32, device=cuda)
+        state = (grid, given[stream], partials.data_ptr(), partials)
+        _SEGMENT_STATE[(dev, stream, G)] = state
+        return state
+
+
+def _check_segment_args(values, gid, live, G: int) -> int:
+    """[N] float32 values, [N] int32 gid, [N] bool live (or None), all
+    contiguous and on one device, 1 <= G <= 64.  Returns N."""
+    if not 1 <= G <= SEGMENT_SUM_MAX_GROUPS:
+        raise ValueError(f"num_groups must be in [1, "
+                         f"{SEGMENT_SUM_MAX_GROUPS}], got {G}")
+    if values.dtype is not torch.float32 or values.dim() != 1:
+        raise TypeError("values must be an [N] float32 tensor")
+    n = values.shape[0]
+    if gid.dtype is not torch.int32 or gid.shape != (n,):
+        raise TypeError("gid must be an [N] int32 tensor")
+    if live is not None and (live.dtype is not torch.bool
+                             or live.shape != (n,)):
+        raise TypeError("live must be an [N] bool tensor or None")
+    dev = values.get_device()
+    if gid.get_device() != dev or (live is not None
+                                   and live.get_device() != dev):
+        raise ValueError("inputs on several devices")
+    if not (values.is_contiguous() and gid.is_contiguous()
+            and (live is None or live.is_contiguous())):
+        raise ValueError("inputs must be contiguous")
+    return n
 
 
 def masked_segment_sum_f32(values, gid, live: Optional[torch.Tensor],
@@ -402,39 +481,25 @@ def masked_segment_sum_f32(values, gid, live: Optional[torch.Tensor],
     """Per-group sums of an f32 column: [N] float32 ``values``, [N] int32
     group ids, [N] bool ``live`` (None = all live), ``num_groups`` G in
     [1, 64] -> [G] float32.  Dead rows and ids outside [0, G) add nothing.
-    Inputs must be contiguous 1-D tensors of exactly these types; the CUDA
-    kernel adds in a fixed order, so one input gives the same bits on every
-    run."""
+    Inputs must be contiguous 1-D tensors of exactly these types (a view may
+    start at any element); the CUDA kernel adds in a fixed order, so one
+    input gives the same bits on every run."""
     G = int(num_groups)
-    if not 1 <= G <= SEGMENT_SUM_MAX_GROUPS:
-        raise ValueError(f"num_groups must be in [1, "
-                         f"{SEGMENT_SUM_MAX_GROUPS}], got {G}")
-    if values.dim() != 1 or values.dtype != torch.float32:
-        raise TypeError("values must be an [N] float32 tensor")
-    n = int(values.shape[0])
-    if gid.shape != (n,) or gid.dtype != torch.int32:
-        raise TypeError("gid must be an [N] int32 tensor")
-    if live is not None and (live.shape != (n,) or live.dtype != torch.bool):
-        raise TypeError("live must be an [N] bool tensor or None")
-    ins = [values, gid] + ([] if live is None else [live])
-    if len({t.device for t in ins}) != 1:
-        raise ValueError("inputs on several devices")
-    if not all(t.is_contiguous() for t in ins):
-        raise ValueError("inputs must be contiguous")
-    if values.device.type == "cpu":
+    n = _check_segment_args(values, gid, live, G)
+    if not values.is_cuda:
+        if values.device.type != "cpu":
+            raise ValueError(f"unsupported device {values.device}")
         return masked_segment_sum_f32_plain(values, gid, live, G)
-    if values.device.type != "cuda":
-        raise ValueError(f"unsupported device {values.device}")
-    dev = values.device
-    partial = torch.empty(_SEGMENT_MAX_BLOCKS * G, dtype=torch.float32,
-                          device=dev)
-    out = torch.empty(G, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _check(_lib().segment_sum_launch(
-            values.data_ptr(), gid.data_ptr(),
-            None if live is None else live.data_ptr(), n, G,
-            _SEGMENT_MAX_BLOCKS, partial.data_ptr(), out.data_ptr(), stream),
-            "masked_segment_sum_f32")
+    dev = values.get_device()
+    if dev != torch.cuda.current_device():
+        raise ValueError("inputs must be on the current CUDA device")
+    stream = _stream(dev)
+    grid, ticket, partials, _ = (_SEGMENT_STATE.get((dev, stream, G))
+                                 or _segment_state(dev, stream, G))
+    out = values.new_empty((G,))
+    _check(_lib().segment_sum_launch(
+        values.data_ptr(), gid.data_ptr(),
+        None if live is None else live.data_ptr(), n, G, grid, partials,
+        ticket, out.data_ptr(), stream), "masked_segment_sum_f32")
     LAUNCHES["masked_segment_sum_f32"] += 1
     return out
