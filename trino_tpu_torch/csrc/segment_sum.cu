@@ -14,9 +14,9 @@
 // mask) and the work per row is a compare and an add, so at N = 6.0 M the
 // bound is the 48 MB over 3.35 TB/s, 0.0143 ms.  Reaching it needs about
 // 3.35 TB/s x ~0.7 us of latency / 132 SMs ~ 18 KB of loads in flight on
-// every SM.  A thread therefore issues kUnroll 16-byte loads of values and
+// every SM.  A thread therefore starts kUnroll 16-byte loads of values and
 // of ids (and kUnroll 4-byte words of 4 live flags) before it uses any of
-// them, and issues the next step's loads before it adds this step's rows:
+// them, and starts the next step's loads before it adds this step's rows:
 // 128 bytes a thread in flight at kUnroll = 4, about 64 KB on an SM of 512
 // threads, whatever G is.  (The two-pass kernel this replaced had one
 // 4-byte load of each array in flight per thread and 768 threads an SM at
@@ -134,7 +134,7 @@ __device__ __forceinline__ void add_row(float* col, int G, int32_t g, float v,
 
 // kUnroll 16-byte words (4 rows each) of values, ids and live flags: the
 // thread's words base, base + kThreads, ...; a word at or past hi reads as
-// 4 rows that add nothing.  Every load is issued before any row is used.
+// 4 rows that add nothing.  Every load starts before any row is used.
 struct Words {
   float4 v[kUnroll];
   int4 g[kUnroll];
