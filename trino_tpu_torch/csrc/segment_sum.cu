@@ -63,27 +63,28 @@
 // trino_tpu_torch.tools.segment_variants builds and times the others.
 // Device ms per launch from one run of it (CUDA graph replay; 5,998,321
 // sorted rows, G = 8 / G = 64; an H100 80GB HBM3 at 700 W):
-//   this design                              0.0219 / 0.0230
+//   this design                              0.0213 / 0.0230
 //   the same, rows cold in L2                     - / 0.0231
-//   2 words a step                           0.0218 / 0.0229
-//   8 words a step                           0.0297 / 0.0319
-//   no prefetch of the next step's words     0.0225 / 0.0235
-//   a fence per warp, before the barrier     0.0221 / 0.0232
-//   512-thread blocks, 2 an SM               0.0222 / 0.0230
-//   256-thread blocks, 1 / 2 / 3 an SM       0.0225 / 0.0237, 0.0217 /
-//                                            0.0237, 0.0216 / 0.0238
-//   1024-thread blocks                       0.0361 / refused (256 KB)
-//   __ldg instead of streaming loads         0.0223 / 0.0233
-//   a shared update per row, no running sum  0.0224 / 0.0236
+//   2 words a step                           0.0214 / 0.0230
+//   8 words a step                           0.0291 / 0.0315
+//   no prefetch of the next step's words     0.0220 / 0.0234
+//   every warp reduces 4 groups (clamped)    0.0217 / 0.0230
+//   a fence per warp, before the barrier     0.0215 / 0.0232
+//   512-thread blocks, 2 an SM               0.0217 / 0.0231
+//   256-thread blocks, 1 / 2 / 3 an SM       0.0225 / 0.0240, 0.0216 /
+//                                            0.0238, 0.0215 / 0.0239
+//   1024-thread blocks                       0.0354 / refused (256 KB)
+//   __ldg instead of streaming loads         0.0216 / 0.0233
+//   a shared update per row, no running sum  0.0217 / 0.0235
 // Two words a step tie with four within the spread between runs (~3 %).
 // The two-pass kernel this replaced took 0.0211 / 0.0408 ms in
-// chip_smoke.py on the same day.  The 4-byte path takes 0.0279 ms at
-// G = 64 (256-thread blocks, 2 an SM, would take it to 0.0251).  torch.sum
-// reads 48 MB in 0.0235 ms (2.04 TB/s) on that card, while a block here
+// chip_smoke.py on the same day.  The 4-byte path takes 0.0280 ms at
+// G = 64 (256-thread blocks, 2 an SM, would take it to 0.0250).  torch.sum
+// reads 48 MB in 0.0237 ms (2.02 TB/s) on that card, while a block here
 // sums its rows in ~17 us (2.8 TB/s for the 48 MB), so a TMA ring
 // (cp.async.bulk into shared memory, one producer warp) was not built.
-// What is left beside the streaming is latency: ~1.7 us for a block's
-// reduce, fence and ticket, and 1.5 / 2.3 us for the last block's combine
+// What is left beside the streaming is latency: 1.2 / 1.7 us for a block's
+// reduce, fence and ticket, and 1.7 / 2.3 us for the last block's combine,
 // at G = 8 / 64.
 
 #include <cuda_runtime.h>
@@ -244,17 +245,19 @@ segment_sum_kernel(const float* __restrict__ vals,
   col[cur * kThreads] += run;
   __syncthreads();
 
-  // Warp w reduces groups w, w + kWarps, ...: all of its groups' columns
-  // are loaded before any is summed (a group past G reads group G - 1 and
-  // is dropped), so the loads overlap; lane 0 writes the partials.
+  // Warp w reduces groups w, w + kWarps, ... below G (a warp with none
+  // reads nothing, so a small G reads little shared memory); lane 0 writes
+  // the partials.
   const int warp = t / 32, lane = t % 32;
   float s[kGroupsPerWarp];
 #pragma unroll
   for (int i = 0; i < kGroupsPerWarp; ++i) {
-    const int g = min(warp + i * kWarps, G - 1);
+    const int g = warp + i * kWarps;
     s[i] = 0.f;
+    if (g < G) {
 #pragma unroll
-    for (int k = lane; k < kThreads; k += 32) s[i] += acc[g * kThreads + k];
+      for (int k = lane; k < kThreads; k += 32) s[i] += acc[g * kThreads + k];
+    }
   }
 #pragma unroll
   for (int i = 0; i < kGroupsPerWarp; ++i) s[i] = warp_sum(s[i]);

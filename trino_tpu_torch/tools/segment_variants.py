@@ -68,6 +68,15 @@ VARIANTS = {
         "      load_words(w, v4, g4, l4, base, hi);\n"
         "      add_words(w, col, G, cur, run);\n"
         "    }\n"),)),
+    "every warp reduces 4 groups (past G: G - 1, dropped)": ({}, ((
+        "    const int g = warp + i * kWarps;\n    s[i] = 0.f;\n"
+        "    if (g < G) {\n#pragma unroll\n"
+        "      for (int k = lane; k < kThreads; k += 32) "
+        "s[i] += acc[g * kThreads + k];\n    }\n",
+        "    const int g = min(warp + i * kWarps, G - 1);\n    s[i] = 0.f;\n"
+        "#pragma unroll\n"
+        "    for (int k = lane; k < kThreads; k += 32) "
+        "s[i] += acc[g * kThreads + k];\n"),)),
     "a fence per warp (lane 0, before the barrier)": ({}, (
         ("      if (warp + i * kWarps < G) partial[b * G + warp + i * kWarps]"
          " = s[i];\n  }\n",
