@@ -437,21 +437,17 @@ def _segment_case(torch, GK, orig_seg, args):
                  for _ in range(2)]
         ms, lib_ms = sum(turns) / 2, None
     n = int(vals.shape[0])
-    # the raw launch: the wrapper's one kernel launch with the launch state
-    # of the current stream (the graph's capture stream gets its own)
+    # the raw launch: the wrapper's one kernel launch into scratch made once
     dev = vals.get_device()
-    res = torch.empty(G, dtype=torch.float32, device=vals.device)
-
-    def state():
-        stream = GK._stream(dev)
-        return (stream, *(GK._SEGMENT_STATE.get((dev, stream, G))
-                          or GK._segment_state(dev, stream, G))[:3])
+    grid = GK._segment_grid(dev, G)
+    buf = torch.empty((grid + 1) * G, dtype=torch.float32,
+                      device=vals.device)
+    base = buf.data_ptr()
 
     def raw():
-        stream, grid, ticket, partials = state()
         GK._lib().segment_sum_launch(
             vals.data_ptr(), gid.data_ptr(), _ptr(live), n, G, grid,
-            partials, ticket, res.data_ptr(), stream)
+            base + 4 * G, base, GK._stream(dev))
 
     alone_ms = cuda_ms(torch, raw, 20)
     device_ms = graph_ms(torch, raw)
@@ -460,9 +456,11 @@ def _segment_case(torch, GK, orig_seg, args):
     parts = {
         "checks": enqueue_us(
             torch, lambda: GK._check_segment_args(vals, gid, live, G)),
-        "device, stream and launch state": enqueue_us(
-            torch, lambda: (torch.cuda.current_device(), state())),
-        "new_empty": enqueue_us(torch, lambda: vals.new_empty((G,))),
+        "device, stream and grid": enqueue_us(
+            torch, lambda: (torch.cuda.current_device(), GK._stream(dev),
+                            GK._segment_grid(dev, G))),
+        "new_empty and slice": enqueue_us(
+            torch, lambda: vals.new_empty(((grid + 1) * G,))[:G]),
         "raw launch": enqueue_us(torch, raw),
     }
     plain_ms = cuda_ms(

@@ -249,8 +249,8 @@ def test_cuda_segment_sum_offsets(cuda, ov, og, ol):
 
 @pytest.mark.gpu
 def test_cuda_segment_sum_same_bits_on_other_streams(cuda):
-    # each stream has its own ticket word: calls on two streams at once
-    # give the bits of the calls on the current stream
+    # calls on two streams at once give the bits of the calls on the
+    # current stream (no state is shared between calls)
     n, G = 1_000_003, 64
     inputs = [tuple(torch.from_numpy(x).cuda() for x in
                     _segment_inputs(n, G, seed)) for seed in (1, 2)]
@@ -272,7 +272,7 @@ def test_cuda_segment_sum_same_bits_on_other_streams(cuda):
 
 @pytest.mark.gpu
 def test_cuda_segment_sum_after_empty_and_all_dead(cuda):
-    # the ticket word is back at 0 after every call, whatever its grid
+    # no grid state outlives a call, whatever its grid
     n, G = 1_000_003, 8
     v, g, lv = (torch.from_numpy(x).cuda()
                 for x in _segment_inputs(n, G, 3))
@@ -305,6 +305,52 @@ def test_cuda_segment_sum_graph_replay(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert _same_bits(out, GK.masked_segment_sum_f32(v, g, lv, G))
+
+
+@pytest.mark.gpu
+def test_cuda_segment_sum_first_call_captured(cuda):
+    # the first call for a G (its setup) inside a capture
+    n, G = 100_003, 5
+    v, g, lv = (torch.from_numpy(x).cuda()
+                for x in _segment_inputs(n, G, 6))
+    assert (v.get_device(), G) not in GK._SEGMENT_GRID
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = GK.masked_segment_sum_f32(v, g, lv, G)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same_bits(out, GK.masked_segment_sum_f32(v, g, lv, G))
+
+
+@pytest.mark.gpu
+def test_cuda_segment_sum_graphs_replayed_at_once(cuda):
+    # two graphs (captured on the same capture stream) replayed on two
+    # streams at once, then an eager call: each gives its eager bits
+    n, G = 1_000_003, 64
+    inputs = [tuple(torch.from_numpy(x).cuda() for x in
+                    _segment_inputs(n, G, seed)) for seed in (7, 8)]
+    want = [GK.masked_segment_sum_f32(*x, G) for x in inputs]
+    graphs, outs = [], []
+    for x in inputs:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            outs.append(GK.masked_segment_sum_f32(*x, G))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(5):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                graphs[k].replay()
+                got[k].append(outs[k].clone())
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    after = GK.masked_segment_sum_f32(*inputs[0], G)
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert all(_same_bits(r, want[k]) for r in got[k])
+    assert _same_bits(after, want[0])
 
 
 @pytest.mark.gpu

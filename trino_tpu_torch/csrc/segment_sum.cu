@@ -41,29 +41,31 @@
 //
 // One launch, in a fixed order: each block reduces its columns (a
 // sequential sum over kThreads / 32 columns per lane, then a warp xor
-// tree) and writes one partial row of G floats; after a barrier, thread 0
-// fences and takes a ticket (atomicInc on a word that wraps to 0 at the
-// grid size, so it is 0 again for the next call, with no reset launch).
-// The block that draws the last ticket sums the partial rows of each group
-// over block index in a fixed order.  The grid depends only on N, G and the
-// card, so one input on one card adds in the same order on every run and
-// gives the same bits.  There are no float atomics.
+// tree) and writes one partial row of G floats into the call's scratch;
+// a grid sync (the launch is cooperative, so every block is resident)
+// makes the rows visible, and block 0 sums the partial rows of each group
+// over block index in a fixed order.  The grid depends only on N, G and
+// the card, so one input on one card adds in the same order on every run
+// and gives the same bits.  There are no float atomics, and no state
+// outlives a call: the grid sync's barrier belongs to the launch, so calls
+// on any streams and replays of any CUDA graphs may overlap.
 //
 // Grid: at most kBlocksPerSm resident blocks an SM (set up once per device
 // and G by segment_sum_setup), fewer when the rows need less; the partials
-// are at most 132 x G floats, so the last block's combine is a few loads
-// per thread.
+// are at most 132 x G floats, so block 0's combine is a few loads per
+// thread.
 //
 // Each entry point returns a cudaError_t (0 = success); the launch returns
-// cudaGetLastError() so the host wrapper can raise on a refused launch.
+// the launch's error or cudaGetLastError() so the host wrapper can raise on
+// a refused launch.
 //
-// SEGMENT_THREADS, SEGMENT_UNROLL and SEGMENT_BLOCKS_PER_SM set the block
-// size, the 16-byte words a thread loads per step and the grid; the
-// defaults were chosen by measurement.  python -m
-// trino_tpu_torch.tools.segment_variants builds and times the others.
-// Device ms per launch from one run of it (CUDA graph replay; 5,998,321
-// sorted rows, G = 8 / G = 64; an H100 80GB HBM3 at 700 W):
-//   this design                              0.0213 / 0.0230
+// The geometry was chosen by measurement: device ms per launch from one
+// run of a timing script that built this file once per variant, each with
+// one change (CUDA graph replay; 5,998,321 sorted rows, G = 8 / G = 64;
+// an H100 80GB HBM3 at 700 W).  In that run the blocks combined through a
+// last-block ticket (a counter word per stream, kept between calls) where
+// they now meet at a grid sync:
+//   this design (with the ticket)            0.0213 / 0.0230
 //   the same, rows cold in L2                     - / 0.0231
 //   2 words a step                           0.0214 / 0.0230
 //   8 words a step                           0.0291 / 0.0315
@@ -86,26 +88,23 @@
 // What is left beside the streaming is latency: 1.2 / 1.7 us for a block's
 // reduce, fence and ticket, and 1.7 / 2.3 us for the last block's combine,
 // at G = 8 / 64.
+// On the device the grid sync ties with the ticket: in chip_smoke.py runs
+// of both in turns on that card (ticket, grid sync, grid sync, ticket),
+// 0.0205, 0.0208 / 0.0221, 0.0223 ms against 0.0209, 0.0209 / 0.0225,
+// 0.0224 ms at R1 / R2.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef SEGMENT_THREADS
-#define SEGMENT_THREADS 512
-#endif
-#ifndef SEGMENT_UNROLL
-#define SEGMENT_UNROLL 4
-#endif
-#ifndef SEGMENT_BLOCKS_PER_SM
-#define SEGMENT_BLOCKS_PER_SM 1
-#endif
-
 namespace {
 
-constexpr int kThreads = SEGMENT_THREADS;
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = SEGMENT_UNROLL;
-constexpr int kBlocksPerSm = SEGMENT_BLOCKS_PER_SM;
+constexpr int kUnroll = 4;       // 16-byte words per array a thread loads a step
+constexpr int kBlocksPerSm = 1;  // the grid: one resident block an SM
 constexpr int kMaxGroups = 64;
 constexpr int kGroupsPerWarp = (kMaxGroups + kWarps - 1) / kWarps;
 constexpr int kSlices = 16;  // threads per group in the last block's combine
@@ -181,15 +180,14 @@ __device__ __forceinline__ float warp_sum(float s) {
 }
 
 // head: rows before the first 16-byte aligned word (vec only).  partial
-// holds gridDim.x x G floats; ticket is 0 on entry and on exit.
+// holds gridDim.x x G floats.  Launched cooperatively (a grid sync).
 __global__ void __launch_bounds__(kThreads)
 segment_sum_kernel(const float* __restrict__ vals,
                    const int32_t* __restrict__ gid,
                    const uint8_t* __restrict__ live, int64_t n, int G,
                    int head, bool vec, float* __restrict__ partial,
-                   unsigned* __restrict__ ticket, float* __restrict__ out) {
+                   float* __restrict__ out) {
   extern __shared__ float acc[];  // [G][kThreads]
-  __shared__ bool last;
   const int t = threadIdx.x;
   for (int g = 0; g < G; ++g) acc[g * kThreads + t] = 0.f;
   float* col = acc + t;  // only this thread touches it until the reduction
@@ -266,18 +264,11 @@ segment_sum_kernel(const float* __restrict__ vals,
     for (int i = 0; i < kGroupsPerWarp; ++i)
       if (warp + i * kWarps < G) partial[b * G + warp + i * kWarps] = s[i];
   }
-  __syncthreads();
-  if (t == 0) {
-    // the barrier orders the block's partial stores before this fence, and
-    // the fence orders them before the ticket (as a grid sync does)
-    __threadfence();
-    last = atomicInc(ticket, (unsigned)(nb - 1)) == (unsigned)(nb - 1);
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  // every block's partial row is written and visible after the grid sync
+  cg::this_grid().sync();
+  if (b != 0) return;
 
-  // The last block: thread (q, g) sums the partials of group g from blocks
+  // Block 0: thread (q, g) sums the partials of group g from blocks
   // q, q + per, ... in block order, kChunk loads in flight at a time; then
   // thread g adds the per slices in order.
   const int per = min(kThreads / G, kSlices);
@@ -348,32 +339,31 @@ int segment_sum_setup(int G, int* blocks) {
   return (int)cudaSuccess;
 }
 
-// One launch.  partial: blocks x G floats of scratch (blocks from
-// segment_sum_setup for this G); ticket: one word, 0 before the first call
-// and left 0 by every call (one per stream: calls that may overlap must not
-// share it); out receives G floats.  live may be null (every row live).
-// n == 0 writes zeros.
+// One cooperative launch.  partial: blocks x G floats of scratch (blocks
+// from segment_sum_setup for this G); out receives G floats.  live may be
+// null (every row live).  n == 0 writes zeros.
 int segment_sum_launch(const float* vals, const int32_t* gid,
                        const uint8_t* live, int64_t n, int G, int blocks,
-                       float* partial, unsigned* ticket, float* out,
-                       void* stream) {
+                       float* partial, float* out, void* stream) {
   const uintptr_t va = (uintptr_t)vals, ga = (uintptr_t)gid;
   if (G < 1 || G > kMaxGroups || blocks < 1 || n < 0 || (va & 3) ||
       (ga & 3))
     return (int)cudaErrorInvalidValue;
   int64_t head = (int64_t)(((16 - (va & 15)) & 15) / 4);
   if (head > n) head = n;
-  const bool vec = ((va ^ ga) & 15) == 0 &&
-                   (live == nullptr || (((uintptr_t)live + head) & 3) == 0);
+  bool vec = ((va ^ ga) & 15) == 0 &&
+             (live == nullptr || (((uintptr_t)live + head) & 3) == 0);
+  int head_rows = vec ? (int)head : 0;
   const int64_t rows_per_step = (int64_t)kThreads * 4 * kUnroll;
   int64_t grid = (n + rows_per_step - 1) / rows_per_step;
   if (grid > blocks) grid = blocks;
   if (grid < 1) grid = 1;
-  segment_sum_kernel<<<(unsigned)grid, kThreads, smem_bytes(G),
-                       (cudaStream_t)stream>>>(vals, gid, live, n, G,
-                                               vec ? (int)head : 0, vec,
-                                               partial, ticket, out);
-  return (int)cudaGetLastError();
+  void* args[] = {&vals, &gid, &live, &n, &G, &head_rows, &vec, &partial,
+                  &out};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)segment_sum_kernel, dim3((unsigned)grid), dim3(kThreads),
+      args, smem_bytes(G), (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

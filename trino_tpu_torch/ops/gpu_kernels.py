@@ -136,7 +136,7 @@ def _lib():
                 lib.segment_sum_setup.argtypes = [i, ctypes.POINTER(i)]
                 lib.segment_sum_setup.restype = i
                 lib.segment_sum_launch.argtypes = [p, p, p, i64, i, i, p, p,
-                                                   p, p]
+                                                   p]
                 lib.segment_sum_launch.restype = i
                 _INSERT_ROWS_PER_BLOCK = lib.hash_insert_rows_per_block()
                 _LIB = lib
@@ -394,62 +394,23 @@ def masked_segment_sum_f32_plain(values, gid, live, num_groups: int):
     return out.index_add_(0, torch.where(ok, g, G), x)[:G]
 
 
-# Launch state of the segment sum, made at the first call for its key and
-# then only read: (device, stream handle, G) -> (grid limit, address of the
-# stream's ticket word, address of the stream's [grid, G] float32 partials,
-# the partials tensor).  Calls on one stream run one after another, so a
-# stream's ticket and partials are never in use twice at once; calls on two
-# streams may overlap and use their own.  The ticket words are one zeroed
-# int32 tensor per device, a word per stream; the kernel leaves its word at
-# 0, so it is never reset.  A CUDA graph keeps the words of the stream it
-# was captured on: replay such a graph on one stream at a time.
-_SEGMENT_STATE: dict = {}
-_SEGMENT_GRID: dict = {}  # (device, G) -> grid limit (segment_sum_setup)
-_SEGMENT_TICKETS: dict = {}  # device -> (ticket words, {stream: address})
-_SEGMENT_TICKET_WORDS = 1024
-_SEGMENT_LOCK = threading.Lock()
+# (device, G) -> the segment sum's grid (resident blocks), set up at the
+# first call for the pair and then only read.
+_SEGMENT_GRID: dict = {}
 
 
-def _segment_state(dev: int, stream: int, G: int) -> tuple:
-    """Set up (dev, stream, G) on the current CUDA device ``dev``: the
-    kernel's shared-memory limit and grid at the first call for (dev, G),
-    the device's ticket words (zeroed, then synced, so a stream met later
-    finds its word at 0) at its first call, the stream's ticket word, and
-    the partials.  The first call for (dev, G) must not be captured into a
-    CUDA graph."""
-    with _SEGMENT_LOCK:
-        state = _SEGMENT_STATE.get((dev, stream, G))
-        if state is not None:
-            return state
-        capturing = torch.cuda.is_current_stream_capturing()
-        if capturing and ((dev, G) not in _SEGMENT_GRID
-                          or dev not in _SEGMENT_TICKETS):
-            raise RuntimeError("masked_segment_sum_f32: make one call on "
-                               "this device with this num_groups outside "
-                               "CUDA graph capture first")
-        cuda = torch.device("cuda", dev)
-        if (dev, G) not in _SEGMENT_GRID:
-            blocks = ctypes.c_int(0)
-            _check(_lib().segment_sum_setup(G, ctypes.byref(blocks)),
-                   "masked_segment_sum_f32 setup")
-            _SEGMENT_GRID[(dev, G)] = blocks.value
-        if dev not in _SEGMENT_TICKETS:
-            words = torch.zeros(_SEGMENT_TICKET_WORDS, dtype=torch.int32,
-                                device=cuda)
-            torch.cuda.current_stream(dev).synchronize()
-            _SEGMENT_TICKETS[dev] = (words, {})
-        words, given = _SEGMENT_TICKETS[dev]
-        if stream not in given:
-            if len(given) == _SEGMENT_TICKET_WORDS:
-                raise RuntimeError(f"masked_segment_sum_f32: more than "
-                                   f"{_SEGMENT_TICKET_WORDS} streams on "
-                                   f"{cuda}")
-            given[stream] = words.data_ptr() + 4 * len(given)
-        grid = _SEGMENT_GRID[(dev, G)]
-        partials = torch.empty(grid * G, dtype=torch.float32, device=cuda)
-        state = (grid, given[stream], partials.data_ptr(), partials)
-        _SEGMENT_STATE[(dev, stream, G)] = state
-        return state
+def _segment_grid(dev: int, G: int) -> int:
+    """The segment sum's grid for G on the current CUDA device ``dev``.  The
+    first call for (dev, G) raises the kernel's shared-memory limit and
+    reads its occupancy (no work on any stream, so it may run inside a CUDA
+    graph capture)."""
+    grid = _SEGMENT_GRID.get((dev, G))
+    if grid is None:
+        blocks = ctypes.c_int(0)
+        _check(_lib().segment_sum_setup(G, ctypes.byref(blocks)),
+               "masked_segment_sum_f32 setup")
+        grid = _SEGMENT_GRID[(dev, G)] = blocks.value
+    return grid
 
 
 def _check_segment_args(values, gid, live, G: int) -> int:
@@ -493,13 +454,13 @@ def masked_segment_sum_f32(values, gid, live: Optional[torch.Tensor],
     dev = values.get_device()
     if dev != torch.cuda.current_device():
         raise ValueError("inputs must be on the current CUDA device")
-    stream = _stream(dev)
-    grid, ticket, partials, _ = (_SEGMENT_STATE.get((dev, stream, G))
-                                 or _segment_state(dev, stream, G))
-    out = values.new_empty((G,))
+    grid = _segment_grid(dev, G)
+    # one allocation: the G sums, then the blocks' [grid, G] partial rows
+    buf = values.new_empty(((grid + 1) * G,))
+    base = buf.data_ptr()
     _check(_lib().segment_sum_launch(
         values.data_ptr(), gid.data_ptr(),
-        None if live is None else live.data_ptr(), n, G, grid, partials,
-        ticket, out.data_ptr(), stream), "masked_segment_sum_f32")
+        None if live is None else live.data_ptr(), n, G, grid, base + 4 * G,
+        base, _stream(dev)), "masked_segment_sum_f32")
     LAUNCHES["masked_segment_sum_f32"] += 1
-    return out
+    return buf[:G]
