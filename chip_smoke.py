@@ -3,28 +3,49 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the final line):
+Phases (any failure exits non-zero before the final line; they run in
+the order 1-5, 7, 8, 6, 9, so the kernel phase holds the staged path's
+calls too):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from trino_tpu_torch/csrc/*.cu (nvcc, sm_90a);
   3. path: the 22 TPC-H queries and the two REAL-sum queries R1, R2 at SF 1
-     through StandaloneQueryRunner on cuda -- cold and warm wall time, peak
-     device memory and kernel launches per query; Q1, Q3, Q12, R1 and R2
-     rows checked against a plain numpy evaluation on the same generated
-     data;
+     through StandaloneQueryRunner on cuda over the tpch connector (host
+     generation) -- cold and warm wall time, peak device memory and kernel
+     launches per query; Q1, Q3, Q12, R1 and R2 rows checked against a
+     plain numpy evaluation on the same generated data;
   4. parity: all 24 queries at SF 0.1 on cuda and on cpu (and numpy for
      the five above);
   5. per-operator time of one synchronized run of a subset of the queries;
-  6. kernels: each kernel on the inputs the path gives it (recorded in one
-     more run of that subset, apart from the path run), held against its
-     plain torch version (exact for group ids, counts and probe ids; the
-     float32 segment sums to the tolerances stated below), timed beside the
-     plain version and one PyTorch library call (in turns: kernel, library,
-     library, kernel), with its bound, the raw launch alone, the raw launch
-     replayed from a CUDA graph (device time) and the host time per wrapper
-     call (and, for the probe, per piece of its launch path).  The segment
-     sum is also run on R2's rows with a seeded 50 % live mask and under a
-     seeded permutation, and torch.sum over R2's values gives the read rate
-     of a library reduction on the card.
+  6. kernels: each kernel on the inputs the paths give it (recorded in one
+     more run of that subset on each path, apart from the path runs), held
+     against its plain torch version (exact for group ids, counts and probe
+     ids; the float32 segment sums to the tolerances stated below), timed
+     beside the plain version and one PyTorch library call (in turns:
+     kernel, library, library, kernel), with its bound, the raw launch
+     alone, the raw launch replayed from a CUDA graph (device time) and the
+     host time per wrapper call (and, for the probe and the segment sum,
+     per piece of its launch path).  The segment sum is also run on R2's
+     rows with a seeded 50 % live mask and under a seeded permutation, and
+     torch.sum over R2's values gives the read rate of a library reduction
+     on the card.  Each kernel also gets the largest call of the staged
+     path (phase 8), labelled "staged";
+  7. staging: the eight TPC-H tables at SF 1 into the memory connector on
+     cuda (connectors/staging.py: orders and lineitem generated on the
+     card, the others from the host generator and pinned), each table's
+     rows, bytes, seconds and route and the staging's peak device memory;
+     the staged orders and lineitem checked column by column against the
+     host generator (bit-identical);
+  8. the staged path: the 24 queries over the memory tables with one split
+     per table (default_catalog_name="memory", splits_per_node=1), cold
+     and warm, peak memory and launches as in phase 3; rows equal phase
+     3's (the REAL sums against the numpy evaluation), then per-operator
+     times as in phase 5 for the subset and the three slowest other
+     queries;
+  9. SF 10: Q1 and Q3 (the texts of bench.py's QUERIES) over lineitem,
+     orders and customer staged on cuda, cold and warm, with input rows/s
+     and scanned GB/s from the plans' table scans (held below the HBM
+     rate), rows checked against the numpy evaluation of the staged
+     columns.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -88,57 +109,99 @@ def smi_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# plain numpy evaluation of the three queries (independent of the engine)
+# plain numpy evaluation of the queries (independent of the engine)
 
 
 def _days(y: int, m: int, d: int) -> int:
     return (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
 
 
-def _table(conn, table: str, cols: list[str]) -> dict:
-    n = conn.row_count("orders" if table == "lineitem" else table)
-    b = conn._generate(table, cols, 0, n)
+class Strings:
+    """A dictionary-coded string column of the numpy evaluation, compared
+    and grouped in code space (decoding SF 10's 60 M rows into python
+    strings would take minutes)."""
+
+    def __init__(self, codes: np.ndarray, dictionary):
+        self.codes = codes
+        self.dictionary = np.asarray(dictionary, dtype=object)
+
+    def __getitem__(self, idx) -> "Strings":
+        return Strings(self.codes[idx], self.dictionary)
+
+    def isin(self, values) -> np.ndarray:
+        hit = np.isin(self.dictionary, np.array(list(values), dtype=object))
+        return hit[self.codes]
+
+    def values(self) -> list:
+        """The distinct strings present, sorted."""
+        return sorted(str(v) for v in self.dictionary[np.unique(self.codes)])
+
+
+def _numpy_columns(batch) -> dict:
     out = {}
-    for name, c in zip(b.names, b.columns):
-        data = c.data.numpy()
-        out[name] = c.dictionary[data] if c.dictionary is not None else data
+    for name, c in zip(batch.names, batch.columns):
+        data = c.data.cpu().numpy()
+        out[name] = (Strings(data, c.dictionary)
+                     if c.dictionary is not None else data)
     return out
+
+
+def host_reader(conn):
+    """(table, columns) -> numpy columns from the host TPC-H generator."""
+    def read(table: str, cols: list[str]) -> dict:
+        n = conn.row_count("orders" if table == "lineitem" else table)
+        return _numpy_columns(conn._generate(table, cols, 0, n))
+    return read
+
+
+def staged_reader(mem):
+    """(table, columns) -> numpy columns of a staged memory table, copied
+    from the device."""
+    def read(table: str, cols: list[str]) -> dict:
+        (split,) = mem.get_splits(table, 1, 1)
+        return _numpy_columns(
+            mem.create_page_source(split, cols).get_next_batch())
+    return read
 
 
 def _dec(v: int, scale: int) -> decimal.Decimal:
     return decimal.Decimal(int(v)).scaleb(-scale)
 
 
-def oracle(conn, q: int) -> list[tuple]:
+def oracle(read, q: int) -> list[tuple]:
     if q == 1:
-        li = _table(conn, "lineitem", [
+        li = read("lineitem", [
             "l_quantity", "l_extendedprice", "l_discount", "l_tax",
             "l_returnflag", "l_linestatus", "l_shipdate"])
         m = li["l_shipdate"] <= _days(1998, 12, 1) - 90
+        rf_col, ls_col = li["l_returnflag"], li["l_linestatus"]
         rows = []
-        for rf, ls in sorted(set(zip(li["l_returnflag"][m],
-                                     li["l_linestatus"][m]))):
-            g = m & (li["l_returnflag"] == rf) & (li["l_linestatus"] == ls)
-            qty, ext = li["l_quantity"][g], li["l_extendedprice"][g]
-            disc, tax = li["l_discount"][g], li["l_tax"][g]
-            n = int(g.sum())
-            rows.append((
-                rf, ls, _dec(qty.sum(), 2), _dec(ext.sum(), 2),
-                _dec((ext * (100 - disc)).sum(), 4),
-                _dec((ext * (100 - disc) * (100 + tax)).sum(), 6),
-                float((qty / 100.0).sum() / n),
-                float((ext / 100.0).sum() / n),
-                float((disc / 100.0).sum() / n), n))
+        for rf in rf_col[m].values():
+            for ls in ls_col[m].values():
+                g = m & rf_col.isin([rf]) & ls_col.isin([ls])
+                n = int(g.sum())
+                if not n:
+                    continue
+                qty, ext = li["l_quantity"][g], li["l_extendedprice"][g]
+                disc, tax = li["l_discount"][g], li["l_tax"][g]
+                rows.append((
+                    rf, ls, _dec(qty.sum(), 2), _dec(ext.sum(), 2),
+                    _dec((ext * (100 - disc)).sum(), 4),
+                    _dec((ext * (100 - disc) * (100 + tax)).sum(), 6),
+                    float((qty / 100.0).sum() / n),
+                    float((ext / 100.0).sum() / n),
+                    float((disc / 100.0).sum() / n), n))
         return rows
     if q == 3:
-        cu = _table(conn, "customer", ["c_custkey", "c_mktsegment"])
-        od = _table(conn, "orders", ["o_orderkey", "o_custkey",
-                                     "o_orderdate", "o_shippriority"])
-        li = _table(conn, "lineitem", ["l_orderkey", "l_extendedprice",
-                                       "l_discount", "l_shipdate"])
+        cu = read("customer", ["c_custkey", "c_mktsegment"])
+        od = read("orders", ["o_orderkey", "o_custkey", "o_orderdate",
+                             "o_shippriority"])
+        li = read("lineitem", ["l_orderkey", "l_extendedprice",
+                               "l_discount", "l_shipdate"])
         cut = _days(1995, 3, 15)
         building = np.zeros(int(cu["c_custkey"].max()) + 1, bool)
-        building[cu["c_custkey"][cu["c_mktsegment"] == "BUILDING"]] = True
+        building[cu["c_custkey"][cu["c_mktsegment"].isin(["BUILDING"])]] = (
+            True)
         om = (od["o_orderdate"] < cut) & building[od["o_custkey"]]
         okeys = od["o_orderkey"]
         order = np.argsort(okeys)
@@ -158,11 +221,11 @@ def oracle(conn, q: int) -> list[tuple]:
                      days=int(dates[i])),
                  int(od["o_shippriority"][uo[i]])) for i in top]
     if q == 12:
-        od = _table(conn, "orders", ["o_orderkey", "o_orderpriority"])
-        li = _table(conn, "lineitem", [
+        od = read("orders", ["o_orderkey", "o_orderpriority"])
+        li = read("lineitem", [
             "l_orderkey", "l_shipdate", "l_commitdate", "l_receiptdate",
             "l_shipmode"])
-        m = (np.isin(li["l_shipmode"], ["MAIL", "SHIP"])
+        m = (li["l_shipmode"].isin(["MAIL", "SHIP"])
              & (li["l_commitdate"] < li["l_receiptdate"])
              & (li["l_shipdate"] < li["l_commitdate"])
              & (li["l_receiptdate"] >= _days(1994, 1, 1))
@@ -170,18 +233,17 @@ def oracle(conn, q: int) -> list[tuple]:
         okeys = od["o_orderkey"]
         order = np.argsort(okeys)
         pos = order[np.searchsorted(okeys[order], li["l_orderkey"][m])]
-        high = np.isin(od["o_orderpriority"][pos], ["1-URGENT", "2-HIGH"])
+        high = od["o_orderpriority"][pos].isin(["1-URGENT", "2-HIGH"])
         modes = li["l_shipmode"][m]
-        return [(mode, int((high & (modes == mode)).sum()),
-                 int((~high & (modes == mode)).sum()))
-                for mode in sorted(set(modes))]
+        return [(mode, int((high & modes.isin([mode])).sum()),
+                 int((~high & modes.isin([mode])).sum()))
+                for mode in modes.values()]
     raise ValueError(q)
 
 
-def real_oracle(conn, name: str) -> list[tuple]:
+def real_oracle(read, name: str) -> list[tuple]:
     """R1 / R2: float64 sums of the float32-cast values per key."""
-    li = _table(conn, "lineitem", [
-        "l_linenumber", "l_quantity", "l_extendedprice"])
+    li = read("lineitem", ["l_linenumber", "l_quantity", "l_extendedprice"])
     key = li["l_linenumber"] if name == "R1" else li["l_quantity"]
     sums = ["l_quantity", "l_extendedprice"] if name == "R1" else [
         "l_extendedprice"]
@@ -192,9 +254,9 @@ def real_oracle(conn, name: str) -> list[tuple]:
     return [(k, *(float(c[i]) for c in cols)) for i, k in enumerate(keys)]
 
 
-def evaluate(conn, name: str) -> list[tuple]:
-    return (real_oracle(conn, name) if name in REAL_QUERIES
-            else oracle(conn, int(name[1:])))
+def evaluate(read, name: str) -> list[tuple]:
+    return (real_oracle(read, name) if name in REAL_QUERIES
+            else oracle(read, int(name[1:])))
 
 
 def same_rows(got: list, want: list, what: str,
@@ -514,36 +576,22 @@ SOURCES = {
 }
 
 
-def main() -> int:
-    import torch
+TPCH_TABLES = ("region", "nation", "supplier", "customer", "part",
+               "partsupp", "orders", "lineitem")
+REQUIRED = {"Q3": ["hash_insert"], "Q12": ["hash_probe"],
+            "Q18": ["hash_insert"], "Q21": ["hash_insert", "hash_probe"],
+            "R1": ["masked_segment_sum_f32"],
+            "R2": ["masked_segment_sum_f32"]}
+SF10 = 10.0
+SF10_QUERIES = ("Q1", "Q3")  # bench.py's QUERIES (the same texts)
+SF10_TABLES = ("customer", "orders", "lineitem")
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    from trino_tpu_torch.connectors.catalog import default_catalog
-    from trino_tpu_torch.connectors.tpch_queries import QUERIES
-    from trino_tpu_torch.exec.stats import QueryStats
-    from trino_tpu_torch.ops import gpu_kernels as GK
-    from trino_tpu_torch.runner import StandaloneQueryRunner
 
-    sqls = {f"Q{q}": QUERIES[q] for q in sorted(QUERIES)}
-    sqls.update(REAL_QUERIES)
-    t_start = time.perf_counter()
-    smi = smi_line()
-    kind = torch.cuda.get_device_name(0)
-    log(f"card: {smi}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
-
-    # -- build -------------------------------------------------------------
-    t0 = time.perf_counter()
-    GK.build_library(verbose=True)
-    log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc trino_tpu_torch/csrc/*.cu, one process per source)")
-
-    # -- path: SF 1 on cuda ------------------------------------------------
-    runner = StandaloneQueryRunner(default_catalog(PATH_SF), device="cuda")
-    path_rows, timings, per_query = {}, {}, {}
+def run_path(torch, GK, runner, sqls: dict, label: str) -> tuple:
+    """Every query cold then warm: rows, (cold ms, warm ms, peak MiB) and
+    kernel launches per query; fails if a query misses a REQUIRED kernel
+    or a kernel never launched."""
+    rows, timings, per_query = {}, {}, {}
     t_path = time.perf_counter()
     GK.reset_launch_counts()
     for name, sql in sqls.items():
@@ -558,60 +606,30 @@ def main() -> int:
         torch.cuda.synchronize()
         warm = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated() / 2**20
-        path_rows[name] = res.rows()
+        rows[name] = res.rows()
         timings[name] = (cold, warm, peak)
         per_query[name] = {k: GK.LAUNCHES[k] - before[k]
                            for k in GK.LAUNCHES}
-        log(f"path SF{PATH_SF:g} {name}: {len(path_rows[name])} rows, cold "
-            f"{cold:.1f} ms, warm {warm:.1f} ms, peak device memory "
-            f"{peak:.1f} MiB, launches {per_query[name]}")
+        log(f"{label} {name}: {len(rows[name])} rows, cold {cold:.1f} ms, "
+            f"warm {warm:.1f} ms, peak device memory {peak:.1f} MiB, "
+            f"launches {per_query[name]}")
     launches = dict(GK.LAUNCHES)
-    log(f"path launches: {launches} "
+    log(f"{label} launches: {launches} "
         f"({time.perf_counter() - t_path:.1f} s for {len(sqls)} queries)")
-    required = {"Q3": ["hash_insert"], "Q12": ["hash_probe"],
-                "Q18": ["hash_insert"], "Q21": ["hash_insert", "hash_probe"],
-                "R1": ["masked_segment_sum_f32"],
-                "R2": ["masked_segment_sum_f32"]}
-    for name, kernels in required.items():
+    for name, kernels in REQUIRED.items():
         for k in kernels:
             if per_query[name][k] <= 0:
-                raise AssertionError(f"{name} launched no {k}")
+                raise AssertionError(f"{label} {name} launched no {k}")
     if any(v <= 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
-    t0 = time.perf_counter()
-    conn1 = runner.catalog.connector("tpch")
-    for name in ORACLE_QUERIES:
-        rtol = KERNEL_VS_F64_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
-        worst = same_rows(path_rows[name], evaluate(conn1, name),
-                          f"SF{PATH_SF:g} {name}", rtol)
-        log(f"path SF{PATH_SF:g} {name}: rows equal the numpy evaluation "
-            f"(largest float rel diff {worst:.3g}, limit {rtol:g})")
-    log(f"numpy evaluations: {time.perf_counter() - t0:.1f} s")
+        raise AssertionError(f"{label}: a kernel never launched: {launches}")
+    return rows, timings, launches
 
-    # -- parity: SF 0.1, cuda vs cpu (vs numpy) ------------------------------
-    t0 = time.perf_counter()
-    cat = default_catalog(PARITY_SF)
-    r_gpu = StandaloneQueryRunner(cat, device="cuda")
-    r_cpu = StandaloneQueryRunner(cat, device="cpu")
-    for name, sql in sqls.items():
-        g = r_gpu.execute(sql).rows()
-        c = r_cpu.execute(sql).rows()
-        real = name in REAL_QUERIES
-        worst = same_rows(g, c, f"SF{PARITY_SF:g} {name} cuda vs cpu",
-                          REAL_PARITY_RTOL if real else DOUBLE_RTOL)
-        msg = ""
-        if name in ORACLE_QUERIES:
-            same_rows(g, evaluate(cat.connector("tpch"), name),
-                      f"SF{PARITY_SF:g} {name} cuda vs numpy",
-                      KERNEL_VS_F64_RTOL if real else DOUBLE_RTOL)
-            msg = " and numpy"
-        log(f"parity SF{PARITY_SF:g} {name}: {len(g)} rows equal on cuda "
-            f"and cpu{msg} (largest float rel diff {worst:.3g})")
-    log(f"parity: {time.perf_counter() - t0:.1f} s")
 
-    # -- per-operator time (synchronized after every operator call) --------
-    for name in CAPTURE_QUERIES:
+def per_operator(QueryStats, runner, sqls: dict, label: str,
+                 names=CAPTURE_QUERIES) -> None:
+    """One run of each query of ``names`` with the device synchronized
+    after every operator call."""
+    for name in names:
         st = QueryStats(sync=True)
         t0 = time.perf_counter()
         runner.execute(sqls[name], stats=st)
@@ -619,51 +637,168 @@ def main() -> int:
         ops = ", ".join(f"{k} {v * 1e3:.1f}"
                         for k, v in sorted(st.by_operator().items(),
                                            key=lambda kv: -kv[1]))
-        log(f"operators SF{PATH_SF:g} {name} (sync, {total:.1f} ms): {ops}")
+        log(f"operators {label} {name} (sync, {total:.1f} ms): {ops}")
 
-    # -- kernels vs plain versions at the path's shapes ---------------------
-    # One more run per query records every wrapper call's arguments; it is
-    # kept apart from the path run so the held tensors do not inflate that
-    # run's peak memory, and its launches are not the path's.
-    captured: dict = {}  # (query, kernel) -> list of wrapper args
+
+def capture_calls(GK, runs) -> dict:
+    """(query label, kernel) -> the arguments of every wrapper call, from
+    one more run of each (label, runner, sql) in ``runs``."""
+    captured: dict = {}
     current = {"q": None}
-    orig_insert, orig_probe = GK.hash_insert, GK.hash_probe
-    orig_seg = GK.masked_segment_sum_f32
+    orig = {k: getattr(GK, k) for k in SOURCES}
 
-    def cap_insert(planes, hash32, live, num_slots):
-        captured.setdefault((current["q"], "hash_insert"), []).append(
-            (planes, hash32, live, num_slots))
-        return orig_insert(planes, hash32, live, num_slots)
+    def spy(kernel):
+        def call(*args):
+            captured.setdefault((current["q"], kernel), []).append(args)
+            return orig[kernel](*args)
+        return call
 
-    def cap_probe(table_planes, slot_gid, planes, hash32, live=None):
-        captured.setdefault((current["q"], "hash_probe"), []).append(
-            (table_planes, slot_gid, planes, hash32, live))
-        return orig_probe(table_planes, slot_gid, planes, hash32, live)
-
-    def cap_seg(values, gid, live, num_groups):
-        captured.setdefault((current["q"], "masked_segment_sum_f32"),
-                            []).append((values, gid, live, num_groups))
-        return orig_seg(values, gid, live, num_groups)
-
-    GK.hash_insert, GK.hash_probe = cap_insert, cap_probe
-    GK.masked_segment_sum_f32 = cap_seg
+    for k in SOURCES:
+        setattr(GK, k, spy(k))
     try:
-        for name in CAPTURE_QUERIES:
-            current["q"] = name
-            runner.execute(sqls[name])
+        for label, runner, sql in runs:
+            current["q"] = label
+            runner.execute(sql)
     finally:
-        GK.hash_insert, GK.hash_probe = orig_insert, orig_probe
-        GK.masked_segment_sum_f32 = orig_seg
+        for k, fn in orig.items():
+            setattr(GK, k, fn)
+    return captured
 
+
+def _same_generated(torch, dev_col, host_col, what: str) -> None:
+    """Bit-identical columns: same dtype, same values, strings compared
+    through the two dictionaries in code space."""
+    d = dev_col.data.cpu().numpy()
+    h = host_col.data.numpy()
+    if d.dtype != h.dtype or dev_col.valid is not None:
+        raise AssertionError(f"{what}: dtype {d.dtype} vs {h.dtype}")
+    if dev_col.dictionary is not None:
+        hd, dd = host_col.dictionary, dev_col.dictionary
+        pos = np.clip(np.searchsorted(hd, dd), 0, len(hd) - 1)
+        d = np.where(hd[pos] == dd, pos, -1)[d]
+    if not np.array_equal(d, h):
+        raise AssertionError(f"{what}: staged column != host generator")
+
+
+def stage_sf1(torch, default_catalog, stage_memory_tables):
+    """Phase 7: all eight tables into memory on cuda, orders and lineitem
+    checked column by column against the host generator."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    cat = default_catalog(PATH_SF)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    info = stage_memory_tables(cat, TPCH_TABLES, "cuda")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    resident = (torch.cuda.memory_allocated() - base) / 2**20
+    for t, v in info.items():
+        log(f"staging SF{PATH_SF:g} {t}: {v['rows']} rows, {v['bytes']} "
+            f"bytes, {v['seconds'] * 1e3:.1f} ms, route {v['route']}")
+    log(f"staging SF{PATH_SF:g}: {sum(v['seconds'] for v in info.values()):.2f}"
+        f" s, peak device memory {peak:.1f} MiB above the start, "
+        f"{resident:.1f} MiB resident after")
+    mem = cat.connector("memory")
+    t0 = time.perf_counter()
+    for t in ("orders", "lineitem"):
+        (split,) = mem.get_splits(t, 1, 1)
+        cols = mem.get_table_schema(t).column_names()
+        staged = mem.create_page_source(split, cols).get_next_batch()
+        # a fresh host generator whose dictionary cache holds the staged
+        # vocabularies: it then maps each row's vocabulary index through
+        # them instead of first building its data-derived dictionaries
+        # (python strings for 6 M comments: minutes at SF 1), and equal
+        # codes mean equal strings
+        tpch = TpchConnector(PATH_SF)
+        for name in cols:
+            if staged.column(name).dictionary is not None:
+                tpch._dict_cache[(t, name)] = staged.column(name).dictionary
+        host = tpch._generate(t, cols, 0, tpch.row_count("orders"))
+        if staged.num_rows != host.num_rows or staged.live is not None:
+            raise AssertionError(f"staged {t}: {staged.num_rows} rows")
+        for name in cols:
+            _same_generated(torch, staged.column(name), host.column(name),
+                            f"staged {t}.{name}")
+        log(f"staging SF{PATH_SF:g} {t}: {len(cols)} columns x "
+            f"{host.num_rows} rows bit-identical to the host generator")
+    log(f"bit-identity check: {time.perf_counter() - t0:.1f} s")
+    return cat
+
+
+def scan_stats(runner, sql: str) -> tuple:
+    """(rows, bytes) the plan's table scans read after column pruning (as
+    bench.py's _scan_stats counts them)."""
+    from trino_tpu_torch.planner.plan import TableScan
+
+    rows = nbytes = 0.0
+    stack = [runner.create_plan(sql)]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, TableScan):
+            r = runner.catalog.connector(node.catalog).get_table_statistics(
+                node.table).row_count
+            rows += r
+            nbytes += r * sum(np.dtype(t.storage_dtype).itemsize
+                              for t in node.output_types)
+        stack.extend(node.children)
+    return rows, nbytes
+
+
+def sf10(torch, sqls, default_catalog, stage_memory_tables,
+         StandaloneQueryRunner) -> None:
+    """Phase 9: Q1 and Q3 at SF 10 over the tables they read, staged."""
+    cat = default_catalog(SF10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    info = stage_memory_tables(cat, SF10_TABLES, "cuda")
+    for t, v in info.items():
+        log(f"staging SF{SF10:g} {t}: {v['rows']} rows, {v['bytes']} bytes, "
+            f"{v['seconds'] * 1e3:.1f} ms, route {v['route']}")
+    log(f"staging SF{SF10:g}: peak device memory "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB above "
+        f"the start")
+    runner = StandaloneQueryRunner(cat, device="cuda",
+                                   default_catalog_name="memory",
+                                   splits_per_node=1)
+    read = staged_reader(cat.connector("memory"))
+    for name in SF10_QUERIES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runner.execute(sqls[name])
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = runner.execute(sqls[name])
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        rows, nbytes = scan_stats(runner, sqls[name])
+        rate = nbytes / warm
+        log(f"SF{SF10:g} {name}: cold {cold * 1e3:.1f} ms, warm "
+            f"{warm * 1e3:.1f} ms, peak device memory {peak:.1f} MiB, input "
+            f"{rows:.0f} rows = {rows / warm:.0f} rows/s, scanned "
+            f"{nbytes / 1e9:.3f} GB = {rate / 1e9:.2f} GB/s (HBM "
+            f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s)")
+        if rate > HBM_BYTES_PER_S:
+            raise AssertionError(f"SF{SF10:g} {name}: {rate / 1e9:.1f} GB/s "
+                                 "exceeds the HBM rate")
+        t0 = time.perf_counter()
+        worst = same_rows(res.rows(), evaluate(read, name),
+                          f"SF{SF10:g} {name}")
+        log(f"SF{SF10:g} {name}: rows equal the numpy evaluation of the "
+            f"staged columns (largest float rel diff {worst:.3g}; "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+
+def kernel_cases(torch, GK, captured) -> list:
+    """(kernel, label, args): the path's shapes, then per kernel the
+    largest call of the staged path."""
     def pick(q, kernel, pred):
         calls = [c for c in captured.get((q, kernel), []) if pred(c)]
         if not calls:
             raise AssertionError(f"no captured {kernel} call of {q}")
-        if kernel == "hash_probe":
-            return max(calls, key=lambda c: c[-3].shape[-1])
-        if kernel == "hash_insert":
-            return max(calls, key=lambda c: c[0].shape[1])
-        return max(calls, key=lambda c: c[0].shape[0])
+        return max(calls, key=lambda c: _rows_of(kernel, c))
 
     cases = [
         ("hash_insert", "Q3 orders join index",
@@ -686,15 +821,137 @@ def main() -> int:
     r2 = cases[-1][2]
     cases += [("masked_segment_sum_f32", label, args)
               for label, args in _segment_variants(torch, r2)]
-    log(library_read_rate(torch, r2[0]))
+    for kernel in SOURCES:
+        calls = [(q, c) for (q, k), cs in captured.items()
+                 if k == kernel and q.startswith("staged ") for c in cs]
+        if not calls:
+            raise AssertionError(f"the staged path made no {kernel} call")
+        q, args = max(calls, key=lambda qc: _rows_of(kernel, qc[1]))
+        cases.append((kernel, f"staged: largest call ({q[7:]})", args))
+    return cases
+
+
+def _rows_of(kernel: str, args) -> int:
+    if kernel == "hash_probe":
+        return args[2].shape[-1]
+    if kernel == "hash_insert":
+        return args[0].shape[1]
+    return args[0].shape[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from trino_tpu_torch.connectors.catalog import default_catalog
+    from trino_tpu_torch.connectors.staging import stage_memory_tables
+    from trino_tpu_torch.connectors.tpch_queries import QUERIES
+    from trino_tpu_torch.exec.stats import QueryStats
+    from trino_tpu_torch.ops import gpu_kernels as GK
+    from trino_tpu_torch.runner import StandaloneQueryRunner
+
+    sqls = {f"Q{q}": QUERIES[q] for q in sorted(QUERIES)}
+    sqls.update(REAL_QUERIES)
+    t_start = time.perf_counter()
+    smi = smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+    # -- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    GK.build_library(verbose=True)
+    log(f"build: {time.perf_counter() - t0:.2f} s "
+        f"(nvcc trino_tpu_torch/csrc/*.cu, one process per source)")
+
+    # -- 3. path: SF 1 on cuda ---------------------------------------------
+    runner = StandaloneQueryRunner(default_catalog(PATH_SF), device="cuda")
+    path_rows, _, launches = run_path(torch, GK, runner, sqls,
+                                      f"path SF{PATH_SF:g}")
+    t0 = time.perf_counter()
+    read1 = host_reader(runner.catalog.connector("tpch"))
+    numpy_rows = {}
+    for name in ORACLE_QUERIES:
+        rtol = KERNEL_VS_F64_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+        numpy_rows[name] = evaluate(read1, name)
+        worst = same_rows(path_rows[name], numpy_rows[name],
+                          f"SF{PATH_SF:g} {name}", rtol)
+        log(f"path SF{PATH_SF:g} {name}: rows equal the numpy evaluation "
+            f"(largest float rel diff {worst:.3g}, limit {rtol:g})")
+    log(f"numpy evaluations: {time.perf_counter() - t0:.1f} s")
+
+    # -- 4. parity: SF 0.1, cuda vs cpu (vs numpy) ---------------------------
+    t0 = time.perf_counter()
+    cat = default_catalog(PARITY_SF)
+    r_gpu = StandaloneQueryRunner(cat, device="cuda")
+    r_cpu = StandaloneQueryRunner(cat, device="cpu")
+    read01 = host_reader(cat.connector("tpch"))
+    for name, sql in sqls.items():
+        g = r_gpu.execute(sql).rows()
+        c = r_cpu.execute(sql).rows()
+        real = name in REAL_QUERIES
+        worst = same_rows(g, c, f"SF{PARITY_SF:g} {name} cuda vs cpu",
+                          REAL_PARITY_RTOL if real else DOUBLE_RTOL)
+        msg = ""
+        if name in ORACLE_QUERIES:
+            same_rows(g, evaluate(read01, name),
+                      f"SF{PARITY_SF:g} {name} cuda vs numpy",
+                      KERNEL_VS_F64_RTOL if real else DOUBLE_RTOL)
+            msg = " and numpy"
+        log(f"parity SF{PARITY_SF:g} {name}: {len(g)} rows equal on cuda "
+            f"and cpu{msg} (largest float rel diff {worst:.3g})")
+    log(f"parity: {time.perf_counter() - t0:.1f} s")
+    del cat, r_gpu, r_cpu
+
+    # -- 5. per-operator time (synchronized after every operator call) -----
+    per_operator(QueryStats, runner, sqls, f"SF{PATH_SF:g}")
+
+    # -- 7. staging: SF 1 into memory on cuda ------------------------------
+    staged_cat = stage_sf1(torch, default_catalog, stage_memory_tables)
+
+    # -- 8. the staged path: memory tables, one split ----------------------
+    staged = StandaloneQueryRunner(staged_cat, device="cuda",
+                                   default_catalog_name="memory",
+                                   splits_per_node=1)
+    staged_rows, staged_times, _ = run_path(torch, GK, staged, sqls,
+                                            f"staged SF{PATH_SF:g}")
+    for name in sqls:
+        if name in REAL_QUERIES:  # float32 sums over one whole-table batch
+            want, rtol, what = (numpy_rows[name], KERNEL_VS_F64_RTOL,
+                                "the numpy evaluation")
+        else:
+            want, rtol, what = path_rows[name], DOUBLE_RTOL, "the tpch path"
+        worst = same_rows(staged_rows[name], want,
+                          f"staged SF{PATH_SF:g} {name}", rtol)
+        log(f"staged SF{PATH_SF:g} {name}: rows equal {what} (largest float "
+            f"rel diff {worst:.3g}, limit {rtol:g})")
+    # the subset, then the three slowest staged queries outside it
+    slowest = sorted((n for n in sqls if n not in CAPTURE_QUERIES),
+                     key=lambda n: -staged_times[n][1])[:3]
+    per_operator(QueryStats, staged, sqls, f"staged SF{PATH_SF:g}",
+                 CAPTURE_QUERIES + tuple(slowest))
+
+    # -- 6. kernels vs plain versions at the paths' shapes ------------------
+    # One more run per query records every wrapper call's arguments; it is
+    # kept apart from the path runs so the held tensors do not inflate
+    # their peak memory, and its launches are not the paths'.
+    captured = capture_calls(GK, [
+        (f"{prefix}{name}", r, sqls[name]) for prefix, r in
+        (("", runner), ("staged ", staged)) for name in CAPTURE_QUERIES])
+    cases = kernel_cases(torch, GK, captured)
+    log(library_read_rate(torch, cases[7][2][0]))
     entries = {}
     for kernel, label, args in cases:
         if kernel == "hash_insert":
-            res = _insert_case(torch, GK, orig_insert, orig_probe, args)
+            res = _insert_case(torch, GK, GK.hash_insert, GK.hash_probe,
+                               args)
         elif kernel == "hash_probe":
-            res = _probe_case(torch, GK, orig_probe, args)
+            res = _probe_case(torch, GK, GK.hash_probe, args)
         else:
-            res = _segment_case(torch, GK, orig_seg, args)
+            res = _segment_case(torch, GK, GK.masked_segment_sum_f32, args)
         bound_ms = res["nbytes"] / HBM_BYTES_PER_S * 1e3
         on_device = (f" (on the device, CUDA graph of {GRAPH_REPS}: "
                      f"{res['device_ms']:.4f} ms)")
@@ -729,6 +986,12 @@ def main() -> int:
             "library_ms": res["lib_ms"], "shape": res["shape"], "cases": []})
         entry["max_abs_err"] = max(entry["max_abs_err"], res["err"])
         entry["cases"].append(case)
+    del captured, cases, args, res, staged, staged_cat, runner
+    torch.cuda.empty_cache()
+
+    # -- 9. SF 10: Q1 and Q3 over staged tables -----------------------------
+    sf10(torch, sqls, default_catalog, stage_memory_tables,
+         StandaloneQueryRunner)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)

@@ -106,10 +106,14 @@ class Catalog:
 
 
 def default_catalog(scale_factor: float = 0.01) -> Catalog:
-    """Catalog with the tpch connector registered (the only connector the
-    port has so far)."""
+    """Catalog with the tpch, memory and blackhole connectors registered
+    (the reference's ``file`` and ``system`` connectors are not ported
+    yet)."""
+    from .memory import BlackholeConnector, MemoryConnector
     from .tpch import TpchConnector
 
     cat = Catalog()
     cat.register("tpch", TpchConnector(scale_factor))
+    cat.register("memory", MemoryConnector())
+    cat.register("blackhole", BlackholeConnector())
     return cat

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..spi.batch import Column, ColumnBatch
 from ..spi.connector import (
@@ -157,16 +158,17 @@ def _comments(keys: np.ndarray, stream: int, phrase: Optional[str] = None,
     return out
 
 
-def _retail_price_cents(partkey: np.ndarray) -> np.ndarray:
-    """Official spec formula (4.2.3): (90000 + pk/10 % 20001 + 100*(pk%1000))."""
-    pk = partkey.astype(np.int64)
+def _retail_price_cents(pk):
+    """Official spec formula (4.2.3): (90000 + pk/10 % 20001 + 100*(pk%1000)),
+    on int64 partkeys (a numpy array or a torch tensor)."""
     return 90000 + (pk // 10) % 20001 + 100 * (pk % 1000)
 
 
-def _ps_suppkey(partkey: np.ndarray, j: np.ndarray, supp_count: int) -> np.ndarray:
+def _ps_suppkey(partkey, j, supp_count: int):
     """Supplier j (0..3) of a part — the spec's alignment formula so that
-    lineitem (partkey, suppkey) pairs always exist in partsupp (Q9)."""
-    pk = partkey.astype(np.int64) - 1
+    lineitem (partkey, suppkey) pairs always exist in partsupp (Q9); int64
+    numpy arrays or torch tensors."""
+    pk = partkey - 1
     s = supp_count
     return 1 + (pk + j * (s // 4 + pk // s)) % s
 
@@ -183,15 +185,23 @@ def _line_fields(okeys: np.ndarray, lineno: np.ndarray, orderdates: np.ndarray,
                  part_count: int, supp_count: int) -> dict[str, np.ndarray]:
     """Vectorized per-lineitem values keyed by (orderkey, linenumber)."""
     k = okeys.astype(np.uint64) * _U(8) + lineno.astype(np.uint64)
-    quantity = _randint(k, 21, 1, 50)
-    partkey = _randint(k, 22, 1, part_count)
-    suppkey = _ps_suppkey(partkey, _randint(k, 23, 0, 3), supp_count)
-    discount = _randint(k, 24, 0, 10)  # cents: 0.00 - 0.10
-    tax = _randint(k, 25, 0, 8)
+    return _line_values(k, orderdates, part_count, supp_count, _randint)
+
+
+def _line_values(k, orderdates, part_count: int, supp_count: int,
+                 randint) -> dict:
+    """Per-lineitem values from the line key k = orderkey * 8 + linenumber.
+    ``randint`` is the numpy version (uint64 keys) or the torch one (the
+    same bits in int64, :func:`_randint_t`); both give the same values."""
+    quantity = randint(k, 21, 1, 50)
+    partkey = randint(k, 22, 1, part_count)
+    suppkey = _ps_suppkey(partkey, randint(k, 23, 0, 3), supp_count)
+    discount = randint(k, 24, 0, 10)  # cents: 0.00 - 0.10
+    tax = randint(k, 25, 0, 8)
     extprice = quantity * _retail_price_cents(partkey)
-    shipdate = orderdates + _randint(k, 26, 1, 121)
-    commitdate = orderdates + _randint(k, 27, 30, 90)
-    receiptdate = shipdate + _randint(k, 28, 1, 30)
+    shipdate = orderdates + randint(k, 26, 1, 121)
+    commitdate = orderdates + randint(k, 27, 30, 90)
+    receiptdate = shipdate + randint(k, 28, 1, 30)
     return dict(
         quantity=quantity, partkey=partkey, suppkey=suppkey,
         discount=discount, tax=tax, extprice=extprice,
@@ -737,6 +747,243 @@ def _comment_vocab(phrase: Optional[str] = None) -> np.ndarray:
     if phrase:
         base += [f"{_COMMENT_WORDS[a]} {phrase}" for a in range(w)]
     return np.array(base, dtype=object)
+
+
+# --------------------------------------------------------------------------
+# device-side generation (the staging path)
+#
+# Every value above is a pure integer function of the row key, so the two
+# large tables can be generated on the card: the splitmix64 arithmetic runs
+# as torch ops on an explicit device and the columns are born in device
+# memory.  Only the string dictionaries (host numpy, at most ~59 k entries)
+# are made on the host.  The reference does the same with one jitted
+# program (its _DeviceTpchGen), to stage warmed tables for its benchmark.
+#
+# torch has few uint64 operations, so a uint64 value is held as the same
+# 64 bits in int64: add and multiply wrap mod 2**64 alike, a logical shift
+# masks off the sign bits an arithmetic shift copies in, and an unsigned
+# modulo halves the value first so that every operand is non-negative.
+
+_MASK64 = (1 << 64) - 1
+
+
+def _s64(u: int) -> int:
+    """The int64 holding the bits of a uint64 python int (mod 2**64)."""
+    u &= _MASK64
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+_SPLITMIX_M1 = _s64(0xBF58476D1CE4E5B9)
+_SPLITMIX_M2 = _s64(0x94D049BB133111EB)
+
+
+def _shr_t(z, s: int):
+    """Logical right shift of uint64 bits held in an int64 tensor."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _h64_t(x, stream: int):
+    """:func:`_h64` on an int64 tensor holding uint64 bits (same bits)."""
+    z = x + _s64(0x9E3779B97F4A7C15 * (stream * 2 + 1))
+    z = (z ^ _shr_t(z, 30)) * _SPLITMIX_M1
+    z = (z ^ _shr_t(z, 27)) * _SPLITMIX_M2
+    return z ^ _shr_t(z, 31)
+
+
+def _umod_t(z, m: int):
+    """Unsigned ``z % m`` of uint64 bits held in int64, for 0 < m < 2**62:
+    u = 2 * (u >> 1) + (u & 1), and every intermediate stays below 2**63."""
+    return ((_shr_t(z, 1) % m) * 2 + (z & 1)) % m
+
+
+def _randint_t(keys, stream: int, lo: int, hi: int):
+    """:func:`_randint` on an int64 tensor of keys (same values)."""
+    return _umod_t(_h64_t(keys, stream), hi - lo + 1) + lo
+
+
+def _comment_codes_t(keys, stream: int, phrase: Optional[str],
+                     phrase_ppm: int):
+    """Index into the unsorted ``_comment_vocab(phrase)`` per row (the
+    arithmetic of TpchConnector._comment_column)."""
+    w = len(_COMMENT_WORDS)
+    i1 = _umod_t(_h64_t(keys, stream * 7 + 1), w)
+    i2 = _umod_t(_h64_t(keys, stream * 7 + 2), w)
+    i3 = _umod_t(_h64_t(keys, stream * 7 + 3), w)
+    idx = (i1 * w + i2) * w + i3
+    if phrase and phrase_ppm:
+        hit = _umod_t(_h64_t(keys, stream * 7 + 4), 1_000_000) < phrase_ppm
+        idx = torch.where(hit, w * w * w + i1, idx)
+    return idx
+
+
+def _order_stats_t(okeys, orderdates, npart: int, nsupp: int):
+    """TpchConnector._order_lineitem_stats on int64 tensors."""
+    nlines = _randint_t(okeys, 11, 1, 7)
+    total = torch.zeros_like(okeys)
+    all_f = torch.ones(okeys.shape, dtype=torch.bool, device=okeys.device)
+    all_o = all_f.clone()
+    for ln in range(1, 8):
+        mask = nlines >= ln
+        f = _line_values(okeys * 8 + ln, orderdates, npart, nsupp,
+                         _randint_t)
+        charge = f["extprice"] * (100 - f["discount"]) * (100 + f["tax"])
+        charge = (charge + 5000) // 10000
+        total += torch.where(mask, charge, 0)
+        shipped = f["shipdate"] <= _CUTOFF
+        all_f &= ~mask | shipped
+        all_o &= ~mask | ~shipped
+    status = torch.where(all_f, 0, torch.where(all_o, 1, 2))
+    return total, status
+
+
+class _DeviceTpchGen:
+    """Generates whole orders / lineitem tables on one device.
+
+    The columns' string dictionaries are the reference generator's: the
+    full sorted vocabulary of each column, not the data-derived dictionary
+    the host path builds (TpchConnector.column_dictionary).  Unlike the
+    reference, the generator does not write them into the connector's
+    dictionary cache: the host path keeps its own dictionaries, so a host
+    scan gives the same codes before and after staging.  Both decode to the
+    same strings."""
+
+    def __init__(self, conn: "TpchConnector", device: torch.device):
+        self.conn = conn
+        self.device = device
+
+    def _vocab(self, vocab, idx) -> tuple:
+        """Codes in the sorted vocabulary for vocab indices ``idx``, and
+        that dictionary."""
+        values = np.asarray(vocab, dtype=object)
+        d = np.unique(values)
+        tab = torch.as_tensor(np.searchsorted(d, values).astype(np.int32),
+                              device=self.device)
+        return tab[idx], d
+
+    def generate(self, table: str, columns: Sequence[str]) -> ColumnBatch:
+        gen = self._gen_orders if table == "orders" else self._gen_lineitem
+        out = gen(list(columns))
+        # out: column -> (data, dictionary or None)
+        return ColumnBatch(list(columns), [
+            Column(SCHEMAS[table].column_type(c), out[c][0], None, out[c][1])
+            for c in columns])
+
+    def _gen_orders(self, columns: list[str]) -> dict:
+        conn = self.conn
+        n = conn.row_count("orders")
+        okeys = torch.arange(1, n + 1, dtype=torch.int64, device=self.device)
+        orderdates = _randint_t(okeys, 72, _START, _END_ORDER)
+        total = status = None
+        if "o_totalprice" in columns or "o_orderstatus" in columns:
+            total, status = _order_stats_t(
+                okeys, orderdates, conn.row_count("part"),
+                conn.row_count("supplier"))
+        out = {}
+        for c in columns:
+            if c == "o_orderkey":
+                out[c] = (okeys, None)
+            elif c == "o_custkey":
+                ncust = conn.row_count("customer")
+                r = _randint_t(okeys, 71, 0, max(ncust - ncust // 3 - 1, 0))
+                out[c] = ((r // 2) * 3 + (r % 2) + 1, None)
+            elif c == "o_orderstatus":
+                out[c] = self._vocab(["F", "O", "P"], status)
+            elif c == "o_totalprice":
+                out[c] = (total, None)
+            elif c == "o_orderdate":
+                out[c] = (orderdates.to(torch.int32), None)
+            elif c == "o_orderpriority":
+                out[c] = self._vocab(_PRIORITIES,
+                                     _randint_t(okeys, 73, 0, 4))
+            elif c == "o_clerk":
+                # 'Clerk#000000001'...: zero-padded, so already sorted
+                max_clerk = max(1, int(1000 * conn.sf))
+                codes = _randint_t(okeys, 74, 1, max_clerk) - 1
+                out[c] = (codes.to(torch.int32),
+                          _fmt_keyed("Clerk", np.arange(1, max_clerk + 1)))
+            elif c == "o_shippriority":
+                out[c] = (torch.zeros_like(okeys), None)
+            else:  # o_comment
+                phrase = "special foo requests"
+                out[c] = self._vocab(
+                    _comment_vocab(phrase),
+                    _comment_codes_t(okeys, 8, phrase, 13000))
+        return out
+
+    def _gen_lineitem(self, columns: list[str]) -> dict:
+        conn = self.conn
+        n_orders = conn.row_count("orders")
+        okeys1 = torch.arange(1, n_orders + 1, dtype=torch.int64,
+                              device=self.device)
+        nlines = _randint_t(okeys1, 11, 1, 7)
+        ends = torch.cumsum(nlines, 0)
+        total = int(ends[-1])  # == row_count("lineitem")
+        okeys = torch.repeat_interleave(okeys1, nlines, output_size=total)
+        lineno = (torch.arange(1, total + 1, device=self.device)
+                  - torch.repeat_interleave(ends - nlines, nlines,
+                                            output_size=total))
+        orderdates = torch.repeat_interleave(
+            _randint_t(okeys1, 72, _START, _END_ORDER), nlines,
+            output_size=total)
+        del okeys1, nlines, ends
+        k = okeys * 8 + lineno
+        f = _line_values(k, orderdates, conn.row_count("part"),
+                         conn.row_count("supplier"), _randint_t)
+        del orderdates
+        out = {}
+        for c in columns:
+            if c == "l_orderkey":
+                out[c] = (okeys, None)
+            elif c == "l_partkey":
+                out[c] = (f["partkey"], None)
+            elif c == "l_suppkey":
+                out[c] = (f["suppkey"], None)
+            elif c == "l_linenumber":
+                out[c] = (lineno, None)
+            elif c == "l_quantity":
+                out[c] = (f["quantity"] * 100, None)
+            elif c == "l_extendedprice":
+                out[c] = (f["extprice"], None)
+            elif c == "l_discount":
+                out[c] = (f["discount"], None)
+            elif c == "l_tax":
+                out[c] = (f["tax"], None)
+            elif c == "l_returnflag":
+                returned = f["receiptdate"] <= _CUTOFF
+                ra = _randint_t(k, 29, 0, 1)  # A or R when returned
+                idx = torch.where(returned, torch.where(ra == 0, 0, 2), 1)
+                out[c] = self._vocab(["A", "N", "R"], idx)
+            elif c == "l_linestatus":
+                out[c] = self._vocab(
+                    ["F", "O"], (f["shipdate"] > _CUTOFF).to(torch.int64))
+            elif c in ("l_shipdate", "l_commitdate", "l_receiptdate"):
+                out[c] = (f[c[2:]].to(torch.int32), None)
+            elif c == "l_shipinstruct":
+                out[c] = self._vocab(_INSTRUCTIONS, _randint_t(k, 30, 0, 3))
+            elif c == "l_shipmode":
+                out[c] = self._vocab(_SHIPMODES, _randint_t(k, 31, 0, 6))
+            else:  # l_comment
+                out[c] = self._vocab(_comment_vocab(),
+                                     _comment_codes_t(k, 9, None, 0))
+        return out
+
+
+def generate_table_device(conn: "TpchConnector", table: str,
+                          columns: Sequence[str],
+                          device="cuda") -> Optional[ColumnBatch]:
+    """The whole table generated on ``device`` (orders and lineitem; None
+    for the other tables, which only the host generator makes).  Values are
+    bit-identical to the host generator's, and the batch holds exactly
+    ``conn.row_count(table)`` rows with no live mask.  ``device="cuda"``
+    (the default) raises when CUDA is not available."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "generate_table_device(device='cuda'): CUDA is not available; "
+            "pass device='cpu' to generate on the CPU")
+    if table not in ("orders", "lineitem"):
+        return None
+    return _DeviceTpchGen(conn, dev).generate(table, columns)
 
 
 class _TpchPageSource(ConnectorPageSource):

@@ -4,8 +4,9 @@ The port of the reference ``exec/local_planner.py`` (LocalExecutionPlanner.
 java:403) for the plan nodes the ported queries produce.  A join's build
 side becomes its own pipeline connected through a JoinBridge; pipelines
 come back in dependency order (every build before the probe that reads it),
-so a sequential run is correct.  No local exchange, dynamic filters, spill
-or revocation (not ported yet).
+so a sequential run is correct.  A TableWriter (CTAS, INSERT) ends its
+pipeline in a TableWriterOperator.  No local exchange, dynamic filters,
+spill or revocation (not ported yet).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Sequence
 
 from ..connectors.catalog import Catalog
 from ..planner import plan as P
+from ..spi.connector import ColumnSchema, TableSchema
 from ..spi.types import BOOLEAN, Type
 from ..sql.ir import Call
 from .operators import (
@@ -29,6 +31,7 @@ from .operators import (
     ScanOperator,
     SemiJoinOperator,
     SortOperator,
+    TableWriterOperator,
     TopNOperator,
 )
 
@@ -156,5 +159,23 @@ class LocalPlanner:
         if isinstance(node, P.Exchange):
             # single node: exchanges are pass-through
             return self._chain(node.source)
+
+        if isinstance(node, P.TableWriter):
+            chain = self._chain(node.source)
+            conn = self.catalog.connector(node.catalog)
+            try:
+                schema = conn.get_table_schema(node.table)
+            except KeyError:  # CTAS: create the target from the source
+                schema = TableSchema(node.table, tuple(
+                    ColumnSchema(n, t) for n, t in
+                    zip(node.source.output_names, node.source.output_types)))
+                conn.create_table(schema)
+            # INSERT maps the query's output to table columns by position
+            chain.append(RenameOperator([c.name for c in schema.columns]))
+            chain.append(TableWriterOperator(
+                conn.create_page_sink(node.table),
+                on_finish=lambda frags: conn.finish_insert(node.table,
+                                                           frags)))
+            return chain
 
         raise NotImplementedError(f"no operator for {type(node).__name__}")

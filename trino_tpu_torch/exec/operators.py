@@ -26,9 +26,9 @@ from ..ops.expr import (compile_expression, expr_condition_mask,
                         expr_error_scope, reduce_error_lanes)
 from ..planner.plan import AggCall, SortKey
 from ..spi.batch import Column, ColumnBatch, as_tensor, torch_dtype
-from ..spi.connector import Connector, Split
+from ..spi.connector import Connector, ConnectorPageSink, Split
 from ..spi.errors import SUBQUERY_MULTIPLE_ROWS, TrinoError
-from ..spi.types import BOOLEAN, DOUBLE, DecimalType, Type
+from ..spi.types import BIGINT, BOOLEAN, DOUBLE, DecimalType, Type
 from ..sql.ir import RowExpression, referenced_inputs
 from . import join_exec as JX
 from . import kernels as K
@@ -37,7 +37,8 @@ __all__ = [
     "Operator", "ScanOperator", "FilterProjectOperator",
     "HashAggregationOperator", "JoinBridge", "JoinBuildSink",
     "LookupJoinOperator", "SemiJoinOperator", "SortOperator",
-    "TopNOperator", "LimitOperator", "RenameOperator", "OutputCollector",
+    "TopNOperator", "LimitOperator", "RenameOperator", "TableWriterOperator",
+    "OutputCollector",
 ]
 
 
@@ -75,7 +76,10 @@ class Operator:
 class ScanOperator(Operator):
     """Reads splits through the connector page source, applies the advisory
     TupleDomain on the host batch (exec/domain_filter.py), then moves the
-    surviving rows to ``device``."""
+    surviving rows to ``device``.  A batch already in device memory (a
+    pinned memory table) skips the host mask, as the reference's pinned
+    batches do (the filter above the scan still applies the predicate), and
+    is handed on without a copy."""
 
     def __init__(self, connector: Connector, splits: Sequence[Split],
                  columns: Sequence[str], device, constraint=None):
@@ -118,11 +122,11 @@ class ScanOperator(Operator):
             if batch is None:
                 continue
             self.scan_rows += batch.num_rows
-            if self.constraint is not None:
+            if self.constraint is not None and batch.device.type == "cpu":
                 batch = self._apply_constraint(batch)
                 if batch.num_rows == 0:
                     continue
-            return batch.to(self.device)
+            return batch.to(self.device)  # no copy when already there
         return None
 
     def is_finished(self) -> bool:
@@ -803,6 +807,37 @@ class LimitOperator(Operator):
     def is_finished(self) -> bool:
         return ((self.input_done or self._remaining == 0)
                 and self._pending is None)
+
+
+class TableWriterOperator(Operator):
+    """Writes batches into a connector sink, hands the sink's fragments to
+    ``on_finish`` (the connector's commit) and emits the row count
+    (operator/TableWriterOperator.java:68)."""
+
+    def __init__(self, sink: ConnectorPageSink, on_finish):
+        self.sink = sink
+        self.on_finish = on_finish
+        self._rows = 0
+        self._emitted = False
+
+    def add_input(self, batch: ColumnBatch) -> None:
+        batch = batch.compact()
+        self._rows += batch.num_rows
+        self.sink.append(batch)
+
+    def finish_input(self) -> None:
+        super().finish_input()
+        self.on_finish(self.sink.finish())
+
+    def get_output(self) -> Optional[ColumnBatch]:
+        if self.input_done and not self._emitted:
+            self._emitted = True
+            return ColumnBatch(["rows"], [
+                Column(BIGINT, np.array([self._rows], np.int64))])
+        return None
+
+    def is_finished(self) -> bool:
+        return self.input_done and self._emitted
 
 
 class OutputCollector(Operator):
