@@ -4,8 +4,9 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 6, 9, so the kernel phase holds the staged path's
-calls too):
+the order 1-5, 7, 8, 10, 6, 9, so the kernel phase holds the staged path's
+calls too).  Every runner but phase 10's legacy one plans with the port's
+default optimizer, the iterative one:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from trino_tpu_torch/csrc/*.cu (nvcc, sm_90a);
   3. path: the 22 TPC-H queries and the two REAL-sum queries R1, R2 at SF 1
@@ -45,7 +46,13 @@ calls too):
      orders and customer staged on cuda, cold and warm, with input rows/s
      and scanned GB/s from the plans' table scans (held below the HBM
      rate), rows checked against the numpy evaluation of the staged
-     columns.
+     columns;
+ 10. optimizers: the 24 queries over the staged SF 1 tables under
+     optimizer="legacy" and optimizer="iterative": whether the plans are
+     identical, rows equal (phase 8's tolerances), planning ms (median of
+     5 create_plan calls) and warm ms per mode; the tpch path's planning
+     ms per mode and with the lineitem row count recomputed per call; and
+     EXPLAIN ANALYZE of Q3 and Q21 on the card.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -791,6 +798,58 @@ def sf10(torch, sqls, default_catalog, stage_memory_tables,
             f"{time.perf_counter() - t0:.1f} s)")
 
 
+def optimizers(torch, StandaloneQueryRunner, staged_cat, tpch_catalog,
+               sqls: dict) -> None:
+    """Phase 10: every query over the staged tables under the legacy and
+    the iterative optimizer: plans compared, rows equal, planning ms (the
+    median of 5 create_plan calls) and warm ms per mode; then the tpch
+    path's planning ms per mode, with the lineitem row count memoized and
+    recomputed on every statistics call as it was before
+    (tools/planning_ms.py); then EXPLAIN ANALYZE of Q3 and Q21 on the
+    card."""
+    from trino_tpu_torch.tools.planning_ms import median_ms, planning_ms
+
+    runners = {mode: StandaloneQueryRunner(
+        staged_cat, device="cuda", default_catalog_name="memory",
+        splits_per_node=1, optimizer=mode) for mode in ("legacy",
+                                                        "iterative")}
+    same_plans = 0
+    for name, sql in sqls.items():
+        out = {}
+        for mode, r in runners.items():
+            plan_ms = median_ms(lambda: r.create_plan(sql))
+            rows = r.execute(sql).rows()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.execute(sql)
+            torch.cuda.synchronize()
+            out[mode] = (r.explain(sql), rows, plan_ms,
+                         (time.perf_counter() - t0) * 1e3)
+        same = out["legacy"][0] == out["iterative"][0]
+        same_plans += same
+        rtol = KERNEL_VS_F64_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+        worst = same_rows(out["iterative"][1], out["legacy"][1],
+                          f"optimizers {name} iterative vs legacy", rtol)
+        log(f"optimizers {name}: plans {'identical' if same else 'differ'}, "
+            f"{len(out['legacy'][1])} rows equal (largest float rel diff "
+            f"{worst:.3g}, limit {rtol:g}); planning ms legacy "
+            f"{out['legacy'][2]:.2f}, iterative {out['iterative'][2]:.2f}; "
+            f"warm ms legacy {out['legacy'][3]:.1f}, iterative "
+            f"{out['iterative'][3]:.1f}")
+    log(f"optimizers: {same_plans} of {len(sqls)} plans identical")
+    for name, sql in sqls.items():
+        ms = planning_ms(tpch_catalog, sql)
+        log(f"planning tpch SF{PATH_SF:g} {name}: legacy {ms['legacy']:.2f}"
+            f" ms ({ms['legacy_recomputed']:.2f} recomputing the lineitem "
+            f"row count per statistics call), iterative "
+            f"{ms['iterative']:.2f} ms ({ms['iterative_recomputed']:.2f})")
+    for name in ("Q3", "Q21"):
+        res = runners["iterative"].execute("EXPLAIN ANALYZE " + sqls[name])
+        log(f"EXPLAIN ANALYZE {name} (staged SF{PATH_SF:g}, cuda):")
+        for (line,) in res.rows():
+            log("  | " + line)
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -933,6 +992,12 @@ def main() -> int:
                      key=lambda n: -staged_times[n][1])[:3]
     per_operator(QueryStats, staged, sqls, f"staged SF{PATH_SF:g}",
                  CAPTURE_QUERIES + tuple(slowest))
+
+    # -- 10. optimizers: legacy vs iterative over the staged tables --------
+    t0 = time.perf_counter()
+    optimizers(torch, StandaloneQueryRunner, staged_cat, runner.catalog,
+               sqls)
+    log(f"optimizers: {time.perf_counter() - t0:.1f} s")
 
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is

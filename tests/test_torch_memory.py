@@ -209,8 +209,8 @@ def staged():
     return (cat, info,
             StandaloneQueryRunner(cat, device="cpu",
                                   default_catalog_name="memory",
-                                  splits_per_node=1),
-            StandaloneQueryRunner(cat, device="cpu"))
+                                  splits_per_node=1, optimizer="legacy"),
+            StandaloneQueryRunner(cat, device="cpu", optimizer="legacy"))
 
 
 @pytest.fixture(scope="module")
@@ -270,8 +270,14 @@ def test_staged_plans_match_tpch_plans(staged, q):
     """Staged tables carry the generator's statistics, so each query plans
     as over the tpch connector.  With row counts alone, Q5 joined customer
     on nationkey before orders: at SF 1 a 6 M x 6 k pair expansion that
-    asked the card for 54 GiB."""
-    _, _, mem, tp = staged
+    asked the card for 54 GiB.  Held under both optimizers."""
+    cat, _, mem, tp = staged
+    assert (mem.explain(QUERIES[q]).replace("memory.", "tpch.")
+            == tp.explain(QUERIES[q]))
+    mem = StandaloneQueryRunner(cat, device="cpu",
+                                default_catalog_name="memory",
+                                splits_per_node=1, optimizer="iterative")
+    tp = StandaloneQueryRunner(cat, device="cpu", optimizer="iterative")
     assert (mem.explain(QUERIES[q]).replace("memory.", "tpch.")
             == tp.explain(QUERIES[q]))
 
@@ -336,7 +342,8 @@ WRITES = [
 def test_ctas_insert_drop_match_reference(monkeypatch):
     _pin_reference(monkeypatch)
     ref = RefRunner(ref_catalog(SF))
-    port = StandaloneQueryRunner(default_catalog(SF), device="cpu")
+    port = StandaloneQueryRunner(default_catalog(SF), device="cpu",
+                                 optimizer="legacy")
     for sql in WRITES:
         _same_rows(port.execute(sql).rows(), ref.execute(sql).rows())
     assert port.catalog.connector("memory").list_tables() == ["j", "t"]

@@ -4,7 +4,7 @@ which shares this module's fixtures).
 
 Both runners read the same generated SF 0.01 data.  The reference is pinned
 to the paths that run here (sort-path hashing, no Pallas, no result cache,
-the legacy optimizer).  Integers, decimals, dates and strings must be
+the legacy optimizer), and the port runs with ``optimizer="legacy"``.  Integers, decimals, dates and strings must be
 exact; doubles (the averages of Q1) agree to rtol 1e-9, because the two
 packages sum in different orders.  The port runs on the CPU, where its
 kernel wrappers take their plain versions; the routing through
@@ -29,7 +29,11 @@ SF = 0.01
 
 @pytest.fixture(scope="module")
 def port():
-    return StandaloneQueryRunner(default_catalog(SF), device="cpu")
+    # held to the legacy-pinned reference, so its kernel-call counts are
+    # the legacy plans' (tests/test_torch_iterative*.py hold the default,
+    # iterative, plans)
+    return StandaloneQueryRunner(default_catalog(SF), device="cpu",
+                                 optimizer="legacy")
 
 
 @pytest.fixture

@@ -278,6 +278,7 @@ class TpchConnector(Connector):
         # integer gather instead of materializing python strings and binary-
         # searching an object array per row (GIL-bound, ~75% of decode time)
         self._code_tables: dict[tuple[str, str], tuple] = {}
+        self._lineitem_rows: dict[float, int] = {}  # scale factor -> rows
 
     def data_version(self, table: str):
         """Generated data is a pure function of the scale factor: a
@@ -293,12 +294,17 @@ class TpchConnector(Connector):
             return _BASE_ROWS[table]
         if table == "lineitem":
             # derived: sum of per-order line counts (exact; chunked to bound
-            # temporary memory at large SF)
-            n_orders = self.row_count("orders")
-            total = 0
-            for a in range(0, n_orders, 4_000_000):
-                b = min(a + 4_000_000, n_orders)
-                total += int(_lines_per_order(self._orderkeys(a, b)).sum())
+            # temporary memory at large SF).  It hashes every orderkey, and
+            # every statistics call of the planner asks for it, so it is
+            # computed once per scale factor
+            total = self._lineitem_rows.get(self.sf)
+            if total is None:
+                n_orders = self.row_count("orders")
+                total = 0
+                for a in range(0, n_orders, 4_000_000):
+                    b = min(a + 4_000_000, n_orders)
+                    total += int(_lines_per_order(self._orderkeys(a, b)).sum())
+                self._lineitem_rows[self.sf] = total
             return total
         return max(1, int(_BASE_ROWS[table] * self.sf))
 

@@ -42,6 +42,16 @@ class Driver:
         self.stats.operators[i].wall_s += time.perf_counter() - t0
         return out
 
+    def _emit(self, i: int, page) -> None:
+        """Credit a page moving from operator i to i + 1 (live rows; a
+        masked page's count stays a tensor until QueryStats.read_counts)."""
+        src, dst = self.stats.operators[i], self.stats.operators[i + 1]
+        n = page.num_rows if page.live is None else page.live.sum()
+        src.output_rows += n
+        src.output_batches += 1
+        dst.input_rows += n
+        dst.input_batches += 1
+
     def run(self) -> None:
         ops = self.operators
         n = len(ops)
@@ -57,6 +67,8 @@ class Driver:
                 if not cur.is_finished() and nxt.needs_input():
                     page = self._timed(i, cur.get_output)
                     if page is not None:
+                        if self.stats is not None:
+                            self._emit(i, page)
                         self._timed(i + 1, nxt.add_input, page)
                         progressed = True
                 if cur.is_finished() and not nxt.input_done:
@@ -82,5 +94,7 @@ def run_pipelines(pipelines: Sequence[Sequence[Operator]],
             ps = PipelineStats()
             stats.pipelines.append(ps)
         Driver(p, ps, sync=stats is not None and stats.sync).run()
+    if stats is not None:
+        stats.read_counts()
     check_error_scalars([e for p in pipelines for op in p
                          for e in getattr(op, "pending_errors", ())])

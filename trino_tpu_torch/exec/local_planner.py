@@ -15,6 +15,7 @@ from typing import Sequence
 
 from ..connectors.catalog import Catalog
 from ..planner import plan as P
+from ..spi.batch import Column, ColumnBatch
 from ..spi.connector import ColumnSchema, TableSchema
 from ..spi.types import BOOLEAN, Type
 from ..sql.ir import Call
@@ -33,6 +34,7 @@ from .operators import (
     SortOperator,
     TableWriterOperator,
     TopNOperator,
+    ValuesOperator,
 )
 
 __all__ = ["LocalExecutionPlan", "LocalPlanner"]
@@ -72,6 +74,9 @@ class LocalPlanner:
                                      self.node_count)
             return [ScanOperator(conn, splits, node.columns, self.device,
                                  constraint=node.constraint)]
+
+        if isinstance(node, P.Values):
+            return [ValuesOperator(_values_batch(node).to(self.device))]
 
         if isinstance(node, P.Filter):
             chain = self._chain(node.source)
@@ -179,3 +184,9 @@ class LocalPlanner:
             return chain
 
         raise NotImplementedError(f"no operator for {type(node).__name__}")
+
+
+def _values_batch(node: P.Values) -> ColumnBatch:
+    cols = [Column.from_values(t, [row[i] for row in node.rows])
+            for i, t in enumerate(node.output_types)]
+    return ColumnBatch(list(node.output_names), cols)

@@ -4,7 +4,8 @@ The port of the reference ``exec/operators.py`` (operator contract of
 operator/Operator.java:21 — ``needs_input``/``add_input``/``get_output``/
 ``is_finished``) for the operators the ported queries use:
 
-- streaming: ScanOperator (synchronous path), FilterProjectOperator,
+- sources: ScanOperator (synchronous path), ValuesOperator;
+- streaming: FilterProjectOperator,
   LookupJoinOperator (INNER, LEFT, SINGLE; keyed or nested-loop),
   SemiJoinOperator (IN / EXISTS mark), LimitOperator, RenameOperator;
 - blocking: HashAggregationOperator (SINGLE step), JoinBuildSink,
@@ -38,7 +39,7 @@ __all__ = [
     "HashAggregationOperator", "JoinBridge", "JoinBuildSink",
     "LookupJoinOperator", "SemiJoinOperator", "SortOperator",
     "TopNOperator", "LimitOperator", "RenameOperator", "TableWriterOperator",
-    "OutputCollector",
+    "OutputCollector", "ValuesOperator",
 ]
 
 
@@ -131,6 +132,26 @@ class ScanOperator(Operator):
 
     def is_finished(self) -> bool:
         return self._closed or (self._source is None and not self.splits)
+
+
+class ValuesOperator(Operator):
+    """Emits one batch of literal rows (a Values node: SELECT without FROM,
+    and the empty relation the iterative optimizer folds a FALSE filter or
+    an empty input into), already on the runner's device."""
+
+    def __init__(self, batch: ColumnBatch):
+        self._batch = batch
+        self.input_done = True
+
+    def needs_input(self) -> bool:
+        return False
+
+    def get_output(self) -> Optional[ColumnBatch]:
+        b, self._batch = self._batch, None
+        return b
+
+    def is_finished(self) -> bool:
+        return self._closed or self._batch is None
 
 
 # ---------------------------------------------------------------------------

@@ -491,6 +491,33 @@ def _if_handler(out_type, args, device):
     return Lowered(out_type, merged, fn)
 
 
+def _coalesce_handler(out_type, args, device):
+    """First non-NULL argument; string arguments share one merged
+    dictionary.  Later arguments are evaluated under a condition mask, so
+    they raise only on the lanes that reach them."""
+    dtype = torch_dtype(out_type.storage_dtype)
+    out = args[-1]
+    for a in reversed(args[:-1]):
+        a2, prev, merged = _unify_pair(a, out, device)
+
+        def make_fn(a2=a2, prev=prev):
+            def fn(cols: Cols):
+                av, avalid = a2.fn(cols)
+                if avalid is None:
+                    return av.to(dtype), None
+                with expr_condition_mask(~avalid):
+                    pv, pvalid = prev.fn(cols)
+                data = torch.where(avalid, av.to(dtype), pv.to(dtype))
+                if pvalid is None:
+                    return data, None  # the fallback is never NULL
+                return data, avalid | pvalid
+
+            return fn
+
+        out = Lowered(out_type, merged, make_fn())
+    return out
+
+
 def _in_handler(out_type, args, device):
     col, *items = args
     if col.dictionary is not None:
@@ -666,6 +693,7 @@ HANDLERS: dict[str, Callable] = {
     "$or": _or_handler,
     "$not": _not_handler,
     "$if": _if_handler,
+    "$coalesce": _coalesce_handler,
     "$is_null": _is_null_handler,
     "$in": _in_handler,
     "$like": _like_handler,

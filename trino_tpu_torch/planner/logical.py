@@ -37,6 +37,7 @@ from ..sql.ir import Call, InputRef, Literal, OuterRef, RowExpression, walk
 from .plan import (
     AggCall,
     Aggregate,
+    CorrelatedJoin,
     Filter,
     GroupId,
     Join,
@@ -130,9 +131,16 @@ def _conjoin(terms: list[RowExpression]) -> Optional[RowExpression]:
 
 
 class LogicalPlanner:
-    def __init__(self, catalog: Catalog, default_catalog: str = "tpch"):
+    """``optimizer`` is the mode the plan will be optimized in: under
+    ``iterative`` correlated IN and scalar-aggregate subqueries become
+    CorrelatedJoin placeholders for the decorrelation rules; under
+    ``legacy`` they become the SemiJoin / LEFT Join those rules emit."""
+
+    def __init__(self, catalog: Catalog, default_catalog: str = "tpch",
+                 optimizer: str = "iterative"):
         self.catalog = catalog
         self.default_catalog = default_catalog
+        self.optimizer = optimizer
         self._view_stack: set[str] = set()  # cycle detection for view inlining
 
     # ------------------------------------------------------------------ api
@@ -1106,8 +1114,14 @@ class LogicalPlanner:
         mark_name = f"_mark{src.width}"
         names = tuple(src.node.output_names) + (mark_name,)
         types = tuple(src.node.output_types) + (BOOLEAN,)
-        sj = SemiJoin(names, types, src.node, sub.node, (s_ch,), (0,),
-                      negated=False, residual=None, null_aware=True)
+        if self.optimizer == "iterative":
+            # leave a CorrelatedJoin placeholder for the decorrelate rules
+            # (TransformCorrelatedInPredicate lowers it to this SemiJoin)
+            sj: PlanNode = CorrelatedJoin(names, types, src.node, sub.node,
+                                          "in", (s_ch,), (0,))
+        else:
+            sj = SemiJoin(names, types, src.node, sub.node, (s_ch,), (0,),
+                          negated=False, residual=None, null_aware=True)
         new_rel = RelationPlan(sj, src.qualifiers + [None])
         mark = InputRef(BOOLEAN, new_rel.width - 1)
         ir = Call(BOOLEAN, "$not", (mark,)) if node.negated else mark
@@ -1277,8 +1291,15 @@ class LogicalPlanner:
         och, src = _as_channels(outer_keys, rel)
         names = tuple(src.node.output_names) + proj.output_names
         types = tuple(src.node.output_types) + proj.output_types
-        jn = Join(names, types, src.node, proj, "LEFT",
-                  tuple(och), tuple(range(nkeys)), None)
+        if self.optimizer == "iterative":
+            # placeholder for TransformCorrelatedScalarSubquery, which
+            # lowers to exactly the LEFT join the legacy branch builds
+            jn: PlanNode = CorrelatedJoin(names, types, src.node, proj,
+                                          "scalar_agg", tuple(och),
+                                          tuple(range(nkeys)))
+        else:
+            jn = Join(names, types, src.node, proj, "LEFT",
+                      tuple(och), tuple(range(nkeys)), None)
         new_rel = RelationPlan(jn, src.qualifiers + [None] * (nkeys + 2))
         value_ref: RowExpression = InputRef(types[-2], new_rel.width - 2)
         mark_ref = InputRef(BIGINT, new_rel.width - 1)

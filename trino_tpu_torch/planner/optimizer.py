@@ -48,7 +48,11 @@ from .plan import (
     Window,
 )
 
-__all__ = ["optimize", "estimate_rows", "optimizer_mode", "final_passes"]
+__all__ = ["optimize", "estimate_rows", "final_passes", "OPTIMIZER_MODES"]
+
+# the reference selects with TRINO_TPU_OPTIMIZER; the port takes the mode
+# as an argument (StandaloneQueryRunner(optimizer=...))
+OPTIMIZER_MODES = ("iterative", "legacy")
 
 _BROADCAST_LIMIT = 2_000_000  # build rows below this replicate to every task
 
@@ -59,10 +63,19 @@ _BROADCAST_LIMIT = 2_000_000  # build rows below this replicate to every task
 _EXTRA_JOIN_CLAUSE_SEL = 0.9
 
 
-def optimize(root: PlanNode, catalog: Catalog) -> PlanNode:
-    """The single-pass (legacy) rule pipeline; the iterative memo optimizer
-    is not ported yet."""
-    return _optimize_legacy(root, catalog)
+def optimize(root: PlanNode, catalog: Catalog,
+             mode: str = "iterative") -> PlanNode:
+    """``iterative``: the memo/fixpoint rule engine (planner/iterative/);
+    ``legacy``: the single-pass rule pipeline below.  Any other mode
+    raises ValueError."""
+    if mode == "iterative":
+        from .iterative import optimize_iterative
+
+        return optimize_iterative(root, catalog)
+    if mode == "legacy":
+        return _optimize_legacy(root, catalog)
+    raise ValueError(f"unknown optimizer mode {mode!r}; expected one of "
+                     f"{OPTIMIZER_MODES}")
 
 
 def _optimize_legacy(root: PlanNode, catalog: Catalog) -> PlanNode:

@@ -1,11 +1,15 @@
 """StandaloneQueryRunner: SQL string -> result batch, in process, on a device.
 
 The port of the reference ``runner.py`` (StandaloneQueryRunner.execute):
-parse -> analyze/plan -> optimize (the legacy rule pipeline) -> local plan
--> run the pipelines on ``device``.  CREATE TABLE and DROP TABLE run as
+parse -> analyze/plan -> optimize -> local plan -> run the pipelines on
+``device``.  ``optimizer`` selects the optimizer: ``"iterative"`` (the
+default, as in the reference) or ``"legacy"`` (the reference's
+``TRINO_TPU_OPTIMIZER=legacy``).  CREATE TABLE and DROP TABLE run as
 metadata statements (the reference's ``execute_ddl``); CREATE TABLE AS and
-INSERT plan a TableWriter.  No plan or result cache, sessions, access
-control, transactions, events or EXPLAIN ANALYZE (not ported yet).
+INSERT plan a TableWriter; EXPLAIN [ANALYZE] returns the plan text, the
+iterative optimizer's rule firings and, under ANALYZE, the run's
+per-operator times and rows.  No plan or result cache, sessions, access
+control, transactions or events (not ported yet).
 
 The runner runs on the card unless the caller asks for the CPU:
 ``device="cuda"`` (the default) raises when CUDA is not available.
@@ -13,6 +17,7 @@ The runner runs on the card unless the caller asks for the CPU:
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -23,16 +28,22 @@ from .connectors.catalog import Catalog, default_catalog
 from .exec.driver import run_pipelines
 from .exec.local_planner import LocalPlanner
 from .exec.stats import QueryStats
+from .planner.iterative import last_report
 from .planner.logical import LogicalPlanner
-from .planner.optimizer import optimize
+from .planner.optimizer import OPTIMIZER_MODES, optimize
 from .planner.plan import PlanNode, plan_text
 from .spi.batch import Column, ColumnBatch
 from .spi.connector import ColumnSchema, TableSchema
-from .spi.types import BIGINT, parse_type
+from .spi.types import BIGINT, VARCHAR, parse_type
 from .sql import ast
 from .sql.parser import parse_statement
 
 __all__ = ["QueryResult", "StandaloneQueryRunner", "execute_ddl"]
+
+
+def text_result(name: str, lines: list[str]) -> "QueryResult":
+    return QueryResult([name], ColumnBatch(
+        [name], [Column.from_values(VARCHAR, lines)]))
 
 
 def count_result(name: str, n: int) -> "QueryResult":
@@ -82,7 +93,10 @@ class QueryResult:
 class StandaloneQueryRunner:
     def __init__(self, catalog: Optional[Catalog] = None,
                  device="cuda", default_catalog_name: str = "tpch",
-                 splits_per_node: int = 4):
+                 splits_per_node: int = 4, optimizer: str = "iterative"):
+        if optimizer not in OPTIMIZER_MODES:
+            raise ValueError(f"unknown optimizer {optimizer!r}; expected "
+                             f"one of {OPTIMIZER_MODES}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -91,14 +105,15 @@ class StandaloneQueryRunner:
         self.catalog = catalog if catalog is not None else default_catalog()
         self.default_catalog_name = default_catalog_name
         self.splits_per_node = splits_per_node
+        self.optimizer = optimizer
 
     def create_plan(self, sql: str) -> PlanNode:
         return self._plan(parse_statement(sql))
 
     def _plan(self, stmt) -> PlanNode:
-        plan = LogicalPlanner(self.catalog,
-                              self.default_catalog_name).plan(stmt)
-        return optimize(plan, self.catalog)
+        plan = LogicalPlanner(self.catalog, self.default_catalog_name,
+                              self.optimizer).plan(stmt)
+        return optimize(plan, self.catalog, self.optimizer)
 
     def explain(self, sql: str) -> str:
         return plan_text(self.create_plan(sql))
@@ -106,12 +121,36 @@ class StandaloneQueryRunner:
     def execute(self, sql: str,
                 stats: Optional[QueryStats] = None) -> QueryResult:
         """Run one statement; ``stats`` (optional) collects per-operator
-        times of a query."""
+        times, rows and batches of a query."""
         stmt = parse_statement(sql)
+        if isinstance(stmt, ast.Explain):
+            return self._execute_explain(stmt)
         ddl = execute_ddl(stmt, self.catalog, self.default_catalog_name)
         if ddl is not None:
             return ddl
-        plan = self._plan(stmt)
+        return self._run(self._plan(stmt), stats)
+
+    def _execute_explain(self, stmt: ast.Explain) -> QueryResult:
+        """EXPLAIN -> the plan text and the iterative optimizer's rule
+        firings (timing-free); EXPLAIN ANALYZE also gives the planning ms,
+        then runs the plan and appends its wall time and per-operator
+        stats (reference: runner._execute_explain)."""
+        plan = self._plan(stmt.statement)
+        lines = plan_text(plan).splitlines()
+        if self.optimizer == "iterative":
+            lines.extend(last_report().lines(timings=stmt.analyze))
+        if stmt.analyze:
+            stats = QueryStats()
+            t0 = time.perf_counter()
+            self._run(plan, stats)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            lines.append(f"total: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+            lines.extend(stats.text().splitlines())
+        return text_result("Query Plan", lines)
+
+    def _run(self, plan: PlanNode,
+             stats: Optional[QueryStats]) -> QueryResult:
         local = LocalPlanner(self.catalog, self.device,
                              splits_per_node=self.splits_per_node).plan(plan)
         run_pipelines(local.pipelines, stats)

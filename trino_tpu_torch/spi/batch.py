@@ -26,7 +26,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .types import BOOLEAN, DATE, DOUBLE, DecimalType, Type, days_to_date
+from .types import (BOOLEAN, DATE, DOUBLE, TIMESTAMP, DecimalType, Type,
+                    days_to_date, is_string)
 
 __all__ = ["Column", "ColumnBatch", "unify_dictionaries", "torch_dtype",
            "as_tensor"]
@@ -107,6 +108,32 @@ class Column:
         valid = None if self.valid is None else self.valid[start:stop]
         return Column(self.type, self.data[start:stop], valid,
                       self.dictionary)
+
+    @staticmethod
+    def from_values(type_: Type, values: Sequence) -> "Column":
+        """A host column from python values (None = NULL); strings get a
+        sorted dictionary.  Array, map, row and long-decimal values are not
+        ported (NotImplementedError)."""
+        valid = np.array([v is not None for v in values], dtype=np.bool_)
+        if is_string(type_):
+            filled = np.array([v if v is not None else "" for v in values],
+                              dtype=object)
+            dictionary, codes = np.unique(filled, return_inverse=True)
+            return Column(type_, codes.astype(np.int32), valid, dictionary)
+        if type_.is_dictionary_encoded:
+            raise NotImplementedError(f"{type_} values")
+        if isinstance(type_, DecimalType):
+            filled = [_to_scaled_int(v, type_.scale) if v is not None else 0
+                      for v in values]
+        elif type_ == DATE:
+            filled = [_to_days(v) if v is not None else 0 for v in values]
+        elif type_ == TIMESTAMP:
+            filled = [_to_micros(v) if v is not None else 0 for v in values]
+        else:
+            zero = type_.zero_value()
+            filled = [v if v is not None else zero for v in values]
+        return Column(type_, np.asarray(filled, dtype=type_.storage_dtype),
+                      valid)
 
     def to_pylist(self) -> list:
         """Decode to python values (None for NULL) — the client boundary."""
