@@ -1,7 +1,7 @@
 """Hash-join execution on tensors: build, probe ranges, pair expansion.
 
-The port of the reference ``exec/join_exec.py`` (INNER, LEFT and SINGLE
-joins and the semi-join mark):
+The port of the reference ``exec/join_exec.py`` (INNER, LEFT, RIGHT, FULL
+and SINGLE joins and the semi-join mark):
 
 - :func:`build_table` hashes and sorts the build keys (``hash_combine`` +
   argsort), then indexes the sorted hashes with an open-addressing table
@@ -11,7 +11,8 @@ joins and the semi-join mark):
   sorted build through the ``hash_probe`` kernel;
 - :func:`run_pairs` expands candidates, verifies keys exactly, applies the
   residual and gathers the output columns, with per-probe match flags for
-  LEFT/SINGLE joins or the three-valued semi-join mark;
+  LEFT/SINGLE/FULL joins or the three-valued semi-join mark, and each
+  pair's build row for RIGHT/FULL;
   :func:`run_unique` is the one-match-per-row probe of a unique build (dense
   or sorted-hash branch) with the same options.
 
@@ -277,12 +278,13 @@ def run_pairs(table: DeviceJoinTable, lo, counts, total: int, probe_keys,
               need_matched: bool = False, semi: Optional[tuple] = None):
     """Expand the candidate runs into (probe, build) pairs, verify key
     equality exactly, apply ``residual``, and gather every output column at
-    the pairs.  Returns (pair_cols, ok, matches, mark): ``pair_cols``
-    [(data, valid)] over probe then build columns (None for a semi-join,
-    which gathers only what its residual reads), ``ok`` the per-pair match
-    mask (the output batch's live mask), ``matches`` the per-probe match
-    count when ``need_matched``, ``mark`` the semi-join mark (data, valid)
-    when ``semi`` is set."""
+    the pairs.  Returns (pair_cols, ok, matches, mark, build_id):
+    ``pair_cols`` [(data, valid)] over probe then build columns (None for a
+    semi-join, which gathers only what its residual reads), ``ok`` the
+    per-pair match mask (the output batch's live mask), ``matches`` the
+    per-probe match count when ``need_matched``, ``mark`` the semi-join
+    mark (data, valid) when ``semi`` is set, ``build_id`` each pair's build
+    row (RIGHT / FULL mark the build rows that matched)."""
     dev = lo.device
     n_probe = int(counts.shape[0])
     probe_id = torch.repeat_interleave(
@@ -310,7 +312,7 @@ def run_pairs(table: DeviceJoinTable, lo, counts, total: int, probe_keys,
     if semi is not None:
         mark = semi_mark(matches > 0, probe_keys, semi)
         pairs = None
-    return pairs, ok, matches, mark
+    return pairs, ok, matches, mark, build_id
 
 
 def run_unique(table: DeviceJoinTable, probe_keys, remaps, build_cols,
@@ -318,10 +320,11 @@ def run_unique(table: DeviceJoinTable, probe_keys, remaps, build_cols,
                semi: Optional[tuple] = None):
     """Probe a unique build: at most one match per probe row, so the output
     keeps the probe batch's shape.  ``residual`` reads ``probe_cols`` ++ the
-    gathered build columns.  Returns (build_out, ok_live, mark):
+    gathered build columns.  Returns (build_out, ok_live, mark, bid):
     build columns gathered per probe row (valid folds the match mask), the
-    per-probe match mask & live, and the semi-join mark when ``semi`` is
-    set (then ``build_out`` is None)."""
+    per-probe match mask & live, the semi-join mark when ``semi`` is set
+    (then ``build_out`` is None), and the build row each probe row looked
+    up (meaningful where ``ok_live``)."""
     dev = probe_keys[0][0].device
     nb = table.num_rows
     if table.dense is not None and len(probe_keys) == 1:
@@ -356,10 +359,10 @@ def run_unique(table: DeviceJoinTable, probe_keys, remaps, build_cols,
         ok = _apply_residual(residual, ok, cols)
     ok_live = ok if live is None else (ok & live)
     if semi is not None:
-        return None, ok_live, semi_mark(ok, probe_keys, semi)
+        return None, ok_live, semi_mark(ok, probe_keys, semi), bid
     out = [(d[bid], ok_live if v is None else (v[bid] & ok_live))
            for d, v in build_cols]
-    return out, ok_live, None
+    return out, ok_live, None, bid
 
 
 def probe_key_remap(pdict: Optional[np.ndarray],

@@ -252,7 +252,8 @@ def _reduce_into(fn: str, gid, data, valid, n_out: int, dtype):
         return torch.zeros(n_out, dtype=dtype, device=dev).index_add_(
             0, gid, x), anyv
     if fn in ("min", "max"):
-        x = data
+        # BOOLEAN (bool_and / bool_or / every) reduces over int8 0 / 1
+        x = data.to(torch.int8) if data.dtype == torch.bool else data
         big = (torch.finfo(x.dtype) if x.is_floating_point()
                else torch.iinfo(x.dtype))
         init = big.max if fn == "min" else big.min
@@ -265,7 +266,7 @@ def _reduce_into(fn: str, gid, data, valid, n_out: int, dtype):
             anyv = torch.zeros(n_out, dtype=torch.int64,
                                device=dev).index_add_(
                 0, gid, torch.ones_like(gid)) > 0
-        return out, anyv
+        return out.to(data.dtype), anyv
     raise NotImplementedError(f"aggregate {fn}")
 
 
@@ -274,7 +275,24 @@ def _prep(data, pre):
         return data
     if pre[0] == "scale":
         return data.to(torch.float64) / (10.0 ** pre[1])
+    if pre[0] == "square":  # the variance family's sum-of-squares state
+        x = data.to(torch.float64)
+        return x * x
     raise NotImplementedError(f"aggregate prep {pre}")
+
+
+def _first_valid(g, n_out: int, data, valid):
+    """any_value on the hash path: the value of each group's first valid
+    row in ``g``'s (sorted) order, as the reference's segment gather."""
+    n = int(g.shape[0])
+    pos = torch.arange(n, dtype=torch.int64, device=g.device)
+    if valid is not None:
+        pos = torch.where(valid, pos, n)
+    first = torch.full((n_out,), n, dtype=torch.int64, device=g.device)
+    first.scatter_reduce_(0, g, pos, "amin")
+    found = first < n
+    vals = data[torch.clamp(first, max=max(n - 1, 0))]
+    return vals, (None if valid is None else found)
 
 
 def small_grouped_aggregate(key_cols, live, aggs: Sequence[tuple], n: int,
@@ -300,6 +318,8 @@ def small_grouped_aggregate(key_cols, live, aggs: Sequence[tuple], n: int,
     for entry in aggs:
         fn, data, valid, dtype, distinct = entry[:5]
         pre = entry[5] if len(entry) > 5 else None
+        if fn == "any_value":  # on this path min is as good as any
+            fn = "min"
         if distinct and data is not None:
             d, v = _distinct_reduce(fn, fused, _prep(data, pre), valid,
                                     total + 1, _torch_dtype(dtype))
@@ -399,6 +419,8 @@ def grouped_reduce(perm, gid, num_groups: int, aggs: Sequence[tuple]):
                 and tdtype == torch.float32
                 and cap <= GK.SEGMENT_SUM_MAX_GROUPS):
             vals, anyv = _real_sum(g, cap, data[perm], v)
+        elif fn == "any_value":
+            vals, anyv = _first_valid(g, num_groups + 1, data[perm], v)
         elif distinct and data is not None:
             vals, anyv = _distinct_reduce(fn, g, _prep(data[perm], pre), v,
                                           num_groups + 1, tdtype)
@@ -423,8 +445,9 @@ def group_keys_out(perm, gid, num_groups: int, keys: Sequence[tuple]):
 
 def finalize_groups(plan: Sequence[tuple], arrays: Sequence):
     """Aggregation finalization over the per-group arrays: ("copy", dtype,
-    has_valid), ("avg_final", dtype, has_valid), ("count", None,
-    has_valid), as in the reference's ``_finalize_fn``."""
+    has_valid), ("avg_final", dtype, has_valid), ("stat_final", fn, dtype,
+    has_valid) (sum, sum of squares, count -> variance / stddev), ("count",
+    None, has_valid), as in the reference's ``_finalize_fn``."""
     outs = []
     it = iter(arrays)
     for entry in plan:
@@ -449,6 +472,23 @@ def finalize_groups(plan: Sequence[tuple], arrays: Sequence):
             c = next(it)
             vals = s / torch.clamp(c, min=1)
             valid = c > 0
+            if sv is not None:
+                valid = valid & sv
+            outs.append((vals.to(_torch_dtype(dtype)), valid))
+        elif kind == "stat_final":
+            _, fname, dtype, has_valid = entry
+            s = next(it)
+            sv = next(it) if has_valid else None
+            q = next(it)
+            n = next(it).to(torch.float64)
+            safe_n = torch.clamp(n, min=1.0)
+            mean = s / safe_n
+            m2 = torch.clamp(q - safe_n * mean * mean, min=0.0)
+            if fname in ("var_pop", "stddev_pop"):
+                var, valid = m2 / safe_n, n > 0
+            else:  # sample variance: NULL below two values
+                var, valid = m2 / torch.clamp(n - 1.0, min=1.0), n > 1
+            vals = torch.sqrt(var) if fname.startswith("stddev") else var
             if sv is not None:
                 valid = valid & sv
             outs.append((vals.to(_torch_dtype(dtype)), valid))

@@ -1,12 +1,18 @@
 """Local execution planner: plan tree -> operator pipelines.
 
 The port of the reference ``exec/local_planner.py`` (LocalExecutionPlanner.
-java:403) for the plan nodes the ported queries produce.  A join's build
-side becomes its own pipeline connected through a JoinBridge; pipelines
-come back in dependency order (every build before the probe that reads it),
-so a sequential run is correct.  A TableWriter (CTAS, INSERT) ends its
-pipeline in a TableWriterOperator.  No local exchange, dynamic filters,
-spill or revocation (not ported yet).
+java:403) for the single-node plan nodes: TableScan, Values, Filter,
+Project, Aggregate, GroupId, Join (INNER, CROSS, LEFT, RIGHT, FULL,
+SINGLE), SemiJoin, Union, Replicate, Sort, TopN, Limit, Output,
+TableWriter, and Exchange as a pass-through.  A join's build side becomes its own pipeline
+connected through a JoinBridge; each Union input becomes a pipeline ending
+in a UnionSinkOperator and the consumer starts from a UnionSourceOperator.
+Pipelines come back in dependency order (every build and every union input
+before the pipeline that reads it, a branch's own builds before the
+branch), so a sequential run is correct.  A TableWriter (CTAS, INSERT)
+ends its pipeline in a TableWriterOperator.  Window, Unnest,
+TableFunction, MatchRecognize and DistinctLimit raise; no local exchange,
+dynamic filters, spill or revocation (not ported yet).
 """
 
 from __future__ import annotations
@@ -21,19 +27,24 @@ from ..spi.types import BOOLEAN, Type
 from ..sql.ir import Call
 from .operators import (
     FilterProjectOperator,
+    GroupIdOperator,
     HashAggregationOperator,
     JoinBridge,
     JoinBuildSink,
     LimitOperator,
+    LocalUnionBridge,
     LookupJoinOperator,
     Operator,
     OutputCollector,
     RenameOperator,
+    ReplicateOperator,
     ScanOperator,
     SemiJoinOperator,
     SortOperator,
     TableWriterOperator,
     TopNOperator,
+    UnionSinkOperator,
+    UnionSourceOperator,
     ValuesOperator,
 )
 
@@ -113,6 +124,26 @@ class LocalPlanner:
             chain.append(HashAggregationOperator(
                 node.group_keys, node.aggregates,
                 node.output_names, node.output_types, node.step))
+            return chain
+
+        if isinstance(node, P.GroupId):
+            chain = self._chain(node.source)
+            chain.append(GroupIdOperator(
+                node.key_channels, node.passthrough, node.sets,
+                node.output_names, node.output_types))
+            return chain
+
+        if isinstance(node, P.Union):
+            bridge = LocalUnionBridge(len(node.sources))
+            for src in node.sources:
+                chain = self._chain(src)  # appends the branch's builds
+                chain.append(UnionSinkOperator(bridge, node.output_names))
+                self.pipelines.append(chain)
+            return [UnionSourceOperator(bridge)]
+
+        if isinstance(node, P.Replicate):
+            chain = self._chain(node.source)
+            chain.append(ReplicateOperator(node.count_channel))
             return chain
 
         if isinstance(node, P.Join):

@@ -4,12 +4,15 @@ The port of the reference ``exec/operators.py`` (operator contract of
 operator/Operator.java:21 — ``needs_input``/``add_input``/``get_output``/
 ``is_finished``) for the operators the ported queries use:
 
-- sources: ScanOperator (synchronous path), ValuesOperator;
+- sources: ScanOperator (synchronous path), ValuesOperator,
+  UnionSourceOperator;
 - streaming: FilterProjectOperator,
-  LookupJoinOperator (INNER, LEFT, SINGLE; keyed or nested-loop),
-  SemiJoinOperator (IN / EXISTS mark), LimitOperator, RenameOperator;
-- blocking: HashAggregationOperator (SINGLE step), JoinBuildSink,
-  SortOperator / TopNOperator; OutputCollector is the sink.
+  LookupJoinOperator (INNER, CROSS, LEFT, RIGHT, FULL, SINGLE; keyed or
+  nested-loop), SemiJoinOperator (IN / EXISTS mark), GroupIdOperator,
+  ReplicateOperator, LimitOperator, RenameOperator;
+- blocking: HashAggregationOperator (SINGLE step; the variance family and
+  any_value too), JoinBuildSink, SortOperator / TopNOperator;
+  OutputCollector and UnionSinkOperator are sinks.
 
 Filters mark rows dead in the batch's ``live`` mask instead of compacting;
 blocking operators concatenate their input on the device.
@@ -30,6 +33,7 @@ from ..spi.batch import Column, ColumnBatch, as_tensor, torch_dtype
 from ..spi.connector import Connector, ConnectorPageSink, Split
 from ..spi.errors import SUBQUERY_MULTIPLE_ROWS, TrinoError
 from ..spi.types import BIGINT, BOOLEAN, DOUBLE, DecimalType, Type
+from ..sql.analyzer import STAT_AGGS
 from ..sql.ir import RowExpression, referenced_inputs
 from . import join_exec as JX
 from . import kernels as K
@@ -39,7 +43,9 @@ __all__ = [
     "HashAggregationOperator", "JoinBridge", "JoinBuildSink",
     "LookupJoinOperator", "SemiJoinOperator", "SortOperator",
     "TopNOperator", "LimitOperator", "RenameOperator", "TableWriterOperator",
-    "OutputCollector", "ValuesOperator",
+    "OutputCollector", "ValuesOperator", "LocalUnionBridge",
+    "UnionSinkOperator", "UnionSourceOperator", "GroupIdOperator",
+    "ReplicateOperator",
 ]
 
 
@@ -152,6 +158,64 @@ class ValuesOperator(Operator):
 
     def is_finished(self) -> bool:
         return self._closed or self._batch is None
+
+
+# ---------------------------------------------------------------------------
+# union (a local gather between pipelines)
+
+
+class LocalUnionBridge:
+    """Handoff for a Union's inputs: each input pipeline ends in a
+    UnionSinkOperator appending here; the consumer pipeline starts from a
+    UnionSourceOperator (the single-driver analogue of a gathering
+    LocalExchange, operator/exchange/LocalExchange.java:67).  Branches keep
+    their own dictionaries: a consumer that concatenates unifies them
+    (``ColumnBatch.concat``), and one that does not reads each batch with
+    its own."""
+
+    def __init__(self, num_inputs: int):
+        self.num_inputs = num_inputs
+        self.batches: "deque[ColumnBatch]" = deque()
+        self.finished_inputs = 0
+
+    @property
+    def all_finished(self) -> bool:
+        return self.finished_inputs >= self.num_inputs
+
+
+class UnionSinkOperator(Operator):
+    def __init__(self, bridge: LocalUnionBridge, names: Sequence[str]):
+        self.bridge = bridge
+        self.names = list(names)
+
+    def add_input(self, batch: ColumnBatch) -> None:
+        if batch.num_rows:
+            self.bridge.batches.append(batch.rename(self.names))
+
+    def finish_input(self) -> None:
+        super().finish_input()
+        self.bridge.finished_inputs += 1
+
+    def is_finished(self) -> bool:
+        return self.input_done
+
+
+class UnionSourceOperator(Operator):
+    def __init__(self, bridge: LocalUnionBridge):
+        self.bridge = bridge
+        self.input_done = True
+
+    def needs_input(self) -> bool:
+        return False
+
+    def get_output(self) -> Optional[ColumnBatch]:
+        if self._closed or not self.bridge.all_finished:
+            return None
+        return self.bridge.batches.popleft() if self.bridge.batches else None
+
+    def is_finished(self) -> bool:
+        return self._closed or (self.bridge.all_finished
+                                and not self.bridge.batches)
 
 
 # ---------------------------------------------------------------------------
@@ -345,10 +409,18 @@ class HashAggregationOperator(Operator):
             elif a.fn == "count":
                 plan.append(("count", len(specs)))
                 specs.append(("count", col.data, col.valid, np.int64, dist))
-            elif a.fn in ("min", "max"):
-                # DISTINCT does not change a min or a max
+            elif a.fn in ("min", "max", "any_value"):
+                # DISTINCT does not change a min, a max or any value
                 plan.append((a.fn, len(specs)))
                 specs.append((a.fn, col.data, col.valid, None, False))
+            elif a.fn in STAT_AGGS:
+                # (sum, sum of squares, count) states; the analyzer casts
+                # the argument to DOUBLE and rejects DISTINCT
+                plan.append(("stat", len(specs)))
+                specs.append(("sum", col.data, col.valid, np.float64, False))
+                specs.append(("sum", col.data, col.valid, np.float64, False,
+                              ("square",)))
+                specs.append(("count", col.data, col.valid, np.int64, False))
             else:
                 raise NotImplementedError(f"aggregate {a.fn}")
         return specs, plan
@@ -376,7 +448,7 @@ class HashAggregationOperator(Operator):
             keys_out = K.group_keys_out(perm, gid, num_groups, keys)
             reduced = K.grouped_reduce(perm, gid, num_groups, specs)
         fplan, arrays = [], []
-        for kind, i in plan:
+        for a, (kind, i) in zip(self.aggs, plan):
             t_idx = len(fplan) + nk
             t = self.output_types[t_idx]
             d, v = reduced[i]
@@ -384,6 +456,11 @@ class HashAggregationOperator(Operator):
                 c, _ = reduced[i + 1]
                 fplan.append(("avg_final", t.storage_dtype, v is not None))
                 arrays += [d] + ([v] if v is not None else []) + [c]
+            elif kind == "stat":
+                (q, _), (c, _) = reduced[i + 1], reduced[i + 2]
+                fplan.append(("stat_final", a.fn, t.storage_dtype,
+                              v is not None))
+                arrays += [d] + ([v] if v is not None else []) + [q, c]
             elif kind == "count":
                 fplan.append(("count", None, False))
                 arrays.append(d)
@@ -396,7 +473,7 @@ class HashAggregationOperator(Operator):
         for a, (kind, _), (d, v), t in zip(self.aggs, plan, outs,
                                            self.output_types[nk:]):
             dict_ = (inp.columns[a.arg].dictionary
-                     if kind in ("min", "max") else None)
+                     if kind in ("min", "max", "any_value") else None)
             out_cols.append(Column(t, d, v, dict_))
         return ColumnBatch(self.output_names, out_cols, presence)
 
@@ -542,18 +619,23 @@ def _cols(batch: ColumnBatch) -> list:
 
 class LookupJoinOperator(Operator):
     """Probe side of the equi-join (operator/join/LookupJoinOperator.java:37)
-    for INNER, LEFT and SINGLE joins, with an optional residual.  A unique
-    build (every FK->PK edge) keeps the probe batch's shape (dense or
-    sorted-hash lookup); a build with duplicate keys expands candidate runs
-    found by the ``hash_probe`` kernel.  LEFT/SINGLE keep every probe row:
-    an unmatched one is NULL-extended.  A SINGLE join (a scalar subquery)
-    whose build gives a probe row more than one match raises
-    SUBQUERY_MULTIPLE_ROWS.  Keyless joins run as a nested loop."""
+    for INNER, CROSS, LEFT, RIGHT, FULL and SINGLE joins, with an optional
+    residual.  A unique build (every FK->PK edge) keeps the probe batch's
+    shape (dense or sorted-hash lookup); a build with duplicate keys
+    expands candidate runs found by the ``hash_probe`` kernel.  LEFT /
+    SINGLE / FULL keep every probe row: an unmatched one is NULL-extended.
+    RIGHT / FULL count, in one device tensor per build row, the pairs that
+    survived the residual, and after the last probe batch emit one more
+    batch: the build rows no pair matched (NULL keys included), with NULL
+    probe-side columns.  A SINGLE join (a scalar subquery) whose build gives
+    a probe row more than one match raises SUBQUERY_MULTIPLE_ROWS.  Keyless
+    joins run as a nested loop, with the same marking."""
 
     def __init__(self, bridge: JoinBridge, left_keys: Sequence[int],
                  join_type: str, residual: Optional[RowExpression],
                  output_names: Sequence[str], output_types: Sequence[Type]):
-        if join_type not in ("INNER", "LEFT", "SINGLE"):
+        if join_type not in ("INNER", "CROSS", "LEFT", "RIGHT", "FULL",
+                             "SINGLE"):
             raise NotImplementedError(f"{join_type} join")
         self.bridge = bridge
         self.left_keys = list(left_keys)
@@ -562,10 +644,21 @@ class LookupJoinOperator(Operator):
         self.output_names = list(output_names)
         self.output_types = list(output_types)
         self._pending: "deque[ColumnBatch]" = deque()
+        # RIGHT / FULL: matched pairs per build row, and the dictionaries
+        # of the last probe batch for the epilogue's NULL probe columns
+        self._build_hits: Optional[torch.Tensor] = None
+        self._probe_dicts: Optional[list] = None
+        self._epilogue_done = not self._build_outer
 
     @property
     def _outer(self) -> bool:
-        return self.join_type in ("LEFT", "SINGLE")
+        """Unmatched probe rows are kept (NULL-extended)."""
+        return self.join_type in ("LEFT", "SINGLE", "FULL")
+
+    @property
+    def _build_outer(self) -> bool:
+        """Unmatched build rows are kept (the epilogue)."""
+        return self.join_type in ("RIGHT", "FULL")
 
     def needs_input(self) -> bool:
         return (self.bridge.ready and not self._pending
@@ -584,6 +677,14 @@ class LookupJoinOperator(Operator):
         return TrinoError(SUBQUERY_MULTIPLE_ROWS,
                           "scalar subquery returned multiple rows")
 
+    def _mark_build(self, build_id, ok) -> None:
+        """Count the surviving pairs per build row (no host sync)."""
+        if self._build_hits is None:
+            self._build_hits = torch.zeros(self.bridge.batch.num_rows,
+                                           dtype=torch.int64,
+                                           device=build_id.device)
+        self._build_hits.index_add_(0, build_id, ok.to(torch.int64))
+
     def _add_cross_input(self, probe: ColumnBatch) -> None:
         probe = probe.compact()
         build = self.bridge.batch
@@ -591,6 +692,8 @@ class LookupJoinOperator(Operator):
                 and probe.num_rows):
             raise self._too_many_rows()
         pi, bi = _nested_loop_pairs(probe, build, self.residual)
+        if self._build_outer:
+            self._mark_build(bi, torch.ones_like(bi, dtype=torch.bool))
         if self._outer:
             matched = torch.zeros(probe.num_rows, dtype=torch.bool,
                                   device=probe.device)
@@ -604,6 +707,8 @@ class LookupJoinOperator(Operator):
                        + [c.take(bi) for c in build.columns])
 
     def add_input(self, probe: ColumnBatch) -> None:
+        if self._build_outer:
+            self._probe_dicts = [c.dictionary for c in probe.columns]
         if probe.num_rows == 0:
             return
         if not self.left_keys:
@@ -620,13 +725,15 @@ class LookupJoinOperator(Operator):
                     if self.residual is not None else None)
         build_cols = _cols(build)
         if table.unique:
-            b_out, ok_live, _ = JX.run_unique(
+            b_out, ok_live, _, bid = JX.run_unique(
                 table, keys, remaps, build_cols, live=probe.live,
                 residual=residual,
                 probe_cols=_cols(probe) if residual is not None else ())
+            if self._build_outer:
+                self._mark_build(bid, ok_live)
             right = [Column(c.type, d, v, c.dictionary)
                      for c, (d, v) in zip(build.columns, b_out)]
-            # LEFT/SINGLE: unmatched rows stay live, their build side NULL
+            # LEFT/SINGLE/FULL: unmatched rows stay live, build side NULL
             self._emit(list(probe.columns) + right,
                        probe.live if self._outer else ok_live)
             return
@@ -636,11 +743,13 @@ class LookupJoinOperator(Operator):
             if self._outer:
                 self._null_extended(probe, probe.live)
             return
-        pairs, ok, matches, _ = JX.run_pairs(
+        pairs, ok, matches, _, build_id = JX.run_pairs(
             table, lo, counts, total, keys, remaps, _cols(probe),
             build_cols, residual=residual, need_matched=self._outer)
         if self.join_type == "SINGLE" and int(matches.max()) > 1:
             raise self._too_many_rows()
+        if self._build_outer:
+            self._mark_build(build_id, ok)
         cols = list(probe.columns) + list(build.columns)
         self._emit([Column(c.type, d, v, c.dictionary)
                     for c, (d, v) in zip(cols, pairs)], ok)
@@ -649,11 +758,50 @@ class LookupJoinOperator(Operator):
             self._null_extended(probe, unmatched if probe.live is None
                                 else probe.live & unmatched)
 
+    def _unmatched_build(self) -> Optional[ColumnBatch]:
+        """The RIGHT / FULL epilogue: every live build row no pair matched,
+        with NULL probe-side columns.  A NULL string column carries the last
+        probe batch's dictionary, or [""] when no probe batch arrived (a
+        one-entry dictionary, as a NULL literal has, keeps a gather of code
+        0 in bounds downstream)."""
+        build = self.bridge.batch
+        if build is None or build.num_rows == 0:
+            return None
+        dev = build.device
+        keep = (torch.ones(build.num_rows, dtype=torch.bool, device=dev)
+                if self._build_hits is None else self._build_hits == 0)
+        if build.live is not None:
+            keep = keep & build.live
+        un = torch.nonzero(keep).flatten()
+        n = len(un)
+        if not n:
+            return None
+        probe_types = self.output_types[:len(self.output_types)
+                                        - build.num_columns]
+        cols = []
+        for i, t in enumerate(probe_types):
+            d = (self._probe_dicts[i] if self._probe_dicts is not None
+                 else None)
+            if t.is_dictionary_encoded and (d is None or not len(d)):
+                d = np.array([""], dtype=object)
+            cols.append(Column(
+                t, torch.zeros(n, dtype=torch_dtype(t.storage_dtype),
+                               device=dev),
+                torch.zeros(n, dtype=torch.bool, device=dev), d))
+        return ColumnBatch(self.output_names,
+                           cols + [c.take(un) for c in build.columns])
+
     def get_output(self) -> Optional[ColumnBatch]:
-        return self._pending.popleft() if self._pending else None
+        if self._pending:
+            return self._pending.popleft()
+        if self.input_done and not self._closed and not self._epilogue_done:
+            self._epilogue_done = True
+            return self._unmatched_build()
+        return None
 
     def is_finished(self) -> bool:
-        return self._closed or (self.input_done and not self._pending)
+        return self._closed or (self.input_done and not self._pending
+                                and self._epilogue_done)
 
 
 class SemiJoinOperator(Operator):
@@ -711,7 +859,7 @@ class SemiJoinOperator(Operator):
         probe_cols = _cols(batch) if residual is not None else []
         build_cols = _cols(build) if residual is not None else []
         if table.unique:
-            _, _, mark = JX.run_unique(
+            _, _, mark, _ = JX.run_unique(
                 table, keys, remaps, build_cols, live=batch.live,
                 residual=residual, probe_cols=probe_cols, semi=semi)
         else:
@@ -730,6 +878,86 @@ class SemiJoinOperator(Operator):
 
     def is_finished(self) -> bool:
         return self._closed or (self.input_done and not self._pending)
+
+
+# ---------------------------------------------------------------------------
+# grouping sets and row replication
+
+
+class GroupIdOperator(Operator):
+    """Grouping-sets expansion (operator/GroupIdOperator.java:32): each
+    input batch becomes one batch per grouping set.  A key column absent
+    from the set becomes an all-NULL copy (valid all False, data and
+    dictionary kept), pass-through channels (aggregation arguments) are
+    unchanged, and the last column is the set's constant BIGINT
+    ``$groupid``.  Every new column is made on the batch's device."""
+
+    def __init__(self, key_channels: Sequence[int],
+                 passthrough: Sequence[int], sets, output_names:
+                 Sequence[str], output_types: Sequence[Type]):
+        self.key_channels = list(key_channels)
+        self.passthrough = list(passthrough)
+        self.sets = [tuple(x) for x in sets]
+        self.output_names = list(output_names)
+        self.gid_type = output_types[-1]
+        self._queue: "deque[ColumnBatch]" = deque()
+
+    def needs_input(self) -> bool:
+        return not self._queue and super().needs_input()
+
+    def add_input(self, batch: ColumnBatch) -> None:
+        n, dev = batch.num_rows, batch.device
+        if not n:
+            return
+        null = torch.zeros(n, dtype=torch.bool, device=dev)
+        for gid, live_keys in enumerate(self.sets):
+            cols = []
+            for idx, ch in enumerate(self.key_channels):
+                c = batch.columns[ch]
+                cols.append(c if idx in live_keys
+                            else Column(c.type, c.data, null, c.dictionary))
+            cols += [batch.columns[ch] for ch in self.passthrough]
+            cols.append(Column(self.gid_type, torch.full(
+                (n,), gid, dtype=torch.int64, device=dev)))
+            self._queue.append(ColumnBatch(self.output_names, cols,
+                                           batch.live))
+
+    def get_output(self) -> Optional[ColumnBatch]:
+        return self._queue.popleft() if self._queue else None
+
+    def is_finished(self) -> bool:
+        return self.input_done and not self._queue
+
+
+class ReplicateOperator(Operator):
+    """Each live row repeated N times, N from a BIGINT count channel (0 or
+    less drops it): the row expansion of INTERSECT ALL / EXCEPT ALL.  The
+    indices come from ``torch.repeat_interleave`` on the batch's device."""
+
+    def __init__(self, count_channel: int):
+        self.count_channel = count_channel
+        self._pending: Optional[ColumnBatch] = None
+
+    def needs_input(self) -> bool:
+        return self._pending is None and super().needs_input()
+
+    def add_input(self, batch: ColumnBatch) -> None:
+        batch = batch.compact()
+        c = batch.columns[self.count_channel]
+        counts = torch.clamp(c.data.to(torch.int64), min=0)
+        if c.valid is not None:
+            counts = torch.where(c.valid, counts, 0)
+        idx = torch.repeat_interleave(counts)
+        if len(idx):
+            self._pending = ColumnBatch(batch.names,
+                                        [x.take(idx) for x in batch.columns])
+
+    def get_output(self) -> Optional[ColumnBatch]:
+        b, self._pending = self._pending, None
+        return b
+
+    def is_finished(self) -> bool:
+        return self.input_done and self._pending is None
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,8 @@
 """Calendar math on int "days since 1970-01-01" tensors (the DATE storage).
 
 Howard Hinnant's civil-calendar algorithms as branch-free integer tensor
-ops, the port of the reference ``ops/datetime.py`` (only what the ported
-expressions use).  Floor division is ``torch.div(..., rounding_mode=
-"floor")``, matching ``jnp.floor_divide``.
+ops, the port of the reference ``ops/datetime.py``.  Floor division is
+``torch.div(..., rounding_mode="floor")``, matching ``jnp.floor_divide``.
 """
 
 from __future__ import annotations
@@ -11,7 +10,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["civil_from_days", "days_from_civil", "add_months", "year_of",
-           "month_of", "day_of", "quarter_of", "MICROS_PER_DAY"]
+           "month_of", "day_of", "quarter_of", "day_of_week", "day_of_year",
+           "trunc_year", "trunc_quarter", "trunc_month", "trunc_week",
+           "MICROS_PER_DAY"]
 
 MICROS_PER_DAY = 86_400_000_000
 
@@ -60,6 +61,38 @@ def day_of(days):
 
 def quarter_of(days):
     return _fdiv(civil_from_days(days)[1] + 2, 3)
+
+
+def day_of_week(days):
+    """ISO day of week: 1 = Monday .. 7 = Sunday (Trino day_of_week/dow).
+    1970-01-01 was a Thursday, so (days + 3) mod 7 counts from Monday."""
+    return torch.remainder(days.to(torch.int64) + 3, 7) + 1
+
+
+def day_of_year(days):
+    return days.to(torch.int64) - trunc_year(days) + 1
+
+
+def trunc_year(days):
+    y, _, _ = civil_from_days(days)
+    one = torch.ones_like(y)
+    return days_from_civil(y, one, one)
+
+
+def trunc_quarter(days):
+    y, m, _ = civil_from_days(days)
+    qm = _fdiv(m - 1, 3) * 3 + 1
+    return days_from_civil(y, qm, torch.ones_like(y))
+
+
+def trunc_month(days):
+    y, m, _ = civil_from_days(days)
+    return days_from_civil(y, m, torch.ones_like(y))
+
+
+def trunc_week(days):
+    """Truncate to the Monday of the week."""
+    return days.to(torch.int64) - (day_of_week(days) - 1)
 
 
 _DAYS_IN_MONTH = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)

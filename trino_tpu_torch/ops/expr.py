@@ -1,11 +1,14 @@
 """RowExpression -> torch lowering (the bytecode-generation replacement).
 
-The port of the reference ``ops/expr.py`` for the functions the ported
-queries use: decimal/integer/double arithmetic on scaled int64, date
-arithmetic, ``add_months`` and calendar fields (``year`` ...), comparisons
-(dictionary-aware for strings), three-valued AND/OR/NOT, IS NULL,
-``$if``/CASE, ``$in``, LIKE, ``substring`` and CAST.  Unported
-functions raise NotImplementedError at compile time.
+The port of the reference ``ops/expr.py``: decimal/integer/double
+arithmetic on scaled int64 and ``negate``, date arithmetic, ``add_months``,
+calendar fields and ``date_trunc``, comparisons (dictionary-aware for
+strings), three-valued AND/OR/NOT, IS NULL, ``$if``/CASE, ``$coalesce``,
+``$in``, LIKE, CAST, the elementwise math functions (``abs`` ... ``atan2``,
+``round``, ``truncate``, ``greatest``/``least``), the string functions as
+dictionary transforms, and ``$grouping_mask``.  The array, map, row and
+JSON functions (``repeat``, ``element_at`` ...) and long decimals are not
+ported: they raise NotImplementedError at compile time.
 
 Evaluation model, as in the reference:
 - every expression evaluates to ``(data, valid)`` tensors (valid None =
@@ -32,8 +35,10 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..spi.batch import _to_days, _to_micros, _to_scaled_int, torch_dtype
+from ..spi.batch import (Column, _to_days, _to_micros, _to_scaled_int,
+                         torch_dtype)
 from ..spi.types import (
+    BIGINT,
     BOOLEAN,
     DATE,
     TIMESTAMP,
@@ -605,6 +610,210 @@ def _substring_handler(out_type, args, device):
     return _dict_transform(col, sub, VARCHAR, device)
 
 
+def _dict_scalar(col: Lowered, pyfn, out_type: Type, device) -> Lowered:
+    """str -> number function as a host table per entry + device gather."""
+    arr = np.array([pyfn(str(v)) for v in col.dictionary],
+                   dtype=out_type.storage_dtype)
+    arr_t = torch.as_tensor(arr, device=device)
+
+    def fn(cols: Cols):
+        codes, valid = col.fn(cols)
+        return arr_t[codes.long()], valid
+
+    return Lowered(out_type, None, fn)
+
+
+def _table_lookup(col: Lowered, values, out_type: Type, device) -> Lowered:
+    """One python value (None = NULL) per dictionary entry -> a device
+    gather of the typed table (strings re-dictionaried)."""
+    tab = Column.from_values(out_type, list(values))
+    data_t = tab.data.to(device)
+    valid_t = None if tab.valid is None else tab.valid.to(device)
+
+    def fn(cols: Cols):
+        codes, valid = col.fn(cols)
+        idx = codes.long()
+        return data_t[idx], (valid if valid_t is None
+                             else _and_valid(valid, valid_t[idx]))
+
+    return Lowered(out_type, tab.dictionary, fn)
+
+
+def _strfn_handler(pyfn, result: str = "str"):
+    def handler(out_type, args, device):
+        col = args[0]
+        if col.dictionary is None:
+            raise NotImplementedError(
+                "string function on non-dictionary column")
+        if result == "str":
+            return _dict_transform(col, pyfn, VARCHAR, device)
+        return _dict_scalar(col, pyfn, out_type, device)
+
+    return handler
+
+
+def _literal_str(x: Lowered) -> str:
+    if x.dictionary is None or len(x.dictionary) != 1:
+        raise NotImplementedError("expected string literal argument")
+    return str(x.dictionary[0])
+
+
+def _and_extra_valid(base: Lowered, extras: Sequence[Lowered]) -> Lowered:
+    """AND further operands' validity into a result computed from their
+    dictionaries alone (a NULL literal lowers to dictionary [""] and
+    valid False: the value shortcut must not drop it)."""
+    extras = [x for x in extras if x is not None]
+    if not extras:
+        return base
+
+    def fn(cols: Cols):
+        d, v = base.fn(cols)
+        for x in extras:
+            v = _and_valid(v, x.fn(cols)[1])
+        return d, v
+
+    return Lowered(base.type, base.dictionary, fn)
+
+
+_CONCAT_DICT_LIMIT = 1 << 20  # largest product dictionary of col || col
+
+
+def _concat_pair(a: Lowered, b: Lowered, device) -> Lowered:
+    """String concatenation in dictionary space: a literal side transforms
+    the other side's dictionary; column || column builds the product
+    dictionary and remaps the combined code on the device."""
+    if a.dictionary is None or b.dictionary is None:
+        raise NotImplementedError("concat on non-dictionary operands")
+    if len(b.dictionary) == 1:
+        lit = str(b.dictionary[0])
+        return _and_extra_valid(
+            _dict_transform(a, lambda s: s + lit, VARCHAR, device), [b])
+    if len(a.dictionary) == 1:
+        lit = str(a.dictionary[0])
+        return _and_extra_valid(
+            _dict_transform(b, lambda s: lit + s, VARCHAR, device), [a])
+    na, nb = len(a.dictionary), len(b.dictionary)
+    if na * nb > _CONCAT_DICT_LIMIT:
+        raise NotImplementedError(
+            f"concat product dictionary too large ({na}x{nb})")
+    prod = np.array([str(x) + str(y) for x in a.dictionary
+                     for y in b.dictionary], dtype=object)
+    newdict, remap = np.unique(prod, return_inverse=True)
+    remap_t = torch.as_tensor(remap.astype(np.int32), device=device)
+
+    def fn(cols: Cols):
+        (ac, av), (bc, bv) = a.fn(cols), b.fn(cols)
+        return (remap_t[ac.long() * nb + bc.long()], _and_valid(av, bv))
+
+    return Lowered(VARCHAR, newdict, fn)
+
+
+def _concat_handler(out_type, args, device):
+    out = args[0]
+    for nxt in args[1:]:
+        out = _concat_pair(out, nxt, device)
+    return out
+
+
+def _replace_handler(out_type, args, device):
+    col = args[0]
+    search = _literal_str(args[1])
+    rep = _literal_str(args[2]) if len(args) > 2 else ""
+    if col.dictionary is None:
+        raise NotImplementedError("replace on non-dictionary column")
+    return _and_extra_valid(_dict_transform(
+        col, lambda s: s.replace(search, rep), VARCHAR, device), args[1:])
+
+
+def _strpos_handler(out_type, args, device):
+    col = args[0]
+    sub = _literal_str(args[1])
+    if col.dictionary is None:
+        raise NotImplementedError("strpos on non-dictionary column")
+    return _and_extra_valid(
+        _dict_scalar(col, lambda s: s.find(sub) + 1, BIGINT, device),
+        args[1:])
+
+
+def _starts_with_handler(out_type, args, device):
+    col = args[0]
+    prefix = _literal_str(args[1])
+    if col.dictionary is None:
+        raise NotImplementedError("starts_with on non-dictionary column")
+    return _and_extra_valid(_dict_scalar(
+        col, lambda s: s.startswith(prefix), BOOLEAN, device), args[1:])
+
+
+def _split_part_handler(out_type, args, device):
+    col = args[0]
+    delim = _literal_str(args[1])
+    idx = _literal_int(args[2])
+    if col.dictionary is None:
+        raise NotImplementedError("split_part on non-dictionary column")
+    if not delim:
+        raise ValueError("split_part: delimiter must not be empty")
+    if idx < 1:
+        raise ValueError("split_part: index must be >= 1")
+
+    def part(s: str):
+        parts = s.split(delim)
+        # Trino: NULL when the index is past the last field
+        return parts[idx - 1] if idx <= len(parts) else None
+
+    return _and_extra_valid(_table_lookup(
+        col, [part(str(v)) for v in col.dictionary], VARCHAR, device),
+        args[1:])
+
+
+def _pad_handler(left: bool):
+    def handler(out_type, args, device):
+        col = args[0]
+        size = _literal_int(args[1])
+        fill = _literal_str(args[2]) if len(args) > 2 else " "
+        if col.dictionary is None:
+            raise NotImplementedError("pad on non-dictionary column")
+        if size < 0:
+            raise ValueError("pad: target size must not be negative")
+        if not fill:
+            raise ValueError("pad: padding string must not be empty")
+
+        def pad(s: str) -> str:
+            if len(s) >= size:
+                return s[:size]
+            p = (fill * size)[: size - len(s)]
+            return p + s if left else s + p
+
+        return _and_extra_valid(_dict_transform(col, pad, VARCHAR, device),
+                                args[1:])
+
+    return handler
+
+
+def _translate_handler(out_type, args, device):
+    col = args[0]
+    src = _literal_str(args[1])
+    dst = _literal_str(args[2])
+    if col.dictionary is None:
+        raise NotImplementedError("translate on non-dictionary column")
+    table: dict = {}
+    for i, a in enumerate(src):  # the first duplicate wins (Trino)
+        table.setdefault(ord(a), dst[i] if i < len(dst) else None)
+    return _and_extra_valid(_dict_transform(
+        col, lambda s: s.translate(table), VARCHAR, device), args[1:])
+
+
+def _codepoint_handler(out_type, args, device):
+    col = args[0]
+    if col.dictionary is None:
+        raise NotImplementedError("codepoint on non-dictionary column")
+    # Trino raises unless the input is one character; the entries are
+    # evaluated for the whole dictionary (a row may never select a bad
+    # one), so the per-row error becomes NULL, as in the reference
+    return _table_lookup(
+        col, [ord(str(v)) if len(str(v)) == 1 else None
+              for v in col.dictionary], BIGINT, device)
+
+
 # ---------------------------------------------------------------------------
 # casts and elementwise functions
 
@@ -659,6 +868,113 @@ def _elementwise(tfn):
     return handler
 
 
+def _cbrt(x):
+    x = x.to(torch.float64)
+    return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+
+
+def _round_handler(out_type, args, device):
+    """round(x[, d]): DECIMAL half away from zero in scaled-int space;
+    floats half to even (torch.round, as jnp.round); integers unchanged."""
+    x = args[0]
+    nd = _literal_int(args[1]) if len(args) > 1 else 0
+
+    def fn(cols: Cols):
+        v, vv = x.fn(cols)
+        if isinstance(x.type, DecimalType):
+            s = x.type.scale
+            if nd >= s:
+                return v, vv
+            f = torch.tensor(10 ** (s - nd), dtype=v.dtype, device=v.device)
+            return _round_half_up_div(v, f) * f, vv
+        if not v.is_floating_point():
+            return v, vv
+        f = 10.0 ** nd
+        return torch.round(v * f) / f, vv
+
+    return Lowered(out_type, None, fn)
+
+
+def _truncate_handler(out_type, args, device):
+    (a,) = args
+
+    def fn(cols: Cols):
+        v, vv = a.fn(cols)
+        if isinstance(a.type, DecimalType):
+            f = 10 ** a.type.scale
+            return _trunc_div(v, f) * f, vv
+        return torch.trunc(v), vv  # integers unchanged
+
+    return Lowered(out_type, None, fn)
+
+
+def _const_handler(value: float):
+    def handler(out_type, args, device):
+        t = torch.tensor(value, dtype=torch_dtype(out_type.storage_dtype),
+                         device=device)
+
+        def fn(cols: Cols):
+            return t, None
+
+        return Lowered(out_type, None, fn)
+
+    return handler
+
+
+def _variadic_minmax(tfn):
+    """greatest / least: NULL if any argument is NULL (Trino)."""
+
+    def handler(out_type, args, device):
+        dtype = torch_dtype(out_type.storage_dtype)
+
+        def fn(cols: Cols):
+            vals, valids = zip(*[a.fn(cols) for a in args])
+            data = vals[0].to(dtype)
+            for v in vals[1:]:
+                data = tfn(data, v.to(dtype))
+            valid = None
+            for v in valids:
+                valid = _and_valid(valid, v)
+            return data, valid
+
+        return Lowered(out_type, None, fn)
+
+    return handler
+
+
+def _date_trunc_handler(truncfn):
+    """date_trunc on DATE (days) or TIMESTAMP (micros since the epoch)."""
+
+    def handler(out_type, args, device):
+        (a,) = args
+        dtype = torch_dtype(out_type.storage_dtype)
+
+        def fn(cols: Cols):
+            v, vv = a.fn(cols)
+            if a.type == TIMESTAMP:
+                days = torch.div(v, dt.MICROS_PER_DAY, rounding_mode="floor")
+                return truncfn(days) * dt.MICROS_PER_DAY, vv
+            return truncfn(v).to(dtype), vv
+
+        return Lowered(out_type, None, fn)
+
+    return handler
+
+
+def _grouping_mask_handler(out_type, args, device):
+    """grouping(): a gather of one constant mask per grouping set by the
+    ``$groupid`` channel (args = [groupid, one mask literal per set])."""
+    gid = args[0]
+    masks = torch.tensor([_literal_int(a) for a in args[1:]],
+                         dtype=torch.int64, device=device)
+
+    def fn(cols: Cols):
+        v, vv = gid.fn(cols)
+        return masks[v.long()], vv
+
+    return Lowered(out_type, None, fn)
+
+
 def _days_field_handler(field_fn):
     """Calendar field extraction over DATE (days) or TIMESTAMP (micros)."""
 
@@ -698,13 +1014,71 @@ HANDLERS: dict[str, Callable] = {
     "$in": _in_handler,
     "$like": _like_handler,
     "$cast": _cast_handler,
+    "$grouping_mask": _grouping_mask_handler,
+    "negate": _elementwise(torch.neg),
+    "abs": _elementwise(torch.abs),
+    "sqrt": _elementwise(torch.sqrt),
+    # on integer storage (BIGINT, scaled DECIMAL) these leave the value
+    # as it is, as the reference's jnp functions do
+    "floor": _elementwise(torch.floor),
+    "ceiling": _elementwise(torch.ceil),
+    "ceil": _elementwise(torch.ceil),
+    "exp": _elementwise(torch.exp),
+    "ln": _elementwise(torch.log),
+    "log10": _elementwise(torch.log10),
+    "log2": _elementwise(torch.log2),
+    "power": _elementwise(torch.pow),
+    "pow": _elementwise(torch.pow),
+    "sign": _elementwise(torch.sign),
+    "cbrt": _elementwise(_cbrt),
+    "degrees": _elementwise(torch.rad2deg),
+    "radians": _elementwise(torch.deg2rad),
+    "sin": _elementwise(torch.sin),
+    "cos": _elementwise(torch.cos),
+    "tan": _elementwise(torch.tan),
+    "asin": _elementwise(torch.asin),
+    "acos": _elementwise(torch.acos),
+    "atan": _elementwise(torch.atan),
+    "atan2": _elementwise(torch.atan2),
+    "is_nan": _elementwise(torch.isnan),
+    "round": _round_handler,
+    "truncate": _truncate_handler,
+    "pi": _const_handler(np.pi),
+    "e": _const_handler(np.e),
+    "greatest": _variadic_minmax(torch.maximum),
+    "least": _variadic_minmax(torch.minimum),
     "add_months": _elementwise(dt.add_months),
     "year": _days_field_handler(dt.year_of),
     "month": _days_field_handler(dt.month_of),
     "day": _days_field_handler(dt.day_of),
     "quarter": _days_field_handler(dt.quarter_of),
+    "day_of_week": _days_field_handler(dt.day_of_week),
+    "dow": _days_field_handler(dt.day_of_week),
+    "day_of_year": _days_field_handler(dt.day_of_year),
+    "doy": _days_field_handler(dt.day_of_year),
+    "date_trunc_year": _date_trunc_handler(dt.trunc_year),
+    "date_trunc_quarter": _date_trunc_handler(dt.trunc_quarter),
+    "date_trunc_month": _date_trunc_handler(dt.trunc_month),
+    "date_trunc_week": _date_trunc_handler(dt.trunc_week),
+    "date_trunc_day": _date_trunc_handler(lambda d: d),
     "substring": _substring_handler,
     "substr": _substring_handler,
+    "upper": _strfn_handler(str.upper),
+    "lower": _strfn_handler(str.lower),
+    "trim": _strfn_handler(str.strip),
+    "ltrim": _strfn_handler(str.lstrip),
+    "rtrim": _strfn_handler(str.rstrip),
+    "length": _strfn_handler(len, result="scalar"),
+    "reverse": _strfn_handler(lambda s: s[::-1]),
+    "concat": _concat_handler,
+    "replace": _replace_handler,
+    "strpos": _strpos_handler,
+    "starts_with": _starts_with_handler,
+    "split_part": _split_part_handler,
+    "lpad": _pad_handler(left=True),
+    "rpad": _pad_handler(left=False),
+    "translate": _translate_handler,
+    "codepoint": _codepoint_handler,
 }
 
 

@@ -5,12 +5,15 @@ Run from the repository root:  python -m trino_tpu_torch.tools.insert_passes
 Compiles a diagnostic library from ``csrc/hash_table.cu`` (included whole)
 that records a CUDA event between the six launches of
 ``hash_insert_launch`` -- init, claim, first, scan, rank, fill -- and prints
-each pass's device time (mean of 5 runs after one warm-up) at four shapes:
+each pass's device time (mean of 5 runs after one warm-up) at six shapes:
 a Q18-like group-by (1.5 M keys, 1 to 7 rows a key, about 6.0 M rows
 sorted by key like lineitem by l_orderkey, S = 2^24), the same rows
-shuffled, a Q3-orders-like unique index (729,338 keys, S = 2^21) and a
-Q12-like index (30,922 keys, S = 2^16).  Keys are made on the card from
-seed 0.  The launch sequence below must follow
+shuffled, a Q3-orders-like unique index (729,338 keys, S = 2^21), a
+Q12-like index (30,922 keys, S = 2^16), and at a G1-like size (23,993,284
+rows, S = 2^26: a ROLLUP of lineitem) with 36 keys in random order, with
+36 keys laid out as GroupId lays out G1's sets (four runs of 5,998,321
+rows over 28, 4, 3 and 1 keys), and with every key distinct.  Keys are
+made on the card from seed 0.  The launch sequence below must follow
 ``hash_insert_launch``.
 """
 
@@ -132,6 +135,19 @@ def main() -> int:
          1 << 21),
         ("Q12-like", torch.randint(1, 6_000_000, (30_922,), device=dev,
                                    generator=gen), 1 << 16),
+    ]
+    g1_rows = 4 * 5_998_321
+    g1_keys = torch.randperm(1 << 20, device=dev, generator=gen)[:36] + 1
+    per_set = g1_rows // 4
+    sets = torch.cat([torch.randint(lo, lo + k, (per_set,), device=dev,
+                                    generator=gen)
+                      for lo, k in ((0, 28), (28, 4), (32, 3), (35, 1))])
+    cases += [
+        ("G1-like, 36 keys", g1_keys[torch.randint(
+            0, 36, (g1_rows,), device=dev, generator=gen)], 1 << 26),
+        ("G1-like, 36 keys in G1's four sets", g1_keys[sets], 1 << 26),
+        ("G1-like size, distinct keys",
+         torch.randperm(g1_rows, device=dev, generator=gen) + 1, 1 << 26),
     ]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
