@@ -4,8 +4,8 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10, 11, 6, 9, so the kernel phase holds the staged
-and surface paths' calls too).  Every runner but phase 10's legacy one plans with the port's
+the order 1-5, 7, 8, 10, 11, 12, 6, 9, so the kernel phase holds the
+staged and surface paths' calls too).  Every runner but phase 10's legacy one plans with the port's
 default optimizer, the iterative one:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from trino_tpu_torch/csrc/*.cu (nvcc, sm_90a);
@@ -31,7 +31,8 @@ default optimizer, the iterative one:
      on the card.  Each kernel also gets the largest call of the staged
      path (phase 8), labelled "staged", and one call of the surface path
      (phase 11), labelled "surface": G1's insert, J3's probe, G3's segment
-     sum.  The bound's random table traffic is one 32-byte sector per
+     sum; and the largest insert of W3, W5 and W7 (phase 12), labelled
+     "windows" (few keys, many rows each).  The bound's random table traffic is one 32-byte sector per
      distinct home slot of the live rows (rows of one key share theirs);
   7. staging: the eight TPC-H tables at SF 1 into the memory connector on
      cuda (connectors/staging.py: orders and lineitem generated on the
@@ -64,7 +65,15 @@ default optimizer, the iterative one:
      to phase 4's tolerances; U1, U4, G1, G3, J1 and J3 at SF 1 against
      numpy over the staged columns; per-operator times of G1, U1 and J3;
      and the calls phase 6 holds as its "surface" cases (G1's insert,
-     J3's probe, G3's segment sum).
+     J3's probe, G3's segment sum);
+ 12. windows: the window queries W1-W8 of connectors/window_queries.py
+     over the staged SF 1 tables on cuda, cold and warm, with peak memory
+     and launches per query (each must launch the kernels KERNELS names);
+     W1, W2, W4 and W7 against numpy over the staged columns (exact);
+     per-operator times of W2, W6 and W7 with the Window operator's share;
+     M1 (MATCH_RECOGNIZE) over a CTAS cut of the staged orders (customers
+     up to 1500), cold and warm, against a plain scan of the same rows;
+     W1-W8 and M1 over its cut at SF 0.1 on cuda and on cpu, rows equal.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -629,7 +638,8 @@ def run_path(torch, GK, runner, sqls: dict, label: str,
              required: dict = REQUIRED) -> tuple:
     """Every query cold then warm: rows, (cold ms, warm ms, peak MiB) and
     kernel launches per query; fails if a query misses a kernel that
-    ``required`` names for it or a kernel never launched."""
+    ``required`` names for it (on the main path, REQUIRED names every
+    kernel)."""
     rows, timings, per_query = {}, {}, {}
     t_path = time.perf_counter()
     GK.reset_launch_counts()
@@ -659,15 +669,15 @@ def run_path(torch, GK, runner, sqls: dict, label: str,
         for k in kernels:
             if per_query[name][k] <= 0:
                 raise AssertionError(f"{label} {name} launched no {k}")
-    if any(v <= 0 for v in launches.values()):
-        raise AssertionError(f"{label}: a kernel never launched: {launches}")
     return rows, timings, launches
 
 
 def per_operator(QueryStats, runner, sqls: dict, label: str,
-                 names=CAPTURE_QUERIES) -> None:
+                 names=CAPTURE_QUERIES) -> dict:
     """One run of each query of ``names`` with the device synchronized
-    after every operator call."""
+    after every operator call; returns name -> (total ms, operator class ->
+    seconds)."""
+    out = {}
     for name in names:
         st = QueryStats(sync=True)
         t0 = time.perf_counter()
@@ -677,6 +687,8 @@ def per_operator(QueryStats, runner, sqls: dict, label: str,
                         for k, v in sorted(st.by_operator().items(),
                                            key=lambda kv: -kv[1]))
         log(f"operators {label} {name} (sync, {total:.1f} ms): {ops}")
+        out[name] = (total, st.by_operator())
+    return out
 
 
 def capture_calls(GK, runs) -> dict:
@@ -970,6 +982,7 @@ def surface_numpy(read, name: str) -> list:
 SURFACE_NUMPY = ("U1", "U4", "G1", "G3", "J1", "J3")
 SURFACE_OPERATORS = ("G1", "U1", "J3")
 SURFACE_CAPTURE = ("G1", "J3", "G3")  # the calls of phase 6's cases
+WINDOW_CAPTURE = ("W3", "W5", "W7")  # the hash_insert calls of phase 6
 
 
 def surface(torch, GK, QueryStats, StandaloneQueryRunner, default_catalog,
@@ -1017,6 +1030,179 @@ def surface(torch, GK, QueryStats, StandaloneQueryRunner, default_catalog,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: window functions and MATCH_RECOGNIZE
+
+
+def _partition_starts(keys: np.ndarray) -> np.ndarray:
+    """Index of each sorted row's partition start."""
+    start = np.r_[True, keys[1:] != keys[:-1]]
+    return np.maximum.accumulate(np.where(start, np.arange(len(keys)), 0))
+
+
+def window_numpy(read, name: str) -> list:
+    """W1, W2, W4, W7 by numpy over staged columns (exact: DECIMAL and
+    integer results)."""
+    if name == "W1":
+        od = read("orders", ["o_orderkey", "o_custkey", "o_totalprice"])
+        pr = od["o_totalprice"]
+        order = np.lexsort((od["o_orderkey"], -pr, od["o_custkey"]))
+        rn = np.arange(len(order)) - _partition_starts(
+            od["o_custkey"][order]) + 1
+        keep = order[rn <= 3]
+        return [(int(keep.size), _dec(pr[keep].sum(), 2))]
+    if name == "W2":
+        li = read("lineitem", ["l_orderkey", "l_linenumber",
+                               "l_extendedprice", "l_discount"])
+        order = np.lexsort((li["l_linenumber"], li["l_orderkey"]))
+        v = (li["l_extendedprice"] * (100 - li["l_discount"]))[order]
+        cs = np.cumsum(v)
+        st = _partition_starts(li["l_orderkey"][order])
+        rs = cs - cs[st] + v[st]
+        return [(int(rs.size), _dec(rs.sum(), 4), _dec(rs.max(), 4))]
+    if name == "W4":
+        od = read("orders", ["o_orderkey", "o_custkey", "o_orderdate",
+                             "o_totalprice"])
+        order = np.lexsort((od["o_orderkey"], od["o_orderdate"],
+                            od["o_custkey"]))
+        c, p = od["o_custkey"][order], od["o_totalprice"][order]
+        prev = c[1:] == c[:-1]  # row i + 1 has a row before it
+        next2 = np.r_[c[2:] == c[:-2], False, False]
+        nxt = np.where(next2, np.r_[p[2:], 0, 0], 0)
+        return [(int(p.size), int(p.size - prev.sum()),
+                 _dec((p[1:] - p[:-1])[prev].sum(), 2), _dec(nxt.sum(), 2))]
+    if name == "W7":
+        od = read("orders", ["o_orderkey", "o_totalprice"])
+        order = np.lexsort((od["o_orderkey"], od["o_totalprice"]))
+        p = od["o_totalprice"][order]
+        n, tiles = len(p), 100
+        size, rem = n // tiles, n % tiles
+        rn0 = np.arange(n)
+        big = rem * (size + 1)
+        t = np.where(rn0 < big, rn0 // (size + 1),
+                     rem + (rn0 - big) // max(size, 1)) + 1
+        ut, first, cnt = np.unique(t, return_index=True, return_counts=True)
+        return [(int(k), int(c), _dec(p[f], 2), _dec(p[f + c - 1], 2))
+                for k, f, c in zip(ut, first, cnt)]
+    raise ValueError(name)
+
+
+def m1_plain(read, max_custkey: int) -> list:
+    """M1 (a V: one row, then falling prices, then rising ones; greedy,
+    skip past the match) by a plain scan over the staged orders of
+    customers up to ``max_custkey``."""
+    od = read("orders", ["o_orderkey", "o_custkey", "o_orderdate",
+                         "o_totalprice"])
+    cut = od["o_custkey"] <= max_custkey
+    order = np.lexsort((od["o_orderkey"][cut], od["o_orderdate"][cut],
+                        od["o_custkey"][cut]))
+    c = od["o_custkey"][cut][order].tolist()
+    p = od["o_totalprice"][cut][order].tolist()
+    matches = rows = top = 0
+    i, n = 0, len(c)
+    while i < n:
+        j = i
+        while j < n and c[j] == c[i]:
+            j += 1
+        mno, s = 0, i
+        while s < j:
+            k = s + 1
+            while k < j and p[k] < p[k - 1]:
+                k += 1
+            u = k
+            while k > s + 1 and u < j and p[u] > p[u - 1]:
+                u += 1
+            if u == k:  # no fall, or no rise after it
+                s += 1
+                continue
+            mno += 1
+            rows += u - s
+            s = u
+        matches += mno
+        top = max(top, mno)
+        i = j
+    return [(matches, rows, top)]
+
+
+WINDOW_NUMPY = ("W1", "W2", "W4", "W7")
+WINDOW_OPERATORS = ("W2", "W6", "W7")
+
+
+def windows(torch, GK, QueryStats, StandaloneQueryRunner, default_catalog,
+            staged_cat) -> dict:
+    """Phase 12: W1-W8 over the staged SF 1 tables (timing and launches,
+    numpy checks, per-operator times and the Window operator's share), at
+    SF 0.1 on cuda and cpu, and M1 over a CTAS cut of the staged orders.
+    Returns the W queries' launches on the staged path."""
+    from trino_tpu_torch.connectors.window_queries import (
+        KERNELS, M1_CUT, M1_MAX_CUSTKEY, WINDOW_QUERIES, m1_text)
+
+    t_phase = time.perf_counter()
+    staged = StandaloneQueryRunner(staged_cat, device="cuda",
+                                   default_catalog_name="memory",
+                                   splits_per_node=1)
+    label = f"windows SF{PATH_SF:g}"
+    rows, _, launches = run_path(
+        torch, GK, staged, WINDOW_QUERIES, label,
+        {k: v for k, v in KERNELS.items() if k in WINDOW_QUERIES})
+    read = staged_reader(staged_cat.connector("memory"))
+    for name in WINDOW_NUMPY:
+        t0 = time.perf_counter()
+        same_rows(rows[name], window_numpy(read, name),
+                  f"{label} {name} vs numpy", 0.0)
+        log(f"{label} {name}: {len(rows[name])} rows equal the numpy "
+            f"evaluation of the staged columns exactly "
+            f"({time.perf_counter() - t0:.1f} s)")
+    for name, (total, ops) in per_operator(
+            QueryStats, staged, WINDOW_QUERIES, label,
+            WINDOW_OPERATORS).items():
+        win = ops.get("WindowOperator", 0.0) * 1e3
+        log(f"{label} {name}: WindowOperator {win:.1f} ms of {total:.1f} ms "
+            f"synchronized ({win / total:.1%})")
+
+    # M1 over a CTAS cut of the staged orders (matching is host Python)
+    t0 = time.perf_counter()
+    staged.execute(f"create table ord_m1 as {M1_CUT}")
+    torch.cuda.synchronize()
+    log(f"{label} M1 cut: ord_m1 = {M1_CUT!r} by CTAS on cuda in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    m1 = {"M1": m1_text("ord_m1")}
+    m1_rows, _, _ = run_path(torch, GK, staged, m1, label,
+                             {"M1": KERNELS["M1"]})
+    same_rows(m1_rows["M1"], m1_plain(read, M1_MAX_CUSTKEY),
+              f"{label} M1 vs the plain scan")
+    log(f"{label} M1: {m1_rows['M1']} equals the plain scan of the staged "
+        f"orders")
+    staged.execute("drop table ord_m1")
+
+    t0 = time.perf_counter()
+    cat = default_catalog(PARITY_SF)
+    r_gpu = StandaloneQueryRunner(cat, device="cuda")
+    r_cpu = StandaloneQueryRunner(cat, device="cpu")
+    for name, sql in WINDOW_QUERIES.items():
+        g = r_gpu.execute(sql).rows()
+        c = r_cpu.execute(sql).rows()
+        worst = same_rows(g, c, f"windows SF{PARITY_SF:g} {name} cuda vs cpu")
+        log(f"windows parity SF{PARITY_SF:g} {name}: {len(g)} rows equal on "
+            f"cuda and cpu (largest float rel diff {worst:.3g})")
+    m1_out = []
+    for device in ("cuda", "cpu"):
+        r = StandaloneQueryRunner(default_catalog(PARITY_SF), device=device,
+                                  default_catalog_name="memory")
+        r.execute(f"create table ord_m1 as "
+                  f"{M1_CUT.replace('orders', 'tpch.orders')}")
+        m1_out.append(r.execute(m1_text("ord_m1")).rows())
+    same_rows(m1_out[0], m1_out[1], f"windows SF{PARITY_SF:g} M1 cuda vs cpu")
+    log(f"windows parity SF{PARITY_SF:g} M1: {m1_out[0]} on cuda and cpu")
+    log(f"windows parity: {time.perf_counter() - t0:.1f} s")
+    log(f"windows: {time.perf_counter() - t_phase:.1f} s for phase 12 "
+        f"({len(WINDOW_QUERIES)} queries at SF{PATH_SF:g} cold and warm, "
+        f"numpy checks of {len(WINDOW_NUMPY)}, per-operator runs of "
+        f"{len(WINDOW_OPERATORS)}, M1 over its cut, parity at "
+        f"SF{PARITY_SF:g})")
+    return launches
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -1061,6 +1247,13 @@ def kernel_cases(torch, GK, captured) -> list:
          pick("surface J3", "hash_probe", lambda c: True)),
         ("masked_segment_sum_f32", "surface: G3 ROLLUP REAL sum",
          pick("surface G3", "masked_segment_sum_f32", lambda c: True)),
+        # few keys, many rows each: the layout that serializes the claims
+        ("hash_insert", "windows: W3 largest insert (the group-by)",
+         pick("windows W3", "hash_insert", lambda c: True)),
+        ("hash_insert", "windows: W5 group-by (l_shipdate)",
+         pick("windows W5", "hash_insert", lambda c: True)),
+        ("hash_insert", "windows: W7 group-by (ntile bands)",
+         pick("windows W7", "hash_insert", lambda c: True)),
     ]
     return cases
 
@@ -1083,6 +1276,7 @@ def main() -> int:
     from trino_tpu_torch.connectors.staging import stage_memory_tables
     from trino_tpu_torch.connectors.surface_queries import SURFACE_QUERIES
     from trino_tpu_torch.connectors.tpch_queries import QUERIES
+    from trino_tpu_torch.connectors.window_queries import WINDOW_QUERIES
     from trino_tpu_torch.exec.stats import QueryStats
     from trino_tpu_torch.ops import gpu_kernels as GK
     from trino_tpu_torch.runner import StandaloneQueryRunner
@@ -1179,6 +1373,10 @@ def main() -> int:
     surface_launches = surface(torch, GK, QueryStats, StandaloneQueryRunner,
                                default_catalog, staged_cat)
 
+    # -- 12. windows: window functions and MATCH_RECOGNIZE ------------------
+    window_launches = windows(torch, GK, QueryStats, StandaloneQueryRunner,
+                              default_catalog, staged_cat)
+
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
     # kept apart from the path runs so the held tensors do not inflate
@@ -1187,7 +1385,9 @@ def main() -> int:
         (f"{prefix}{name}", r, sqls[name]) for prefix, r in
         (("", runner), ("staged ", staged)) for name in CAPTURE_QUERIES]
         + [(f"surface {name}", staged, SURFACE_QUERIES[name])
-           for name in SURFACE_CAPTURE])
+           for name in SURFACE_CAPTURE]
+        + [(f"windows {name}", staged, WINDOW_QUERIES[name])
+           for name in WINDOW_CAPTURE])
     cases = kernel_cases(torch, GK, captured)
     log(library_read_rate(torch, cases[7][2][0]))
     entries = {}
@@ -1229,6 +1429,7 @@ def main() -> int:
             "name": kernel, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[kernel],
             "launches_surface": surface_launches[kernel],
+            "launches_windows": window_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],

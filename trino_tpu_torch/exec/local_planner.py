@@ -3,16 +3,16 @@
 The port of the reference ``exec/local_planner.py`` (LocalExecutionPlanner.
 java:403) for the single-node plan nodes: TableScan, Values, Filter,
 Project, Aggregate, GroupId, Join (INNER, CROSS, LEFT, RIGHT, FULL,
-SINGLE), SemiJoin, Union, Replicate, Sort, TopN, Limit, Output,
-TableWriter, and Exchange as a pass-through.  A join's build side becomes its own pipeline
-connected through a JoinBridge; each Union input becomes a pipeline ending
-in a UnionSinkOperator and the consumer starts from a UnionSourceOperator.
-Pipelines come back in dependency order (every build and every union input
-before the pipeline that reads it, a branch's own builds before the
-branch), so a sequential run is correct.  A TableWriter (CTAS, INSERT)
-ends its pipeline in a TableWriterOperator.  Window, Unnest,
-TableFunction, MatchRecognize and DistinctLimit raise; no local exchange,
-dynamic filters, spill or revocation (not ported yet).
+SINGLE), SemiJoin, Union, Replicate, Window, MatchRecognize, Sort, TopN,
+Limit, Output, TableWriter, and Exchange as a pass-through.  A join's build
+side becomes its own pipeline connected through a JoinBridge; each Union
+input becomes a pipeline ending in a UnionSinkOperator and the consumer
+starts from a UnionSourceOperator.  Pipelines come back in dependency order
+(every build and every union input before the pipeline that reads it, a
+branch's own builds before the branch), so a sequential run is correct.  A
+TableWriter (CTAS, INSERT) ends its pipeline in a TableWriterOperator.
+Unnest, TableFunction and DistinctLimit raise; no local exchange, dynamic
+filters, spill or revocation (not ported yet).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from ..spi.batch import Column, ColumnBatch
 from ..spi.connector import ColumnSchema, TableSchema
 from ..spi.types import BOOLEAN, Type
 from ..sql.ir import Call
+from .match_recognize import MatchRecognizeOperator
 from .operators import (
     FilterProjectOperator,
     GroupIdOperator,
@@ -46,6 +47,7 @@ from .operators import (
     UnionSinkOperator,
     UnionSourceOperator,
     ValuesOperator,
+    WindowOperator,
 )
 
 __all__ = ["LocalExecutionPlan", "LocalPlanner"]
@@ -169,6 +171,22 @@ class LocalPlanner:
             chain = self._chain(node.source)
             chain.append(SemiJoinOperator(
                 bridge, node.source_keys, node.null_aware, node.residual,
+                node.output_names, node.output_types))
+            return chain
+
+        if isinstance(node, P.MatchRecognize):
+            chain = self._chain(node.source)
+            chain.append(MatchRecognizeOperator(
+                node.partition_channels, node.order_keys, node.pattern,
+                node.defines, node.measures, node.skip_past,
+                node.output_names, node.output_types,
+                node.source.output_names))
+            return chain
+
+        if isinstance(node, P.Window):
+            chain = self._chain(node.source)
+            chain.append(WindowOperator(
+                node.partition_keys, node.order_keys, node.functions,
                 node.output_names, node.output_types))
             return chain
 

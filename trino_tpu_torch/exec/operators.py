@@ -11,7 +11,8 @@ operator/Operator.java:21 — ``needs_input``/``add_input``/``get_output``/
   nested-loop), SemiJoinOperator (IN / EXISTS mark), GroupIdOperator,
   ReplicateOperator, LimitOperator, RenameOperator;
 - blocking: HashAggregationOperator (SINGLE step; the variance family and
-  any_value too), JoinBuildSink, SortOperator / TopNOperator;
+  any_value too), JoinBuildSink, WindowOperator, SortOperator /
+  TopNOperator;
   OutputCollector and UnionSinkOperator are sinks.
 
 Filters mark rows dead in the batch's ``live`` mask instead of compacting;
@@ -28,8 +29,9 @@ import torch
 
 from ..ops.expr import (compile_expression, expr_condition_mask,
                         expr_error_scope, reduce_error_lanes)
-from ..planner.plan import AggCall, SortKey
-from ..spi.batch import Column, ColumnBatch, as_tensor, torch_dtype
+from ..planner.plan import AggCall, SortKey, WindowFunc
+from ..spi.batch import (Column, ColumnBatch, as_tensor, torch_dtype,
+                         unify_dictionaries)
 from ..spi.connector import Connector, ConnectorPageSink, Split
 from ..spi.errors import SUBQUERY_MULTIPLE_ROWS, TrinoError
 from ..spi.types import BIGINT, BOOLEAN, DOUBLE, DecimalType, Type
@@ -37,6 +39,7 @@ from ..sql.analyzer import STAT_AGGS
 from ..sql.ir import RowExpression, referenced_inputs
 from . import join_exec as JX
 from . import kernels as K
+from . import window_kernels as WK
 
 __all__ = [
     "Operator", "ScanOperator", "FilterProjectOperator",
@@ -45,7 +48,7 @@ __all__ = [
     "TopNOperator", "LimitOperator", "RenameOperator", "TableWriterOperator",
     "OutputCollector", "ValuesOperator", "LocalUnionBridge",
     "UnionSinkOperator", "UnionSourceOperator", "GroupIdOperator",
-    "ReplicateOperator",
+    "ReplicateOperator", "WindowOperator",
 ]
 
 
@@ -958,6 +961,83 @@ class ReplicateOperator(Operator):
 
     def is_finished(self) -> bool:
         return self.input_done and self._pending is None
+
+
+# ---------------------------------------------------------------------------
+# window
+
+
+_NEVER_NULL = WK.WINDOW_RANK_FNS | {"count", "count_star"}
+
+
+class WindowOperator(Operator):
+    """Window-function evaluation (operator/WindowOperator.java:69):
+    blocking -- accumulate, then exec/window_kernels.py sorts once per spec,
+    computes every function and gathers the results back to input order on
+    the batch's device."""
+
+    def __init__(self, partition_keys: Sequence[int],
+                 order_keys: Sequence[SortKey],
+                 functions: Sequence[WindowFunc],
+                 output_names: Sequence[str], output_types: Sequence[Type]):
+        self.partition_keys = list(partition_keys)
+        self.order_keys = list(order_keys)
+        self.functions = list(functions)
+        self.output_names = list(output_names)
+        self.output_types = list(output_types)
+        self._batches: list[ColumnBatch] = []
+        self._result: Optional[ColumnBatch] = None
+        self._emitted = False
+
+    def add_input(self, batch: ColumnBatch) -> None:
+        if batch.num_rows:
+            self._batches.append(batch)
+
+    def finish_input(self) -> None:
+        super().finish_input()
+        if not self._batches:
+            self._result = ColumnBatch(
+                self.output_names,
+                [Column(t, np.empty(0, t.storage_dtype))
+                 for t in self.output_types])
+            return
+        inp = ColumnBatch.concat(self._batches)  # compacts + unifies dicts
+        self._batches = []
+        pkeys = [(inp.columns[c].data, inp.columns[c].valid)
+                 for c in self.partition_keys]
+        okeys = [(inp.columns[k.channel].data, inp.columns[k.channel].valid,
+                  k.ascending, k.nulls_first) for k in self.order_keys]
+        specs, fn_dicts = [], []
+        for f in self.functions:
+            acols = [inp.columns[c] for c in f.args]
+            if len(acols) > 1 and acols[0].type.is_dictionary_encoded:
+                # lag/lead default drawn from a different dictionary column
+                acols = unify_dictionaries(acols)
+            fn_dicts.append(acols[0].dictionary if acols else None)
+            specs.append({
+                "fn": f.fn, "args": [(c.data, c.valid) for c in acols],
+                "offset": f.offset, "frame": f.frame,
+                "dtype": f.type.storage_dtype,
+            })
+        results = WK.compute_windows(pkeys, okeys, specs, inp.num_rows,
+                                     inp.device)
+        out_cols = list(inp.columns)
+        for f, (data, valid), fdict in zip(self.functions, results, fn_dicts):
+            dict_ = (fdict if f.args and f.fn not in ("count", "sum", "avg")
+                     else None)
+            if f.fn in _NEVER_NULL:
+                valid = None
+            out_cols.append(Column(f.type, data, valid, dict_))
+        self._result = ColumnBatch(self.output_names, out_cols)
+
+    def get_output(self) -> Optional[ColumnBatch]:
+        if self._result is not None and not self._emitted:
+            self._emitted = True
+            return self._result
+        return None
+
+    def is_finished(self) -> bool:
+        return (self.input_done and self._emitted) or self._closed
 
 
 # ---------------------------------------------------------------------------

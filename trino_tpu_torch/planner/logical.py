@@ -42,6 +42,7 @@ from .plan import (
     GroupId,
     Join,
     Limit,
+    MatchRecognize,
     Output,
     PlanNode,
     Project,
@@ -946,7 +947,42 @@ class LogicalPlanner:
 
     def _plan_match_recognize(self, r: ast.MatchRecognizeRelation,
                               outer, ctes) -> RelationPlan:
-        raise AnalysisError("MATCH_RECOGNIZE is not ported yet")
+        """MATCH_RECOGNIZE -> MatchRecognize node (reference:
+        RelationPlanner.visitPatternRecognitionRelation).  Output = partition
+        columns ++ measures; measure types from host inference (the pattern
+        engine evaluates python values)."""
+        from ..exec.match_recognize import infer_measure_type
+        from ..exec.row_pattern import parse_pattern, pattern_labels
+
+        src = self.plan_relation(r.input, outer, ctes)
+        tr = Translator(src.scope(outer))
+
+        def channel_of(e: ast.Expr) -> int:
+            ir = tr.translate(e)
+            if not isinstance(ir, InputRef):
+                raise AnalysisError(
+                    "MATCH_RECOGNIZE partition/order keys must be columns")
+            return ir.index
+
+        pch = tuple(channel_of(e) for e in r.partition_by)
+        okeys = tuple((channel_of(s.expr), s.ascending) for s in r.order_by)
+        # validate pattern + labels now (parse errors surface at plan time)
+        labels = set(pattern_labels(parse_pattern(r.pattern)))
+        for lbl, _ in r.defines:
+            if lbl.upper() not in labels:
+                raise AnalysisError(
+                    f"DEFINE label {lbl} not used in PATTERN")
+        schema = {n.lower(): t for n, t in
+                  zip(src.node.output_names, src.node.output_types)}
+        names = tuple([src.node.output_names[c] for c in pch]
+                      + [m[1] for m in r.measures])
+        types = tuple([src.node.output_types[c] for c in pch]
+                      + [infer_measure_type(m[0], schema)
+                         for m in r.measures])
+        node = MatchRecognize(names, types, src.node, pch, okeys,
+                              r.pattern, tuple(r.defines),
+                              tuple(r.measures), r.skip_past)
+        return RelationPlan(node, [r.alias] * len(names))
 
     def _plan_table_function(self, r: ast.TableFunctionRelation,
                              outer) -> RelationPlan:
