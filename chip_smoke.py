@@ -4,8 +4,8 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10, 11, 12, 6, 9, so the kernel phase holds the
-staged and surface paths' calls too).  Every runner but phase 10's legacy one plans with the port's
+the order 1-5, 7, 8, 10, 11, 12, 13, 6, 9, so the kernel phase holds the
+staged, surface, window and nested paths' calls too).  Every runner but phase 10's legacy one plans with the port's
 default optimizer, the iterative one:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from trino_tpu_torch/csrc/*.cu (nvcc, sm_90a);
@@ -31,8 +31,9 @@ default optimizer, the iterative one:
      on the card.  Each kernel also gets the largest call of the staged
      path (phase 8), labelled "staged", and one call of the surface path
      (phase 11), labelled "surface": G1's insert, J3's probe, G3's segment
-     sum; and the largest insert of W3, W5 and W7 (phase 12), labelled
-     "windows" (few keys, many rows each).  The bound's random table traffic is one 32-byte sector per
+     sum; the largest insert of W3, W5 and W7 (phase 12), labelled
+     "windows" (few keys, many rows each); and the nested path's largest
+     insert (phase 13), labelled "nested".  The bound's random table traffic is one 32-byte sector per
      distinct home slot of the live rows (rows of one key share theirs);
   7. staging: the eight TPC-H tables at SF 1 into the memory connector on
      cuda (connectors/staging.py: orders and lineitem generated on the
@@ -73,7 +74,18 @@ default optimizer, the iterative one:
      per-operator times of W2, W6 and W7 with the Window operator's share;
      M1 (MATCH_RECOGNIZE) over a CTAS cut of the staged orders (customers
      up to 1500), cold and warm, against a plain scan of the same rows;
-     W1-W8 and M1 over its cut at SF 0.1 on cuda and on cpu, rows equal.
+     W1-W8 and M1 over its cut at SF 0.1 on cuda and on cpu, rows equal;
+ 13. nested: ``orders_nested`` (connectors/nested_queries.py: arrays, a
+     map, a row, decimal(38,18) and JSON text per order) built from the
+     staged SF 1 tables (rows, device bytes, dictionary sizes, seconds);
+     N1-N11 over it on cuda, cold and warm, with peak memory and launches
+     per query (each launches exactly the kernels KERNELS names); N1, N2,
+     N5 and N9 against a plain numpy / python-int evaluation of the
+     arrays the table is built from (exact); per-operator times of N2, N3 and N5 (the
+     Unnest and HashAggregation shares); device busy time of one traced
+     run of each (torch.profiler) against its unprofiled warm wall: the
+     idle, host share; and N1-N11 at SF 0.1 on cuda and on cpu, rows
+     equal.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -635,11 +647,11 @@ SF10_TABLES = ("customer", "orders", "lineitem")
 
 
 def run_path(torch, GK, runner, sqls: dict, label: str,
-             required: dict = REQUIRED) -> tuple:
+             required: dict = REQUIRED, exact: bool = False) -> tuple:
     """Every query cold then warm: rows, (cold ms, warm ms, peak MiB) and
     kernel launches per query; fails if a query misses a kernel that
     ``required`` names for it (on the main path, REQUIRED names every
-    kernel)."""
+    kernel), and with ``exact`` also if it launches one not named."""
     rows, timings, per_query = {}, {}, {}
     t_path = time.perf_counter()
     GK.reset_launch_counts()
@@ -669,6 +681,10 @@ def run_path(torch, GK, runner, sqls: dict, label: str,
         for k in kernels:
             if per_query[name][k] <= 0:
                 raise AssertionError(f"{label} {name} launched no {k}")
+        for k, n in per_query[name].items():
+            if exact and n and k not in kernels:
+                raise AssertionError(f"{label} {name} launched {k} {n} "
+                                     f"times; it names only {kernels}")
     return rows, timings, launches
 
 
@@ -1203,6 +1219,138 @@ def windows(torch, GK, QueryStats, StandaloneQueryRunner, default_catalog,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: nested types, long decimals, JSON and table functions
+
+
+def nested_plain(parts: dict, name: str) -> list:
+    """N1, N2, N5 and N9 by numpy and python ints over the arrays
+    ``orders_nested`` is built from (exact)."""
+    od, li = parts["orders"], parts["lineitem"]
+    nlines = parts["hi"] - parts["lo"]
+    sm_codes, sm_dict = li["l_shipmode"]
+    rf_codes, rf_dict = li["l_returnflag"]
+    order_of_line = np.repeat(np.arange(len(nlines)), nlines)
+    returned = rf_codes == list(map(str, rf_dict)).index("R")
+    if name == "N1":
+        air = sm_codes == list(map(str, sm_dict)).index("AIR")
+        return [(len(nlines), int(nlines.sum()), int(nlines.max()),
+                 int(np.unique(order_of_line[air]).size),
+                 int(returned.sum()))]
+    if name == "N2":
+        codes, counts = np.unique(sm_codes, return_counts=True)
+        return sorted((str(sm_dict[c]), int(n))
+                      for c, n in zip(codes, counts))
+    if name == "N5":
+        st_codes, st_dict = od["o_orderstatus"]
+        price = od["o_totalprice"]  # scale 2
+        keep = price > 10_000_000  # > 100000.000000000000000001 at scale 18
+        out = []
+        for c in np.unique(st_codes[keep]):
+            p = [int(v) * 10 ** 16 for v in price[keep & (st_codes == c)]]
+            total, n = sum(p), len(p)
+            avg = (2 * total + n) // (2 * n)  # HALF_UP, positive values
+            out.append((str(st_dict[c]), _dec(total, 18), _dec(avg, 18),
+                        _dec(min(p), 18), _dec(max(p), 18), n))
+        return sorted(out)
+    if name == "N9":
+        r_order = order_of_line[returned]
+        n = np.arange(r_order.size) - np.searchsorted(r_order, r_order) + 1
+        keys, counts = np.unique(
+            np.stack([sm_codes[returned].astype(np.int64), n]), axis=1,
+            return_counts=True)
+        return sorted((str(sm_dict[m]), int(k), int(c))
+                      for (m, k), c in zip(keys.T, counts))
+    raise ValueError(name)
+
+
+NESTED_NUMPY = ("N1", "N2", "N5", "N9")
+NESTED_OPERATORS = ("N2", "N3", "N5")
+NESTED_PROFILE = ("N2", "N3", "N4", "N5")  # with the top device operations
+NESTED_CAPTURE = ("N3", "N4", "N6", "N9", "N10")  # phase 6's nested insert
+NESTED_TABLES = ("orders", "lineitem", "customer", "part")
+
+
+def nested(torch, GK, QueryStats, StandaloneQueryRunner, default_catalog,
+           staged_cat) -> dict:
+    """Phase 13: orders_nested built from the staged SF 1 tables, N1-N11
+    on cuda (timing, launches against KERNELS both ways, device busy time
+    and host share), numpy checks of N1, N2, N5 and N9, per-operator times
+    of N2, N3 and N5, and all eleven at SF 0.1 on cuda and on cpu.
+    Returns the N queries' launches."""
+    from trino_tpu_torch.connectors.nested_queries import (
+        KERNELS, NESTED_QUERIES, build_orders_nested, nested_parts)
+    from trino_tpu_torch.connectors.staging import stage_memory_tables
+    from trino_tpu_torch.tools.window_profile import WALL_RUNS, profile
+
+    t_phase = time.perf_counter()
+    label = f"nested SF{PATH_SF:g}"
+    info = build_orders_nested(staged_cat, "cuda")
+    log(f"{label} orders_nested: {info['rows']} rows, {info['bytes']} device "
+        f"bytes, dictionary entries {info['dictionaries']}, built in "
+        f"{info['seconds']:.2f} s from the staged orders, lineitem and "
+        f"customer")
+    staged = StandaloneQueryRunner(staged_cat, device="cuda",
+                                   default_catalog_name="memory",
+                                   splits_per_node=1)
+    rows, _, launches = run_path(torch, GK, staged, NESTED_QUERIES,
+                                       label, KERNELS, exact=True)
+
+    t0 = time.perf_counter()
+    parts = nested_parts(staged_cat)
+    for name in NESTED_NUMPY:
+        same_rows(rows[name], nested_plain(parts, name),
+                  f"{label} {name} vs the plain evaluation", 0.0)
+        log(f"{label} {name}: {len(rows[name])} rows equal the plain "
+            f"evaluation of the table's source arrays exactly")
+    del parts
+    log(f"{label} plain evaluations: {time.perf_counter() - t0:.1f} s")
+
+    for name, (total, ops) in per_operator(
+            QueryStats, staged, NESTED_QUERIES, label,
+            NESTED_OPERATORS).items():
+        shares = ", ".join(
+            f"{op} {ops.get(op, 0.0) * 1e3:.1f} ms "
+            f"({ops.get(op, 0.0) * 1e3 / total:.1%})"
+            for op in ("UnnestOperator", "HashAggregationOperator"))
+        log(f"{label} {name}: {shares} of {total:.1f} ms synchronized")
+
+    t0 = time.perf_counter()
+    for name, sql in NESTED_QUERIES.items():
+        wall, traced, busy, ops = profile(staged, sql)
+        log(f"{label} {name}: device busy {busy:.2f} ms of {wall:.2f} ms "
+            f"warm wall (median of {WALL_RUNS} unprofiled runs; traced "
+            f"{traced:.2f} ms): idle, the host's share, {1 - busy / wall:.1%}")
+        if name in NESTED_PROFILE:
+            log(f"{label} {name} most device time: " + "; ".join(
+                f"{key} {ms:.3f} ms x{calls}" for key, ms, calls in ops[:6]))
+    log(f"{label} device profiles: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    out = {}
+    for device in ("cuda", "cpu"):
+        cat = default_catalog(PARITY_SF)
+        stage_memory_tables(cat, NESTED_TABLES, device)
+        build_orders_nested(cat, device)
+        r = StandaloneQueryRunner(cat, device=device,
+                                  default_catalog_name="memory",
+                                  splits_per_node=1)
+        out[device] = {n: r.execute(q).rows()
+                       for n, q in NESTED_QUERIES.items()}
+    for name in NESTED_QUERIES:
+        same_rows(out["cuda"][name], out["cpu"][name],
+                  f"nested SF{PARITY_SF:g} {name} cuda vs cpu", 0.0)
+        log(f"nested parity SF{PARITY_SF:g} {name}: "
+            f"{len(out['cuda'][name])} rows equal on cuda and cpu")
+    log(f"nested parity: {time.perf_counter() - t0:.1f} s")
+    log(f"nested: {time.perf_counter() - t_phase:.1f} s for phase 13 "
+        f"(orders_nested at SF{PATH_SF:g}, {len(NESTED_QUERIES)} queries "
+        f"cold and warm, plain checks of {len(NESTED_NUMPY)}, per-operator "
+        f"runs of {len(NESTED_OPERATORS)}, device profiles, parity at "
+        f"SF{PARITY_SF:g})")
+    return launches
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -1255,6 +1403,12 @@ def kernel_cases(torch, GK, captured) -> list:
         ("hash_insert", "windows: W7 group-by (ntile bands)",
          pick("windows W7", "hash_insert", lambda c: True)),
     ]
+    calls = [(q, c) for (q, k), cs in captured.items()
+             if k == "hash_insert" and q.startswith("nested ") for c in cs]
+    if not calls:
+        raise AssertionError("the nested path made no hash_insert call")
+    q, args = max(calls, key=lambda qc: _rows_of("hash_insert", qc[1]))
+    cases.append(("hash_insert", f"nested: largest insert ({q[7:]})", args))
     return cases
 
 
@@ -1276,6 +1430,7 @@ def main() -> int:
     from trino_tpu_torch.connectors.staging import stage_memory_tables
     from trino_tpu_torch.connectors.surface_queries import SURFACE_QUERIES
     from trino_tpu_torch.connectors.tpch_queries import QUERIES
+    from trino_tpu_torch.connectors.nested_queries import NESTED_QUERIES
     from trino_tpu_torch.connectors.window_queries import WINDOW_QUERIES
     from trino_tpu_torch.exec.stats import QueryStats
     from trino_tpu_torch.ops import gpu_kernels as GK
@@ -1377,6 +1532,10 @@ def main() -> int:
     window_launches = windows(torch, GK, QueryStats, StandaloneQueryRunner,
                               default_catalog, staged_cat)
 
+    # -- 13. nested types, long decimals, JSON, table functions ------------
+    nested_launches = nested(torch, GK, QueryStats, StandaloneQueryRunner,
+                             default_catalog, staged_cat)
+
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
     # kept apart from the path runs so the held tensors do not inflate
@@ -1387,7 +1546,9 @@ def main() -> int:
         + [(f"surface {name}", staged, SURFACE_QUERIES[name])
            for name in SURFACE_CAPTURE]
         + [(f"windows {name}", staged, WINDOW_QUERIES[name])
-           for name in WINDOW_CAPTURE])
+           for name in WINDOW_CAPTURE]
+        + [(f"nested {name}", staged, NESTED_QUERIES[name])
+           for name in NESTED_CAPTURE])
     cases = kernel_cases(torch, GK, captured)
     log(library_read_rate(torch, cases[7][2][0]))
     entries = {}
@@ -1430,6 +1591,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[kernel],
             "launches_surface": surface_launches[kernel],
             "launches_windows": window_launches[kernel],
+            "launches_nested": nested_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],

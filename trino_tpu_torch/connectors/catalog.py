@@ -51,8 +51,10 @@ class Catalog:
         # CREATE FUNCTION registry: name -> (params, return_type, body AST)
         # (reference: metadata/GlobalFunctionCatalog for SQL routines)
         self.sql_functions: dict[str, tuple] = {}
-        # polymorphic table functions: none are ported yet
-        self.table_functions: dict = {}
+        # polymorphic table functions: name -> spi.table_function.TableFunction
+        from ..spi.table_function import builtin_table_functions
+
+        self.table_functions: dict = builtin_table_functions()
         # view registry: name -> ViewDefinition (reference:
         # metadata/MetadataManager view/materialized-view maps)
         self.views: dict = {}

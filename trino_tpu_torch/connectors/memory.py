@@ -71,7 +71,13 @@ def _batch_overlaps(b: ColumnBatch, constraint) -> bool:
             stats[name] = (None, None, has_null)
         elif c.dictionary is not None:
             vals = c.dictionary[np.unique(present)]
-            stats[name] = (str(vals[0]), str(vals[-1]), has_null)
+            if isinstance(vals[0], tuple):
+                continue  # arrays / rows / maps: no zone-map bounds
+            # long-decimal dictionaries hold python ints: bounds stay in
+            # storage space, not strings
+            stats[name] = ((int(vals[0]), int(vals[-1]), has_null)
+                           if isinstance(vals[0], int)
+                           else (str(vals[0]), str(vals[-1]), has_null))
         else:
             mn, mx = present.min(), present.max()
             if isinstance(mn, np.floating) and (np.isnan(mn) or np.isnan(mx)):

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..ops import gpu_kernels as GK
@@ -28,7 +29,7 @@ __all__ = [
     "bucket", "key_planes", "hash_combine", "hash_row_gids",
     "hash_group_ids", "small_codes_group_space", "small_grouped_aggregate",
     "grouped_reduce", "finalize_groups", "group_keys_out", "device_sort",
-    "lexsort",
+    "lexsort", "decimal_limb_tables", "combine_limb_sums",
 ]
 
 
@@ -495,6 +496,41 @@ def finalize_groups(plan: Sequence[tuple], arrays: Sequence):
         else:
             raise NotImplementedError(kind)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# exact long-decimal sums as int64 limb planes (reference: kernels.py:629)
+
+_LIMB_BASE = 1 << 31
+_LIMB_COUNT = 5  # 5 x 31 bits = 155 > the 127-bit magnitude; + a sign limb
+
+
+def decimal_limb_tables(dictionary) -> list:
+    """Long-decimal dictionary (python scaled ints) -> 6 int64 numpy limb
+    tables: value = sum(limb_k * 2^(31k)) + sign_limb * 2^155, each limb
+    in [0, 2^31) and the sign limb in {-1, 0}, so per-group int64 sums are
+    exact for up to 2^31 rows.  The reference fills them with a per-entry
+    ``divmod`` loop; here object-array ``%`` and ``//`` split each value
+    into two 62-bit parts and the rest (|value| < 10^38 < 2^127), and int64
+    shifts cut the limbs (the same integers)."""
+    x = np.asarray(dictionary, dtype=object)
+    base = 1 << 62
+    r0 = (x % base).astype(np.int64)
+    x = x // base
+    r1 = (x % base).astype(np.int64)
+    q = (x // base).astype(np.int64)
+    mask = _LIMB_BASE - 1
+    return [r0 & mask, r0 >> 31, r1 & mask, r1 >> 31, q & mask, q >> 31]
+
+
+def combine_limb_sums(sums):
+    """The six limb sums of a group -> its exact scaled-int total (a python
+    int); given six arrays of per-group sums, an object array of them."""
+    total = 0
+    for k, s in enumerate(sums):  # the sign limb is limb 5, at 2^155
+        s = s.astype(object) if isinstance(s, np.ndarray) else int(s)
+        total = total + (s << (31 * k))
+    return total
 
 
 # ---------------------------------------------------------------------------

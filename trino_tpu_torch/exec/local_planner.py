@@ -3,16 +3,17 @@
 The port of the reference ``exec/local_planner.py`` (LocalExecutionPlanner.
 java:403) for the single-node plan nodes: TableScan, Values, Filter,
 Project, Aggregate, GroupId, Join (INNER, CROSS, LEFT, RIGHT, FULL,
-SINGLE), SemiJoin, Union, Replicate, Window, MatchRecognize, Sort, TopN,
-Limit, Output, TableWriter, and Exchange as a pass-through.  A join's build
+SINGLE), SemiJoin, Union, Replicate, Window, MatchRecognize, Unnest,
+TableFunctionScan, Sort, TopN, Limit, Output, TableWriter, and Exchange as
+a pass-through.  A join's build
 side becomes its own pipeline connected through a JoinBridge; each Union
 input becomes a pipeline ending in a UnionSinkOperator and the consumer
 starts from a UnionSourceOperator.  Pipelines come back in dependency order
 (every build and every union input before the pipeline that reads it, a
 branch's own builds before the branch), so a sequential run is correct.  A
 TableWriter (CTAS, INSERT) ends its pipeline in a TableWriterOperator.
-Unnest, TableFunction and DistinctLimit raise; no local exchange, dynamic
-filters, spill or revocation (not ported yet).
+DistinctLimit raises; no local exchange, dynamic filters, spill or
+revocation (not ported yet).
 """
 
 from __future__ import annotations
@@ -42,10 +43,12 @@ from .operators import (
     ScanOperator,
     SemiJoinOperator,
     SortOperator,
+    TableFunctionOperator,
     TableWriterOperator,
     TopNOperator,
     UnionSinkOperator,
     UnionSourceOperator,
+    UnnestOperator,
     ValuesOperator,
     WindowOperator,
 )
@@ -90,6 +93,17 @@ class LocalPlanner:
 
         if isinstance(node, P.Values):
             return [ValuesOperator(_values_batch(node).to(self.device))]
+
+        if isinstance(node, P.TableFunctionScan):
+            return [TableFunctionOperator(node.bound, node.output_names,
+                                          self.device)]
+
+        if isinstance(node, P.Unnest):
+            chain = self._chain(node.source)
+            chain.append(UnnestOperator(
+                node.replicate, node.unnest_channels, node.ordinality,
+                node.output_names, node.output_types))
+            return chain
 
         if isinstance(node, P.Filter):
             chain = self._chain(node.source)

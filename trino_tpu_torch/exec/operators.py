@@ -5,14 +5,14 @@ operator/Operator.java:21 — ``needs_input``/``add_input``/``get_output``/
 ``is_finished``) for the operators the ported queries use:
 
 - sources: ScanOperator (synchronous path), ValuesOperator,
-  UnionSourceOperator;
+  UnionSourceOperator, TableFunctionOperator;
 - streaming: FilterProjectOperator,
   LookupJoinOperator (INNER, CROSS, LEFT, RIGHT, FULL, SINGLE; keyed or
   nested-loop), SemiJoinOperator (IN / EXISTS mark), GroupIdOperator,
-  ReplicateOperator, LimitOperator, RenameOperator;
-- blocking: HashAggregationOperator (SINGLE step; the variance family and
-  any_value too), JoinBuildSink, WindowOperator, SortOperator /
-  TopNOperator;
+  ReplicateOperator, UnnestOperator, LimitOperator, RenameOperator;
+- blocking: HashAggregationOperator (SINGLE step; the variance family,
+  any_value and exact long-decimal sum / avg too), JoinBuildSink,
+  WindowOperator, SortOperator / TopNOperator;
   OutputCollector and UnionSinkOperator are sinks.
 
 Filters mark rows dead in the batch's ``live`` mask instead of compacting;
@@ -21,6 +21,8 @@ blocking operators concatenate their input on the device.
 
 from __future__ import annotations
 
+import decimal
+import itertools
 from collections import deque
 from typing import Optional, Sequence
 
@@ -30,8 +32,9 @@ import torch
 from ..ops.expr import (compile_expression, expr_condition_mask,
                         expr_error_scope, reduce_error_lanes)
 from ..planner.plan import AggCall, SortKey, WindowFunc
-from ..spi.batch import (Column, ColumnBatch, as_tensor, torch_dtype,
-                         unify_dictionaries)
+from ..spi.batch import (Column, ColumnBatch, _object_array, as_tensor,
+                         encode_sorted_objects, rescale_scaled_int,
+                         torch_dtype, unify_dictionaries)
 from ..spi.connector import Connector, ConnectorPageSink, Split
 from ..spi.errors import SUBQUERY_MULTIPLE_ROWS, TrinoError
 from ..spi.types import BIGINT, BOOLEAN, DOUBLE, DecimalType, Type
@@ -48,7 +51,8 @@ __all__ = [
     "TopNOperator", "LimitOperator", "RenameOperator", "TableWriterOperator",
     "OutputCollector", "ValuesOperator", "LocalUnionBridge",
     "UnionSinkOperator", "UnionSourceOperator", "GroupIdOperator",
-    "ReplicateOperator", "WindowOperator",
+    "ReplicateOperator", "WindowOperator", "UnnestOperator",
+    "TableFunctionOperator",
 ]
 
 
@@ -161,6 +165,34 @@ class ValuesOperator(Operator):
 
     def is_finished(self) -> bool:
         return self._closed or self._batch is None
+
+
+class TableFunctionOperator(Operator):
+    """Leaf table-function source (operator/LeafTableFunctionOperator.
+    java:41): drains the bound function's batch generator, each batch
+    moved to the runner's device."""
+
+    def __init__(self, bound, output_names: Sequence[str], device):
+        self.output_names = list(output_names)
+        self.device = torch.device(device)
+        self._iter = bound.batches()
+        self._done = False
+        self.input_done = True
+
+    def needs_input(self) -> bool:
+        return False
+
+    def get_output(self) -> Optional[ColumnBatch]:
+        if self._done or self._closed:
+            return None
+        batch = next(self._iter, None)
+        if batch is None:
+            self._done = True
+            return None
+        return batch.rename(self.output_names).to(self.device)
+
+    def is_finished(self) -> bool:
+        return self._done or self._closed
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +421,7 @@ class HashAggregationOperator(Operator):
         """Kernel specs (fn, data, valid, dtype, distinct[, pre]) and the
         finalize plan; avg expands to a (scale-free f64 sum, count) pair."""
         specs, plan = [], []
+        limbs: dict = {}  # argument channel -> its gathered limb planes
         for a in self.aggs:
             if a.fn == "count" and a.arg < 0:
                 plan.append(("count", len(specs)))
@@ -396,6 +429,24 @@ class HashAggregationOperator(Operator):
                 continue
             col = inp.columns[a.arg]
             dist = bool(a.distinct)
+            if a.fn in ("sum", "avg") and isinstance(
+                    col.type, DecimalType) and col.type.is_long:
+                # exact wide sum / avg: six int64 limb-plane sums and a
+                # count, recombined as python ints per group
+                if dist:
+                    raise NotImplementedError(
+                        "DISTINCT long-decimal aggregate")
+                plan.append(("long_" + a.fn, len(specs)))
+                if a.arg not in limbs:
+                    codes = col.data.long()
+                    limbs[a.arg] = [
+                        as_tensor(tab, col.data.device)[codes]
+                        for tab in K.decimal_limb_tables(col.dictionary)]
+                for plane in limbs[a.arg]:
+                    specs.append(("sum", plane, col.valid, np.int64, False))
+                specs.append(("count", col.data, col.valid, np.int64,
+                              False))
+                continue
             if a.fn == "avg":
                 scale = (col.type.scale if isinstance(col.type, DecimalType)
                          else 0)
@@ -451,9 +502,9 @@ class HashAggregationOperator(Operator):
             keys_out = K.group_keys_out(perm, gid, num_groups, keys)
             reduced = K.grouped_reduce(perm, gid, num_groups, specs)
         fplan, arrays = [], []
-        for a, (kind, i) in zip(self.aggs, plan):
-            t_idx = len(fplan) + nk
-            t = self.output_types[t_idx]
+        for a, (kind, i), t in zip(self.aggs, plan, self.output_types[nk:]):
+            if kind.startswith("long_"):
+                continue
             d, v = reduced[i]
             if kind == "avg":
                 c, _ = reduced[i + 1]
@@ -470,15 +521,58 @@ class HashAggregationOperator(Operator):
             else:
                 fplan.append(("copy", t.storage_dtype, v is not None))
                 arrays += [d] + ([v] if v is not None else [])
-        outs = K.finalize_groups(fplan, arrays)
+        outs = iter(K.finalize_groups(fplan, arrays))
+        wide = self._long_decimal_columns(inp, plan, reduced)
         out_cols = [Column(c.type, d, v, c.dictionary)
                     for (d, v), c in zip(keys_out, key_cols)]
-        for a, (kind, _), (d, v), t in zip(self.aggs, plan, outs,
-                                           self.output_types[nk:]):
+        for idx, (a, (kind, _), t) in enumerate(
+                zip(self.aggs, plan, self.output_types[nk:])):
+            if kind.startswith("long_"):
+                out_cols.append(wide[idx])
+                continue
+            d, v = next(outs)
             dict_ = (inp.columns[a.arg].dictionary
                      if kind in ("min", "max", "any_value") else None)
             out_cols.append(Column(t, d, v, dict_))
         return ColumnBatch(self.output_names, out_cols, presence)
+
+    def _long_decimal_columns(self, inp: ColumnBatch, plan,
+                              reduced) -> dict:
+        """Finalize the long-decimal sums and averages: one host fetch of
+        every per-group limb sum and count (groups x 7 int64 each), then
+        python-int recombination, HALF_UP at the output scale for AVG.
+        Returns agg index -> a column on the input's device."""
+        picks = [(idx, kind, i) for idx, (kind, i) in enumerate(plan)
+                 if kind.startswith("long_")]
+        if not picks:
+            return {}
+        fetched = torch.stack([reduced[i + k][0] for _, _, i in picks
+                               for k in range(7)]).cpu().numpy()
+        nk = len(self.group_keys)
+        out = {}
+        for j, (idx, kind, _) in enumerate(picks):
+            planes = fetched[7 * j: 7 * j + 7]
+            counts = planes[6]
+            totals = K.combine_limb_sums(planes[:6])
+            src_scale = inp.columns[self.aggs[idx].arg].type.scale
+            t = self.output_types[nk + idx]
+            values: list = []
+            with decimal.localcontext() as ctx:
+                ctx.prec = 80
+                for total, cnt in zip(totals, counts):
+                    if cnt == 0:
+                        values.append(None)
+                    elif kind == "long_avg":
+                        q = (decimal.Decimal(int(total)).scaleb(-src_scale)
+                             / int(cnt))
+                        values.append(int(q.scaleb(t.scale).quantize(
+                            0, rounding=decimal.ROUND_HALF_UP)))
+                    else:
+                        values.append(rescale_scaled_int(
+                            int(total), src_scale, t.scale))
+            codes, valid, dict_ = encode_sorted_objects(values, 0)
+            out[idx] = Column(t, codes, valid, dict_).to(inp.device)
+        return out
 
     def get_output(self) -> Optional[ColumnBatch]:
         if self.input_done and self._result is not None and not self._emitted:
@@ -930,6 +1024,99 @@ class GroupIdOperator(Operator):
 
     def is_finished(self) -> bool:
         return self.input_done and not self._queue
+
+
+class UnnestOperator(Operator):
+    """Array row expansion (operator/unnest/UnnestOperator.java:42), on the
+    batch's device.  Several arrays zip-pad with NULL to the longest one;
+    rows where every array is NULL or empty, and dead rows, emit nothing;
+    the output keeps the input's row order, then the element position;
+    ordinality is 1-based BIGINT.
+
+    Per dictionary object (once per operator, not per batch) the host
+    builds each entry's length and offset and one flat element column.
+    Per batch the device gathers the lengths by code, takes the longest
+    per row, expands the row indices with ``repeat_interleave`` (the one
+    host sync: the output size), and gathers each element at
+    ``offset[code] + position``, NULL where the position is past the
+    entry's end."""
+
+    def __init__(self, replicate: Sequence[int],
+                 unnest_channels: Sequence[int], ordinality: bool,
+                 output_names: Sequence[str], output_types: Sequence[Type]):
+        self.replicate = list(replicate)
+        self.unnest_channels = list(unnest_channels)
+        self.ordinality = ordinality
+        self.output_names = list(output_names)
+        self.output_types = list(output_types)
+        k = len(self.replicate)
+        self.element_types = self.output_types[k:k + len(unnest_channels)]
+        self._tables: dict = {}
+        self._pending: Optional[ColumnBatch] = None
+
+    def _table(self, ch: int, col: Column, et: Type):
+        """(lengths, offsets, elements) of ``col``'s dictionary, on the
+        column's device."""
+        d = col.dictionary if col.dictionary is not None else \
+            _object_array([()])
+        hit = self._tables.get((ch, id(d)))
+        if hit is not None and hit[0] is d:  # the entry holds d: ids stay
+            return hit[1]
+        dev = col.data.device
+        lens = np.fromiter(map(len, d), dtype=np.int64, count=len(d))
+        offs = np.zeros(len(d), dtype=np.int64)
+        np.cumsum(lens[:-1], out=offs[1:])
+        # one invalid slot keeps the gathers in bounds when d has no element
+        elems = Column.from_values(
+            et, list(itertools.chain.from_iterable(d)) or [None])
+        entry = (as_tensor(lens, dev), as_tensor(offs, dev), elems.to(dev))
+        self._tables[(ch, id(d))] = (d, entry)
+        return entry
+
+    def needs_input(self) -> bool:
+        return self._pending is None and super().needs_input()
+
+    def add_input(self, batch: ColumnBatch) -> None:
+        n, dev = batch.num_rows, batch.device
+        if n == 0:
+            return
+        arrays = []
+        length = None
+        for ch, et in zip(self.unnest_channels, self.element_types):
+            c = batch.columns[ch]
+            lens, offs, elems = self._table(ch, c, et)
+            code = c.data.long()
+            ln = lens[code]
+            if c.valid is not None:  # a NULL array is empty
+                ln = torch.where(c.valid, ln, 0)
+            arrays.append((code, ln, offs, elems))
+            length = ln if length is None else torch.maximum(length, ln)
+        if batch.live is not None:
+            length = torch.where(batch.live, length, 0)
+        total = int(length.sum())  # the one host sync: the output size
+        if total == 0:
+            return
+        rows = torch.repeat_interleave(
+            torch.arange(n, device=dev), length, output_size=total)
+        starts = torch.cumsum(length, 0) - length
+        pos = torch.arange(total, dtype=torch.int64, device=dev) - starts[rows]
+        cols = [batch.columns[ch].take(rows) for ch in self.replicate]
+        for (code, ln, offs, elems), et in zip(arrays, self.element_types):
+            ok = pos < ln[rows]
+            at = torch.clamp(offs[code[rows]] + torch.where(ok, pos, 0),
+                             max=len(elems) - 1)
+            valid = ok if elems.valid is None else ok & elems.valid[at]
+            cols.append(Column(et, elems.data[at], valid, elems.dictionary))
+        if self.ordinality:
+            cols.append(Column(self.output_types[-1], pos + 1))
+        self._pending = ColumnBatch(self.output_names, cols)
+
+    def get_output(self) -> Optional[ColumnBatch]:
+        b, self._pending = self._pending, None
+        return b
+
+    def is_finished(self) -> bool:
+        return self.input_done and self._pending is None
 
 
 class ReplicateOperator(Operator):

@@ -6,9 +6,12 @@ calendar fields and ``date_trunc``, comparisons (dictionary-aware for
 strings), three-valued AND/OR/NOT, IS NULL, ``$if``/CASE, ``$coalesce``,
 ``$in``, LIKE, CAST, the elementwise math functions (``abs`` ... ``atan2``,
 ``round``, ``truncate``, ``greatest``/``least``), the string functions as
-dictionary transforms, and ``$grouping_mask``.  The array, map, row and
-JSON functions (``repeat``, ``element_at`` ...) and long decimals are not
-ported: they raise NotImplementedError at compile time.
+dictionary transforms, ``$grouping_mask``, the array, map and row
+functions (``cardinality``, ``element_at``, ``contains``,
+``array_position``, ``$row_field``, ``map_keys`` / ``map_values``,
+``repeat``), the JSON functions (``json_extract[_scalar]``,
+``json_array_length``) and long decimals (precision > 18: exact python-int
+transforms over the sorted scaled-int dictionary, with a literal operand).
 
 Evaluation model, as in the reference:
 - every expression evaluates to ``(data, valid)`` tensors (valid None =
@@ -16,7 +19,8 @@ Evaluation model, as in the reference:
 - literals are 0-d tensors on the expression's device and broadcast;
 - strings never reach the device as bytes: a varchar expression carries a
   host-side sorted dictionary and string predicates become code compares
-  or gathers of a host-computed per-entry table.
+  or gathers of a host-computed per-entry table; array, map, row, JSON and
+  long-decimal values are dictionary entries in the same way.
 
 Errors (division by zero, integer overflow) are recorded as lane masks in
 the active error scope, masked by the conditional branch that selects the
@@ -27,6 +31,8 @@ one sync at the end (:func:`check_error_scalars`).
 
 from __future__ import annotations
 
+import decimal
+import json
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -35,20 +41,24 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..spi.batch import (Column, _to_days, _to_micros, _to_scaled_int,
-                         torch_dtype)
+from ..spi.batch import (Column, _object_array, _to_days, _to_micros,
+                         _to_scaled_int, rescale_scaled_int, torch_dtype)
 from ..spi.types import (
     BIGINT,
     BOOLEAN,
     DATE,
     TIMESTAMP,
     VARCHAR,
+    ArrayType,
     DecimalType,
+    MapType,
+    RowType,
     Type,
     is_string,
 )
 from ..sql.ir import Call, InputRef, Literal, RowExpression
 from . import datetime as dt
+from .json_fns import eval_json_path, json_scalar_text, parse_json_path
 from .like_dfa import like_mask
 
 __all__ = ["CompiledExpression", "compile_expression", "QueryError",
@@ -158,6 +168,10 @@ class Lowered:
     dictionary: Optional[np.ndarray]
     fn: Callable[[Cols], tuple[Any, Optional[Any]]]
     literal: Any = None  # exact python value of a constant, else None
+    null_literal: bool = False  # the constant NULL
+    # a DECIMAL cast to a floating type: dividing it by zero raises, as
+    # exact division does (a double's x / 0 stays NULL)
+    from_decimal: bool = False
 
 
 @dataclass
@@ -206,12 +220,106 @@ def _is_long_dec(t: Type) -> bool:
     return isinstance(t, DecimalType) and t.precision > 18
 
 
+_NESTED = (ArrayType, RowType, MapType)
+
+
+def _codes_only(t: Type) -> bool:
+    """Array, map, row and long-decimal values exist only as dictionary
+    entries: their codes carry order and identity, never the value."""
+    return isinstance(t, _NESTED) or _is_long_dec(t)
+
+
+def _no_codes(args: Sequence[Lowered], what: str) -> None:
+    """Arithmetic on codes would give numbers that mean nothing: raise at
+    compile time instead."""
+    for a in args:
+        if _codes_only(a.type):
+            raise NotImplementedError(f"{what} over {a.type}")
+
+
+def _long_dec_transform(col: Lowered, pyfn, out_type: Type,
+                        device) -> Lowered:
+    """Exact host transform over a long-decimal dictionary (python ints):
+    ``pyfn`` returns a scaled int at ``out_type``'s scale, or None (NULL,
+    e.g. a division by zero); the rows gather the new codes."""
+    vals = [pyfn(int(v)) for v in col.dictionary]
+    uniq = sorted({v for v in vals if v is not None} or {0})
+    pos = {v: i for i, v in enumerate(uniq)}
+    remap = torch.as_tensor(np.array([pos.get(v, 0) for v in vals],
+                                     dtype=np.int32), device=device)
+    entry_ok = np.array([v is not None for v in vals], dtype=bool)
+    ok_t = (None if entry_ok.all()
+            else torch.as_tensor(entry_ok, device=device))
+
+    def fn(cols: Cols):
+        codes, valid = col.fn(cols)
+        idx = codes.long()
+        if ok_t is not None:
+            valid = _and_valid(valid, ok_t[idx])
+        return remap[idx], valid
+
+    return Lowered(out_type, _object_array(uniq), fn)
+
+
+def _long_arith_value(name: str, va, sa, vb, sb, os: int):
+    """Exact scaled-int arithmetic on python ints, HALF_UP, under an
+    80-digit context (the default 28 digits would round wide decimals)."""
+    with decimal.localcontext() as ctx:
+        ctx.prec = 80
+        A = decimal.Decimal(va).scaleb(-sa)
+        B = decimal.Decimal(vb).scaleb(-sb)
+        if name in ("divide", "modulus") and B == 0:
+            return None
+        r = {"add": A.__add__, "subtract": A.__sub__, "multiply": A.__mul__,
+             "divide": A.__truediv__, "modulus": A.__mod__}[name](B)
+        return int(r.scaleb(os).quantize(0, rounding=decimal.ROUND_HALF_UP))
+
+
+def _numeric_literal(x: Lowered):
+    """The exact int of a numeric constant (a scaled int for decimals),
+    else None."""
+    if x.literal is None or is_string(x.type):
+        return None
+    return int(x.literal)
+
+
+def _long_arith(name: str, out_type: Type, a: Lowered, b: Lowered,
+                device) -> Lowered:
+    """Arithmetic with a long-decimal operand: one side a dictionary
+    column, the other a constant, computed per dictionary entry."""
+    if a.null_literal or b.null_literal:
+        # a NULL operand makes the whole expression NULL
+        dtype = torch_dtype(out_type.storage_dtype)
+
+        def fn_null(cols: Cols):
+            return (torch.zeros((), dtype=dtype, device=device),
+                    torch.zeros((), dtype=torch.bool, device=device))
+
+        return Lowered(out_type, _object_array([0]) if _is_long_dec(
+            out_type) else None, fn_null, null_literal=True)
+    os = _scale_of(out_type)
+    sa, sb = _scale_of(a.type), _scale_of(b.type)
+    la, lb = _numeric_literal(a), _numeric_literal(b)
+    if _is_long_dec(a.type) and a.dictionary is not None and lb is not None:
+        return _and_extra_valid(_long_dec_transform(
+            a, lambda v: _long_arith_value(name, v, sa, lb, sb, os),
+            out_type, device), [b])
+    if _is_long_dec(b.type) and b.dictionary is not None and la is not None:
+        return _and_extra_valid(_long_dec_transform(
+            b, lambda v: _long_arith_value(name, la, sa, v, sb, os),
+            out_type, device), [a])
+    raise NotImplementedError(
+        "long-decimal arithmetic between two columns is not supported "
+        "(dictionary-encoded int128 path; rewrite with a literal operand "
+        "or cast to double)")
+
+
 def _arith_handler(name: str):
     def handler(out_type: Type, args: list[Lowered], device) -> Lowered:
         a, b = args
         if _is_long_dec(a.type) or _is_long_dec(b.type) \
                 or _is_long_dec(out_type):
-            raise NotImplementedError("long-decimal arithmetic")
+            return _long_arith(name, out_type, a, b, device)
         out_dtype = torch_dtype(out_type.storage_dtype)
 
         def fn(cols: Cols):
@@ -277,6 +385,10 @@ def _arith_handler(name: str):
                                   else (zero & valid))
                 else:
                     data = av / torch.where(zero, 1.0, bv)
+                    if any(isinstance(x.type, DecimalType) or x.from_decimal
+                           for x in (a, b)):
+                        _record_error(DIVISION_BY_ZERO, zero if valid is None
+                                      else (zero & valid))
                 valid = _and_valid(valid, ~zero)
             else:  # modulus
                 zero = bv == 0
@@ -312,12 +424,20 @@ def _dicts_equal(a, b) -> bool:
     return a is b or (a.shape == b.shape and bool((a == b).all()))
 
 
-def _cmp_dict_literal(name: str, col: Lowered, lit_value: str) -> Lowered:
-    """Compare dictionary codes against a string literal using only the
+def _cmp_dict_literal(name: str, col: Lowered, lit_value) -> Lowered:
+    """Compare dictionary codes against a literal (a string, a long
+    decimal's scaled int, or an array / row / map tuple) using only the
     host-side sorted dictionary (order-correct by construction)."""
     d = col.dictionary
-    lo = int(np.searchsorted(d, lit_value, side="left"))
-    hi = int(np.searchsorted(d, lit_value, side="right"))
+    if isinstance(lit_value, tuple):
+        # numpy reads a tuple needle as an array of needles, and tuple
+        # entries sort by _canon_key: a linear scan (only eq / ne get here)
+        hits = [i for i, v in enumerate(d) if v == lit_value]
+        lo = hits[0] if hits else 0
+        hi = lo + 1 if hits else 0
+    else:
+        lo = int(np.searchsorted(d, lit_value, side="left"))
+        hi = int(np.searchsorted(d, lit_value, side="right"))
     present = lo < hi
 
     def fn(cols: Cols):
@@ -344,11 +464,20 @@ def _cmp_dict_literal(name: str, col: Lowered, lit_value: str) -> Lowered:
 def _cmp_handler(name: str):
     def handler(out_type: Type, args: list[Lowered], device) -> Lowered:
         a, b = args
-        if is_string(a.type) or is_string(b.type):
+        if any(isinstance(t, _NESTED) for t in (a.type, b.type)) \
+                and name not in ("eq", "ne"):
+            raise NotImplementedError("array/row/map ordering comparison")
+        codes_only = _codes_only(a.type) or _codes_only(b.type)
+        if is_string(a.type) or is_string(b.type) or codes_only:
+            # every such operand is dictionary codes: tuples and python
+            # ints compare as themselves, strings as str
+            def lit(x: Lowered):
+                return x.literal if codes_only else str(x.literal)
+
             if a.literal is not None and b.literal is None:
-                return _cmp_dict_literal(_FLIP[name], b, str(a.literal))
+                return _cmp_dict_literal(_FLIP[name], b, lit(a))
             if b.literal is not None and a.literal is None:
-                return _cmp_dict_literal(name, a, str(b.literal))
+                return _cmp_dict_literal(name, a, lit(b))
             if not _dicts_equal(a.dictionary, b.dictionary):
                 if name not in ("eq", "ne"):
                     raise NotImplementedError(
@@ -526,14 +655,17 @@ def _coalesce_handler(out_type, args, device):
 def _in_handler(out_type, args, device):
     col, *items = args
     if col.dictionary is not None:
-        vals = []
-        for it in items:
-            if it.literal is None:
-                raise NotImplementedError("IN over non-literal strings")
-            vals.append(str(it.literal))
-        mask = torch.as_tensor(
-            np.isin(col.dictionary, np.array(vals, dtype=object)),
-            device=device)
+        if any(it.literal is None for it in items):
+            raise NotImplementedError("IN over non-literal strings")
+        if _codes_only(col.type):
+            # tuples and python ints match as themselves, never as str
+            hit = {it.literal for it in items}
+            table = np.fromiter((v in hit for v in col.dictionary),
+                                dtype=bool, count=len(col.dictionary))
+        else:
+            table = np.isin(col.dictionary, np.array(
+                [str(it.literal) for it in items], dtype=object))
+        mask = torch.as_tensor(table, device=device)
 
         def fn(cols: Cols):
             codes, valid = col.fn(cols)
@@ -818,15 +950,114 @@ def _codepoint_handler(out_type, args, device):
 # casts and elementwise functions
 
 
+def _nested_repr_compatible(a: Type, b: Type) -> bool:
+    """True when two nested types hold the same python values in their
+    dictionaries (so the codes pass through a cast unchanged)."""
+    def kind(t: Type):
+        if isinstance(t, ArrayType):
+            return ("array", kind(t.element))
+        if isinstance(t, RowType):
+            return ("row", tuple(kind(ft) for _, ft in t.fields))
+        if isinstance(t, MapType):
+            return ("map", kind(t.key), kind(t.value))
+        if is_string(t):
+            return "str"
+        if isinstance(t, DecimalType):
+            return ("dec", t.scale)
+        k = np.dtype(t.storage_dtype).kind
+        return {"i": "int", "u": "int", "f": "float",
+                "b": "bool"}.get(k, t.name)
+
+    return kind(a) == kind(b)
+
+
+def _one_entry(out_type: Type, raw, a: Lowered, device) -> Lowered:
+    """A constant as a one-entry dictionary (code 0), keeping ``a``'s
+    validity."""
+    def fn(cols: Cols):
+        return (torch.zeros((), dtype=torch.int32, device=device),
+                a.fn(cols)[1])
+
+    return Lowered(out_type, _object_array([raw]), fn, raw)
+
+
+def _long_dec_cast(out_type, a: Lowered, device) -> Lowered:
+    """Casts to and from decimal(>18): dictionary transforms (exact python
+    ints); a device column cast to decimal(>18) raises, as in the
+    reference."""
+    src = a.type
+    ss, ds = _scale_of(src), _scale_of(out_type)
+    if _is_long_dec(out_type):
+        if a.literal is not None and not is_string(src):
+            return _one_entry(out_type,
+                              rescale_scaled_int(int(a.literal), ss, ds), a,
+                              device)
+        if _is_long_dec(src) and a.dictionary is not None:
+            return _long_dec_transform(
+                a, lambda v: rescale_scaled_int(v, ss, ds), out_type, device)
+        if is_string(src) and a.dictionary is not None:
+            # varchar -> decimal(38): an exact parse of every entry
+            vals = [_to_scaled_int(str(v), ds) for v in a.dictionary]
+            uniq = sorted(set(vals))
+            pos = {v: i for i, v in enumerate(uniq)}
+            remap = torch.as_tensor(np.array([pos[v] for v in vals],
+                                             dtype=np.int32), device=device)
+
+            def fn_vd(cols: Cols):
+                codes, valid = a.fn(cols)
+                return remap[codes.long()], valid
+
+            return Lowered(out_type, _object_array(uniq), fn_vd)
+        raise NotImplementedError(
+            "cast of a device-resident column to decimal(>18) "
+            "(dictionary-encoded int128 path) — cast to decimal(18,s) or "
+            "double instead")
+    if a.dictionary is None:
+        raise NotImplementedError("long-decimal column without dictionary")
+    if out_type.storage_dtype.kind == "f":
+        return _dict_scalar(a, lambda s: int(s) / (10.0 ** ss), out_type,
+                            device)
+    if is_string(out_type):
+        def fmt(s: str) -> str:
+            with decimal.localcontext() as ctx:
+                ctx.prec = 80
+                return str(decimal.Decimal(int(s)).scaleb(-ss))
+
+        return _dict_transform(a, fmt, VARCHAR, device)
+    if isinstance(out_type, DecimalType) or out_type.storage_dtype.kind == "i":
+        shift = ds if isinstance(out_type, DecimalType) else 0
+        return _dict_scalar(
+            a, lambda s: rescale_scaled_int(int(s), ss, shift), out_type,
+            device)
+    raise NotImplementedError(f"cast decimal(38) -> {out_type}")
+
+
 def _cast_handler(out_type, args, device):
     (a,) = args
     src = a.type
     if src == out_type or (is_string(src) and is_string(out_type)):
         return a
+    if isinstance(src, _NESTED) and isinstance(out_type, _NESTED):
+        # codes pass through only when the python values are the same
+        # (named vs anonymous row fields, integer widths); anything else
+        # (string -> number elements, array -> map) must not mistype
+        if _nested_repr_compatible(src, out_type):
+            return Lowered(out_type, a.dictionary, a.fn, a.literal,
+                           a.null_literal)
+        raise NotImplementedError(
+            f"cast {src} -> {out_type}: nested element conversion is not "
+            "supported")
     if _is_long_dec(src) or _is_long_dec(out_type):
-        raise NotImplementedError(f"cast {src} -> {out_type}")
+        return _long_dec_cast(out_type, a, device)
     ss, ds = _scale_of(src), _scale_of(out_type)
     out_dtype = torch_dtype(out_type.storage_dtype)
+    # the exact value of a constant passes through numeric casts, for the
+    # handlers that need a constant operand (long-decimal arithmetic)
+    literal = None
+    if (isinstance(a.literal, (int, np.integer)) and not is_string(src)
+            and (isinstance(out_type, DecimalType)
+                 or out_type.storage_dtype.kind == "i")):
+        literal = rescale_scaled_int(int(a.literal), ss, ds)
 
     def fn(cols: Cols):
         v, vv = a.fn(cols)
@@ -842,18 +1073,23 @@ def _cast_handler(out_type, args, device):
             else:
                 data = _decimal_rescale(v, ss, 0).to(out_dtype)
         elif src == DATE and out_type == TIMESTAMP:
-            data = v.to(torch.int64) * 86_400_000_000
+            data = v.to(torch.int64) * dt.MICROS_PER_DAY
+        elif src == TIMESTAMP and out_type == DATE:
+            data = torch.div(v, dt.MICROS_PER_DAY,
+                             rounding_mode="floor").to(torch.int32)
         elif out_type == BOOLEAN:
             data = v != 0
         else:
             data = v.to(out_dtype)
         return data, vv
 
-    return Lowered(out_type, None, fn)
+    return Lowered(out_type, None, fn, literal, from_decimal=isinstance(
+        src, DecimalType) or a.from_decimal)
 
 
 def _elementwise(tfn):
     def handler(out_type, args, device):
+        _no_codes(args, tfn.__name__)
         dtype = torch_dtype(out_type.storage_dtype)
 
         def fn(cols: Cols):
@@ -877,6 +1113,7 @@ def _round_handler(out_type, args, device):
     """round(x[, d]): DECIMAL half away from zero in scaled-int space;
     floats half to even (torch.round, as jnp.round); integers unchanged."""
     x = args[0]
+    _no_codes(args, "round")
     nd = _literal_int(args[1]) if len(args) > 1 else 0
 
     def fn(cols: Cols):
@@ -897,6 +1134,7 @@ def _round_handler(out_type, args, device):
 
 def _truncate_handler(out_type, args, device):
     (a,) = args
+    _no_codes(args, "truncate")
 
     def fn(cols: Cols):
         v, vv = a.fn(cols)
@@ -925,6 +1163,7 @@ def _variadic_minmax(tfn):
     """greatest / least: NULL if any argument is NULL (Trino)."""
 
     def handler(out_type, args, device):
+        _no_codes(args, "greatest / least")
         dtype = torch_dtype(out_type.storage_dtype)
 
         def fn(cols: Cols):
@@ -991,6 +1230,184 @@ def _days_field_handler(field_fn):
         return Lowered(out_type, None, fn)
 
     return handler
+
+
+# ---------------------------------------------------------------------------
+# array, map, row and JSON functions: a host table per dictionary entry
+# and a device gather (the reference's operator/scalar array functions,
+# ArraySubscript, JsonFunctions)
+
+
+def _require_dict(col: Lowered, what: str) -> None:
+    if col.dictionary is None:
+        raise NotImplementedError(f"{what} on non-dictionary array column")
+
+
+def _repeat_handler(out_type, args, device):
+    """repeat(element, count) -> array(T) (operator/scalar/
+    RepeatFunction.java): a dictionary element transforms entry by entry;
+    a literal builds a one-entry array dictionary."""
+    col = args[0]
+    n = max(_literal_int(args[1]), 0)
+    if col.dictionary is not None:
+        vals = _object_array([(v if isinstance(v, tuple) else str(v),) * n
+                              for v in col.dictionary])
+        newdict, remap = np.unique(vals, return_inverse=True)
+        remap_t = torch.as_tensor(remap.astype(np.int32), device=device)
+
+        def fn(cols: Cols):
+            codes, valid = col.fn(cols)
+            return remap_t[codes.long()], valid
+
+        return _and_extra_valid(Lowered(out_type, newdict, fn), args[1:])
+    if col.literal is not None:
+        raw = (col.literal,) * n
+
+        def fn_lit(cols: Cols):
+            return (torch.zeros((), dtype=torch.int32, device=device),
+                    col.fn(cols)[1])
+
+        return _and_extra_valid(
+            Lowered(out_type, _object_array([raw]), fn_lit), args[1:])
+    raise NotImplementedError(
+        "repeat element must be a dictionary column or literal")
+
+
+def _row_field_handler(out_type, args, device):
+    """ROW field access (sql/tree/DereferenceExpression): the field of
+    every row-dictionary entry, gathered by code."""
+    col = args[0]
+    _require_dict(col, "row field access")
+    fi = _literal_int(args[1])
+    return _table_lookup(col, [v[fi] if fi < len(v) else None
+                               for v in col.dictionary], out_type, device)
+
+
+def _map_element_at_handler(out_type, args, device):
+    """element_at(map, key): a lookup per entry (entries are key-sorted
+    pair tuples)."""
+    col, key = args[0], args[1]
+    _require_dict(col, "element_at(map)")
+    if key.literal is not None:
+        needle = key.literal
+    elif key.dictionary is not None and len(key.dictionary) == 1:
+        needle = str(key.dictionary[0])
+    else:
+        raise NotImplementedError("map key must be a literal")
+    return _and_extra_valid(_table_lookup(
+        col, [dict(v).get(needle) for v in col.dictionary], out_type,
+        device), args[1:])
+
+
+def _map_parts_handler(which: int):
+    def handler(out_type, args, device):
+        col = args[0]
+        _require_dict(col, "map_keys/map_values")
+        return _table_lookup(col, [tuple(p[which] for p in v)
+                                   for v in col.dictionary], out_type,
+                             device)
+
+    return handler
+
+
+def _cardinality_handler(out_type, args, device):
+    col = args[0]
+    _require_dict(col, "cardinality")
+    return _table_lookup(col, [len(v) for v in col.dictionary], BIGINT,
+                         device)
+
+
+def _element_at_dispatch(out_type, args, device):
+    if isinstance(args[0].type, MapType):
+        return _map_element_at_handler(out_type, args, device)
+    return _element_at_handler(out_type, args, device)
+
+
+def _element_at_handler(out_type, args, device):
+    col = args[0]
+    _require_dict(col, "element_at")
+    i = _literal_int(args[1])
+    if i == 0:
+        raise NotImplementedError("SQL array indexes are 1-based")
+
+    def pick(v):
+        j = i - 1 if i > 0 else len(v) + i
+        return v[j] if 0 <= j < len(v) else None
+
+    return _and_extra_valid(_table_lookup(
+        col, [pick(v) for v in col.dictionary], out_type, device), args[1:])
+
+
+def _array_needle(x: Lowered):
+    if x.literal is not None and not isinstance(x.type, DecimalType):
+        return x.literal
+    if x.dictionary is not None and len(x.dictionary) == 1:
+        return str(x.dictionary[0])
+    raise NotImplementedError("contains/array_position needle must be a "
+                              "non-decimal literal")
+
+
+def _contains_handler(out_type, args, device):
+    col = args[0]
+    _require_dict(col, "contains")
+    needle = _array_needle(args[1])
+    return _and_extra_valid(_table_lookup(
+        col, [needle in v for v in col.dictionary], BOOLEAN, device),
+        args[1:])
+
+
+def _array_position_handler(out_type, args, device):
+    col = args[0]
+    _require_dict(col, "array_position")
+    needle = _array_needle(args[1])
+
+    def pos(v):
+        try:
+            return v.index(needle) + 1
+        except ValueError:
+            return 0
+
+    return _and_extra_valid(_table_lookup(
+        col, [pos(v) for v in col.dictionary], BIGINT, device), args[1:])
+
+
+def _json_extract_handler(scalar: bool):
+    """json_extract[_scalar](json, '$.path'): the path evaluated once per
+    dictionary entry (ops/json_fns.py), gathered by code."""
+
+    def handler(out_type, args, device):
+        col = args[0]
+        if col.dictionary is None:
+            raise NotImplementedError(
+                "json function on non-dictionary column")
+        steps = parse_json_path(_literal_str(args[1]))
+        vals = []
+        for v in col.dictionary:
+            r = eval_json_path(str(v), steps)
+            if scalar:
+                vals.append(json_scalar_text(r))
+            else:
+                vals.append(None if r is None else json.dumps(r))
+        return _and_extra_valid(_table_lookup(col, vals, VARCHAR, device),
+                                args[1:])
+
+    return handler
+
+
+def _json_array_length_handler(out_type, args, device):
+    col = args[0]
+    if col.dictionary is None:
+        raise NotImplementedError("json function on non-dictionary column")
+
+    def length(v):
+        try:
+            doc = json.loads(str(v))
+        except (ValueError, TypeError):
+            return None
+        return len(doc) if isinstance(doc, list) else None
+
+    return _table_lookup(col, [length(v) for v in col.dictionary], BIGINT,
+                         device)
 
 
 HANDLERS: dict[str, Callable] = {
@@ -1079,6 +1496,17 @@ HANDLERS: dict[str, Callable] = {
     "rpad": _pad_handler(left=False),
     "translate": _translate_handler,
     "codepoint": _codepoint_handler,
+    "repeat": _repeat_handler,
+    "cardinality": _cardinality_handler,
+    "element_at": _element_at_dispatch,
+    "contains": _contains_handler,
+    "array_position": _array_position_handler,
+    "$row_field": _row_field_handler,
+    "map_keys": _map_parts_handler(0),
+    "map_values": _map_parts_handler(1),
+    "json_extract": _json_extract_handler(scalar=False),
+    "json_extract_scalar": _json_extract_handler(scalar=True),
+    "json_array_length": _json_array_length_handler,
 }
 
 
@@ -1095,17 +1523,29 @@ def _lower_literal(expr: Literal, device) -> Lowered:
             return (torch.zeros((), dtype=dtype, device=device),
                     torch.zeros((), dtype=torch.bool, device=device))
 
-        return Lowered(t, np.array([""], dtype=object) if is_string(t)
-                       else None, fn_null)
+        if isinstance(t, _NESTED):
+            d0 = _object_array([()])
+        elif _is_long_dec(t):
+            d0 = _object_array([0])
+        else:
+            d0 = np.array([""], dtype=object) if is_string(t) else None
+        return Lowered(t, d0, fn_null, null_literal=True)
+
+    def fn_code0(cols: Cols):
+        return torch.zeros((), dtype=torch.int32, device=device), None
+
     if is_string(t):
-        d = np.array([v], dtype=object)
-
-        def fn_str(cols: Cols):
-            return torch.zeros((), dtype=torch.int32, device=device), None
-
-        return Lowered(t, d, fn_str, v)
+        return Lowered(t, np.array([v], dtype=object), fn_code0, v)
     if _is_long_dec(t):
-        raise NotImplementedError("long-decimal literal")
+        raw = _to_scaled_int(v, t.scale)
+        return Lowered(t, _object_array([raw]), fn_code0, raw)
+    if isinstance(t, (RowType, MapType)):
+        raw = (tuple(sorted(v.items())) if isinstance(v, dict)
+               else tuple(v))
+        return Lowered(t, _object_array([raw]), fn_code0, raw)
+    if isinstance(t, ArrayType):
+        raw = tuple(v)
+        return Lowered(t, _object_array([raw]), fn_code0, raw)
     if isinstance(t, DecimalType):
         raw = _to_scaled_int(v, t.scale)
     elif t == DATE:

@@ -11,6 +11,12 @@ Tensors live on one device per batch.  Host numpy arrays handed to a
 constructor are wrapped with ``torch.from_numpy`` (zero-copy on the CPU);
 :meth:`ColumnBatch.to` moves a batch to the runner's device.
 
+Array, map and row columns and long decimals (precision > 18) are DICT
+columns too: their dictionaries hold python tuples (arrays, rows, maps as
+key-sorted pairs, ordered by :func:`_canon_key`) or python scaled ints
+(long decimals, numeric order), so comparisons, ORDER BY and GROUP BY on
+them run over the codes, as in the reference.
+
 Only the FLAT and DICT encodings of the reference exist here (RLE and LAZY
 are not ported yet), and there is no power-of-two padding: eager PyTorch
 does not recompile per shape.
@@ -26,11 +32,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .types import (BOOLEAN, DATE, DOUBLE, TIMESTAMP, DecimalType, Type,
-                    days_to_date, is_string)
+from .types import (BOOLEAN, DATE, DOUBLE, TIMESTAMP, ArrayType, DecimalType,
+                    MapType, RowType, Type, days_to_date, is_string)
 
 __all__ = ["Column", "ColumnBatch", "unify_dictionaries", "torch_dtype",
-           "as_tensor"]
+           "as_tensor", "encode_arrays", "encode_sorted_objects",
+           "rescale_scaled_int"]
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -59,6 +66,42 @@ def as_tensor(x, device=None) -> torch.Tensor:
         a = np.ascontiguousarray(a).copy()
     t = torch.from_numpy(a)
     return t if device is None else t.to(device)
+
+
+def _canon_key(v):
+    """Sort key of a tuple dictionary entry: lexicographic with NULL
+    elements last (a comparison must never meet None < x)."""
+    return tuple((e is None, e if e is not None else 0) for e in v)
+
+
+def _object_array(values) -> np.ndarray:
+    # np.array of equal-length tuples would build a 2-D array: fill by slot
+    out = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        out[i] = v
+    return out
+
+
+def encode_arrays(values: Sequence) -> tuple:
+    """Python sequences (None = NULL) -> (codes, valid, dictionary of
+    tuples sorted by :func:`_canon_key`)."""
+    filled = [tuple(v) if v is not None else () for v in values]
+    valid = np.array([v is not None for v in values], dtype=np.bool_)
+    uniq = sorted(set(filled), key=_canon_key)
+    pos = {v: i for i, v in enumerate(uniq)}
+    codes = np.array([pos[v] for v in filled], dtype=np.int32)
+    return codes, valid, _object_array(uniq)
+
+
+def encode_sorted_objects(values: Sequence, null_fill) -> tuple:
+    """Orderable python objects (long-decimal scaled ints; None = NULL) ->
+    (codes, valid, sorted dictionary)."""
+    valid = np.array([v is not None for v in values], dtype=np.bool_)
+    filled = [v if v is not None else null_fill for v in values]
+    uniq = sorted(set(filled))
+    pos = {v: i for i, v in enumerate(uniq)}
+    codes = np.array([pos[v] for v in filled], dtype=np.int32)
+    return codes, valid, _object_array(uniq)
 
 
 class Column:
@@ -111,17 +154,43 @@ class Column:
 
     @staticmethod
     def from_values(type_: Type, values: Sequence) -> "Column":
-        """A host column from python values (None = NULL); strings get a
-        sorted dictionary.  Array, map, row and long-decimal values are not
-        ported (NotImplementedError)."""
+        """A host column from python values (None = NULL).  Strings get a
+        sorted dictionary; arrays, rows and maps (as key-sorted pairs) a
+        tuple dictionary; long decimals a sorted dictionary of scaled
+        ints."""
+        if isinstance(type_, ArrayType):
+            return Column(type_, *encode_arrays(values))
+        if isinstance(type_, DecimalType) and type_.is_long:
+            scaled = [None if v is None else _to_scaled_int(v, type_.scale)
+                      for v in values]
+            return Column(type_, *encode_sorted_objects(scaled, 0))
+        if isinstance(type_, RowType):
+            return Column(type_, *encode_arrays(
+                [None if v is None else tuple(v) for v in values]))
+        if isinstance(type_, MapType):
+            return Column(type_, *encode_arrays(
+                [None if v is None else tuple(sorted(
+                    v.items() if isinstance(v, dict) else v))
+                 for v in values]))
+        if None not in values:  # no mask and no per-value fill
+            if is_string(type_):
+                # a set's sort: np.unique's object sort of a million
+                # values costs seconds
+                uniq = sorted(set(values))
+                pos = {v: i for i, v in enumerate(uniq)}
+                codes = np.fromiter(map(pos.__getitem__, values),
+                                    dtype=np.int32, count=len(values))
+                return Column(type_, codes, None, _object_array(uniq))
+            if not isinstance(type_, DecimalType) and \
+                    type_ not in (DATE, TIMESTAMP):
+                return Column(type_, np.asarray(values,
+                                                dtype=type_.storage_dtype))
         valid = np.array([v is not None for v in values], dtype=np.bool_)
         if is_string(type_):
             filled = np.array([v if v is not None else "" for v in values],
                               dtype=object)
             dictionary, codes = np.unique(filled, return_inverse=True)
             return Column(type_, codes.astype(np.int32), valid, dictionary)
-        if type_.is_dictionary_encoded:
-            raise NotImplementedError(f"{type_} values")
         if isinstance(type_, DecimalType):
             filled = [_to_scaled_int(v, type_.scale) if v is not None else 0
                       for v in values]
@@ -140,9 +209,24 @@ class Column:
         data = self.data.cpu().numpy()
         valid = self.valid_mask().cpu().numpy()
         t = self.type
+        d = self.dictionary
         out: list = []
-        if t.is_dictionary_encoded:
-            d = self.dictionary
+        if isinstance(t, ArrayType):
+            for i in range(len(data)):
+                out.append(list(d[data[i]]) if valid[i] else None)
+        elif isinstance(t, DecimalType) and t.is_long:
+            with decimal.localcontext() as ctx:
+                ctx.prec = 80  # the default 28 digits round wide values
+                for i in range(len(data)):
+                    out.append(decimal.Decimal(int(d[data[i]])).scaleb(
+                        -t.scale) if valid[i] else None)
+        elif isinstance(t, RowType):
+            for i in range(len(data)):
+                out.append(tuple(d[data[i]]) if valid[i] else None)
+        elif isinstance(t, MapType):
+            for i in range(len(data)):
+                out.append(dict(d[data[i]]) if valid[i] else None)
+        elif t.is_dictionary_encoded:
             for i in range(len(data)):
                 out.append(str(d[data[i]]) if valid[i] else None)
         elif isinstance(t, DecimalType):
@@ -184,6 +268,17 @@ def _to_micros(v) -> int:
     raise TypeError(f"cannot convert {type(v).__name__} to timestamp")
 
 
+def rescale_scaled_int(v: int, fs: int, ds: int) -> int:
+    """Exact scaled-int rescale from scale ``fs`` to ``ds``, HALF_UP
+    (python ints under an 80-digit context)."""
+    if ds >= fs:
+        return v * 10 ** (ds - fs)
+    with decimal.localcontext() as ctx:
+        ctx.prec = 80
+        return int(decimal.Decimal(v).scaleb(ds - fs).quantize(
+            0, rounding=decimal.ROUND_HALF_UP))
+
+
 def _to_scaled_int(v, scale: int) -> int:
     """Exact conversion to a scaled int64 (never through float64 for exact
     inputs — int/str/Decimal keep full 18-digit precision)."""
@@ -214,16 +309,23 @@ def unify_dictionaries(columns: Sequence[Column]) -> list[Column]:
              for c in columns]
     if all(_same_dictionary(d, dicts[0]) for d in dicts):
         return list(columns)
-    merged = np.unique(np.concatenate(dicts))
+    if any(len(d) and isinstance(d[0], tuple) for d in dicts):
+        # tuples holding None do not sort in numpy: merge by _canon_key
+        merged_list = sorted({x for d in dicts for x in d}, key=_canon_key)
+        pos = {v: i for i, v in enumerate(merged_list)}
+        merged = _object_array(merged_list)
+        remaps = [np.array([pos[v] for v in d], dtype=np.int32)
+                  for d in dicts]
+    else:
+        merged = np.unique(np.concatenate(dicts))
+        remaps = [np.searchsorted(merged, d).astype(np.int32) for d in dicts]
     out = []
-    for c, d in zip(columns, dicts):
+    for c, d, remap in zip(columns, dicts, remaps):
         if not len(d):
             data = torch.zeros(len(c), dtype=torch.int32,
                                device=c.data.device)
         else:
-            remap = as_tensor(np.searchsorted(merged, d).astype(np.int32),
-                              c.data.device)
-            data = remap[c.data.long()]
+            data = as_tensor(remap, c.data.device)[c.data.long()]
         out.append(Column(c.type, data, c.valid, merged))
     return out
 

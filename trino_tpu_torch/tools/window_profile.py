@@ -1,18 +1,20 @@
-"""Device time of the window queries on one card, by operation.
+"""Device time of a query set on one card, by operation.
 
 Run from the repository root:
-    python -m trino_tpu_torch.tools.window_profile [W2 W6 ...]
+    python -m trino_tpu_torch.tools.window_profile [--set windows|nested]
+        [NAME ...]
 
-Stages the TPC-H tables at SF 1 on the card, runs each named query of
-``connectors/window_queries.py`` (default: all eight) once to warm it,
-five more times without the profiler, then once under ``torch.profiler``,
-each run with the device synchronized at its end.  For each query it
-prints the median wall ms of the unprofiled runs (the profiler's own host
-work would inflate the wall of the traced one, which is printed beside
-it), the summed device time of the traced run's kernels, the share of the
-median unprofiled wall the device was idle (one stream: kernels do not
-overlap), and the operations that took the most device time.  Needs a
-CUDA card.
+Stages the TPC-H tables at SF 1 on the card (for the ``nested`` set also
+``orders_nested``, connectors/nested_queries.py), runs each named query of
+the set (default: the window queries of ``connectors/window_queries.py``,
+all of them) once to warm it, five more times without the profiler, then
+once under ``torch.profiler``, each run with the device synchronized at
+its end.  For each query it prints the median wall ms of the unprofiled
+runs (the profiler's own host work would inflate the wall of the traced
+one, which is printed beside it), the summed device time of the traced
+run's kernels, the share of the median unprofiled wall the device was
+idle (one stream: kernels do not overlap), and the operations that took
+the most device time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -25,12 +27,27 @@ import torch
 
 from ..connectors.catalog import default_catalog
 from ..connectors.staging import stage_memory_tables
-from ..connectors.window_queries import WINDOW_QUERIES
 from ..runner import StandaloneQueryRunner
 
-TABLES = ("nation", "region", "supplier", "orders", "lineitem")
 TOP = 12
 WALL_RUNS = 5
+
+
+def query_set(name: str) -> tuple:
+    """(queries, tables to stage, set-up after staging) of a query set."""
+    if name == "windows":
+        from ..connectors.window_queries import WINDOW_QUERIES
+
+        return (WINDOW_QUERIES,
+                ("nation", "region", "supplier", "orders", "lineitem"),
+                None)
+    if name == "nested":
+        from ..connectors.nested_queries import (NESTED_QUERIES,
+                                                 build_orders_nested)
+
+        return (NESTED_QUERIES, ("orders", "lineitem", "customer", "part"),
+                build_orders_nested)
+    raise ValueError(f"unknown query set {name!r}")
 
 
 def _device_us(evt) -> float:
@@ -78,16 +95,23 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("window_profile: CUDA is not available", file=sys.stderr)
         return 2
-    names = argv or list(WINDOW_QUERIES)
+    set_name = "windows"
+    if argv[:1] == ["--set"]:
+        set_name, argv = argv[1], argv[2:]
+    queries, tables, setup = query_set(set_name)
+    names = argv or list(queries)
     cat = default_catalog(1.0)
-    stage_memory_tables(cat, TABLES, "cuda")
+    stage_memory_tables(cat, tables, "cuda")
+    if setup is not None:
+        setup(cat, "cuda")
     runner = StandaloneQueryRunner(cat, device="cuda",
                                    default_catalog_name="memory",
                                    splits_per_node=1)
     for name in names:
-        wall, traced, busy, ops = profile(runner, WINDOW_QUERIES[name])
-        print(f"{name}: median wall {wall:.2f} ms (traced {traced:.2f} ms), device "
-              f"busy {busy:.2f} ms, idle {1 - busy / wall:.1%}", flush=True)
+        wall, traced, busy, ops = profile(runner, queries[name])
+        print(f"{name}: median wall {wall:.2f} ms (traced {traced:.2f} ms), "
+              f"device busy {busy:.2f} ms, idle {1 - busy / wall:.1%}",
+              flush=True)
         for key, ms, calls in ops[:TOP]:
             print(f"  {ms:9.3f} ms  {calls:6d} calls  {key}", flush=True)
     return 0
