@@ -4,8 +4,11 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10, 11, 12, 13, 6, 9, so the kernel phase holds the
-staged, surface, window and nested paths' calls too).  Every runner but phase 10's legacy one plans with the port's
+the order 1-5, 7, 8, 10, 11, 12, 13, 14, 6, 9, so the kernel phase holds
+the staged, surface, window and nested paths' calls too).  The tpch path
+runs the runner's default scan: dynamic filters, split prefetch threads,
+coalescing into pinned buffers with side-stream copies, RLE / LAZY
+columns.  Every runner but phase 10's legacy one plans with the port's
 default optimizer, the iterative one:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from trino_tpu_torch/csrc/*.cu (nvcc, sm_90a);
@@ -85,7 +88,21 @@ default optimizer, the iterative one:
      Unnest and HashAggregation shares); device busy time of one traced
      run of each (torch.profiler) against its unprofiled warm wall: the
      idle, host share; and N1-N11 at SF 0.1 on cuda and on cpu, rows
-     equal.
+     equal;
+ 14. ingest: the rows dynamic filters pruned and the bytes copied to the
+     card by each of the 24 tpch-path queries (phase 3's cold runs); warm
+     ms of Q1, Q3, Q5, Q12, Q17, Q18 and Q21 under the default,
+     dynamic_filtering=False, IngestConfig(enabled=False) and
+     encoded_exec=False in one process, rows equal; one traced warm run of
+     Q1 and Q21 with ingest on and off (torch.profiler): device busy ms,
+     the idle share of the unprofiled warm wall, and host-to-device bytes
+     by copy kind, pinned against pageable; it fails if more than 1 % of
+     Q1's scan bytes cross from pageable memory with ingest on; and a
+     build of more than 65,536 keys whose domain the tpch path derives on
+     the card, against the host domain of the same keys; then the staged
+     path's 24 queries with ingest on and off, in turns (its batches skip
+     the new path).  It prints os.cpu_count() and the prefetch thread
+     count.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -647,20 +664,28 @@ SF10_TABLES = ("customer", "orders", "lineitem")
 
 
 def run_path(torch, GK, runner, sqls: dict, label: str,
-             required: dict = REQUIRED, exact: bool = False) -> tuple:
+             required: dict = REQUIRED, exact: bool = False,
+             scans: dict = None) -> tuple:
     """Every query cold then warm: rows, (cold ms, warm ms, peak MiB) and
     kernel launches per query; fails if a query misses a kernel that
     ``required`` names for it (on the main path, REQUIRED names every
-    kernel), and with ``exact`` also if it launches one not named."""
+    kernel), and with ``exact`` also if it launches one not named.  With
+    ``scans`` (a dict) the cold run collects QueryStats and ``scans[name]``
+    gets its scan roll-up (rows pruned, bytes copied to the card)."""
+    from trino_tpu_torch.exec.stats import QueryStats
+
     rows, timings, per_query = {}, {}, {}
     t_path = time.perf_counter()
     GK.reset_launch_counts()
     for name, sql in sqls.items():
         before = dict(GK.LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
+        st = QueryStats() if scans is not None else None
         t0 = time.perf_counter()
-        runner.execute(sql)
+        runner.execute(sql, stats=st)
         torch.cuda.synchronize()
+        if st is not None:
+            scans[name] = st.scan
         cold = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         res = runner.execute(sql)
@@ -1351,6 +1376,184 @@ def nested(torch, GK, QueryStats, StandaloneQueryRunner, default_catalog,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the scan ingest path on the tpch path
+
+
+INGEST_QUERIES = ("Q1", "Q3", "Q5", "Q12", "Q17", "Q18", "Q21")
+INGEST_PROFILE = ("Q1", "Q21")
+PAGEABLE_LIMIT = 0.01  # pageable share of Q1's scan bytes, ingest on
+PINNED = "Memcpy HtoD (Pinned -> Device)"
+PAGEABLE = "Memcpy HtoD (Pageable -> Device)"
+
+
+def _host_domain(data, valid, live, dict_len: int) -> tuple:
+    """The plain numpy domain of build keys: (count, non-NaN count, min,
+    max, presence per dictionary code)."""
+    ok = np.ones(data.shape[0], bool)
+    for m in (valid, live):
+        if m is not None:
+            ok &= m
+    keys = data[ok]
+    cnt = int(keys.size)
+    if keys.dtype.kind == "f":
+        keys = keys[~np.isnan(keys)]
+    presence = np.zeros(dict_len, bool)
+    if dict_len:
+        presence[np.unique(keys)] = True
+    lo, hi = (keys.min(), keys.max()) if keys.size else (None, None)
+    return cnt, int(keys.size), lo, hi, presence
+
+
+def ingest(torch, StandaloneQueryRunner, catalog, sqls: dict,
+           scans: dict, staged_cat) -> None:
+    """Phase 14: the tpch path's scan ingest at SF 1.  The rows pruned and
+    the bytes copied to the card per query (phase 3's cold runs); warm ms
+    of INGEST_QUERIES under four settings in one process, rows equal; one
+    traced warm run of Q1 and Q21 with ingest on and off (device busy ms,
+    idle share of the unprofiled warm wall, host-to-device bytes by copy
+    kind); fails if more than PAGEABLE_LIMIT of Q1's scan bytes cross from
+    pageable memory with ingest on; and the first build of more than
+    65,536 keys whose domain fill_device derives on the card, against the
+    host domain of the same keys.  Last, the staged path (device-resident
+    batches, which skip the new path) with the default ingest against
+    IngestConfig(enabled=False), in turns (on, off, off, on), rows equal."""
+    import os
+
+    from trino_tpu_torch.exec import dynamic_filter as DF
+    from trino_tpu_torch.exec.kernels import _device_domain
+    from trino_tpu_torch.exec.prefetch import IngestConfig
+    from trino_tpu_torch.exec.stats import QueryStats
+    from trino_tpu_torch.tools.window_profile import trace
+
+    t_phase = time.perf_counter()
+    label = f"ingest SF{PATH_SF:g}"
+    log(f"{label}: os.cpu_count() {os.cpu_count()}, prefetch threads "
+        f"{IngestConfig().threads}")
+    for name in sqls:
+        sc = scans[name]
+        log(f"{label} {name}: rows pruned by dynamic filters "
+            f"{sc.rows_pruned}, host-to-device bytes {sc.h2d_bytes} (scan "
+            f"{sc.scan_rows} rows, {sc.scan_bytes} bytes, "
+            f"{sc.scan_batches} batches -> {sc.coalesced_batches} "
+            f"coalesced, {sc.splits_opened} splits)")
+    log(f"{label}: {sum(s.rows_pruned for s in scans.values())} rows pruned"
+        f", {sum(s.h2d_bytes for s in scans.values())} bytes to the card "
+        f"for the {len(scans)} queries")
+
+    settings = {"default": {},
+                "dynamic_filtering=False": {"dynamic_filtering": False},
+                "IngestConfig(enabled=False)": {
+                    "ingest": IngestConfig(enabled=False)},
+                "encoded_exec=False": {"encoded_exec": False}}
+    runners = {k: StandaloneQueryRunner(catalog, device="cuda", **kw)
+               for k, kw in settings.items()}
+    walls, big = {}, {}
+    fill_device = DF.DynamicFilterHolder.fill_device
+
+    def spy(holder, data, valid, live, dictionary):
+        if not big and data.shape[0] > DF.MAX_DISTINCT_SET:
+            big.update(data=data.clone(), valid=valid, live=live,
+                       dict_len=0 if dictionary is None else len(dictionary))
+        return fill_device(holder, data, valid, live, dictionary)
+
+    DF.DynamicFilterHolder.fill_device = spy
+    try:
+        for name in INGEST_QUERIES:
+            want, cells = None, []
+            for setting, r in runners.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = r.execute(sqls[name])
+                torch.cuda.synchronize()
+                walls[(name, setting)] = (time.perf_counter() - t0) * 1e3
+                rows = res.rows()
+                if want is None:
+                    want = rows
+                else:
+                    same_rows(rows, want, f"{label} {name} {setting} vs "
+                              "default", DOUBLE_RTOL)
+                cells.append(f"{setting} {walls[(name, setting)]:.1f}")
+            log(f"{label} {name} warm ms: {', '.join(cells)}; "
+                f"{len(want)} rows equal under all four (doubles rtol "
+                f"{DOUBLE_RTOL:g})")
+    finally:
+        DF.DynamicFilterHolder.fill_device = fill_device
+
+    for name in INGEST_PROFILE:
+        for setting in ("default", "IngestConfig(enabled=False)"):
+            st = QueryStats()
+            traced, busy, ops, htod = trace(runners[setting], sqls[name],
+                                            stats=st)
+            wall = walls[(name, setting)]
+            pinned, pageable = htod.get(PINNED, 0), htod.get(PAGEABLE, 0)
+            log(f"{label} {name} [{setting}]: device busy {busy:.2f} ms of "
+                f"{wall:.2f} ms warm wall (traced {traced:.2f} ms): idle "
+                f"{1 - busy / wall:.1%}; host-to-device {pinned} bytes "
+                f"pinned, {pageable} pageable, other kinds "
+                f"{ {k: v for k, v in htod.items() if k not in (PINNED, PAGEABLE)} }"
+                f"; scan bytes to the card {st.scan.h2d_bytes}")
+            log(f"{label} {name} [{setting}] most device time: " + "; ".join(
+                f"{key} {ms:.3f} ms x{calls}" for key, ms, calls in ops[:5]))
+            if busy <= 0:
+                raise AssertionError(f"{label} {name}: no device time traced")
+            if name == "Q1" and setting == "default":
+                if not st.scan.h2d_bytes:
+                    raise AssertionError(f"{label} Q1: the scan copied "
+                                         "nothing to the card")
+                share = pageable / st.scan.h2d_bytes
+                log(f"{label} Q1: pageable copies {share:.3%} of the scan's "
+                    f"{st.scan.h2d_bytes} bytes (limit {PAGEABLE_LIMIT:.0%})")
+                if share > PAGEABLE_LIMIT:
+                    raise AssertionError(
+                        f"{label} Q1: {share:.2%} of the scan bytes crossed "
+                        "from pageable memory: staging missed the pinned "
+                        "side-stream route")
+
+    if not big:
+        raise AssertionError(f"{label}: no build of more than "
+                             f"{DF.MAX_DISTINCT_SET} keys reached fill_device")
+    got = _device_domain(big["data"], big["valid"], big["live"],
+                         big["dict_len"]).result()
+    host = [None if big[k] is None else big[k].cpu().numpy()
+            for k in ("data", "valid", "live")]
+    want = _host_domain(*host, big["dict_len"])
+    same = (got[:2] == want[:2] and np.array_equal(got[4], want[4])
+            and (want[1] == 0 or (got[2] == want[2] and got[3] == want[3])))
+    log(f"{label}: device domain of a {big['data'].shape[0]}-key build "
+        f"(dictionary of {big['dict_len']}): count {got[0]}, non-NaN "
+        f"{got[1]}, min {got[2]}, max {got[3]}; host domain {want[:4]}")
+    if not same:
+        raise AssertionError(f"{label}: device domain {got[:4]} != host "
+                             f"domain {want[:4]}")
+
+    staged = {on: StandaloneQueryRunner(
+        staged_cat, device="cuda", default_catalog_name="memory",
+        splits_per_node=1, ingest=IngestConfig(enabled=on))
+        for on in (True, False)}
+    total = {True: 0.0, False: 0.0}
+    for name, sql in sqls.items():
+        ms = {True: [], False: []}
+        rows = {}
+        for on in (True, False, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows[on] = staged[on].execute(sql).rows()
+            torch.cuda.synchronize()
+            ms[on].append((time.perf_counter() - t0) * 1e3)
+        rtol = KERNEL_VS_F64_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+        same_rows(rows[True], rows[False], f"staged {name} ingest on vs off",
+                  rtol)
+        mean = {on: sum(v) / 2 for on, v in ms.items()}
+        total[True] += mean[True]
+        total[False] += mean[False]
+        log(f"{label} staged {name}: ingest on {mean[True]:.1f} ms, off "
+            f"{mean[False]:.1f} ms (means of two warm runs in turns)")
+    log(f"{label} staged path: {total[True]:.1f} ms with ingest on, "
+        f"{total[False]:.1f} ms off, for the {len(sqls)} queries")
+    log(f"ingest: {time.perf_counter() - t_phase:.1f} s for phase 14")
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -1453,8 +1656,9 @@ def main() -> int:
 
     # -- 3. path: SF 1 on cuda ---------------------------------------------
     runner = StandaloneQueryRunner(default_catalog(PATH_SF), device="cuda")
+    scans: dict = {}
     path_rows, _, launches = run_path(torch, GK, runner, sqls,
-                                      f"path SF{PATH_SF:g}")
+                                      f"path SF{PATH_SF:g}", scans=scans)
     t0 = time.perf_counter()
     read1 = host_reader(runner.catalog.connector("tpch"))
     numpy_rows = {}
@@ -1535,6 +1739,10 @@ def main() -> int:
     # -- 13. nested types, long decimals, JSON, table functions ------------
     nested_launches = nested(torch, GK, QueryStats, StandaloneQueryRunner,
                              default_catalog, staged_cat)
+
+    # -- 14. the scan ingest path on the tpch path --------------------------
+    ingest(torch, StandaloneQueryRunner, runner.catalog, sqls, scans,
+           staged_cat)
 
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is

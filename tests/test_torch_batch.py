@@ -60,7 +60,8 @@ def test_numpy_roundtrip_and_compact():
     valids = [rng.random(n) < 0.8, None, None, rng.random(n) < 0.5]
     dicts = [None, None, np.array(["a", "b", "c"], object), None]
     live = rng.random(n) < 0.6
-    b = batch_from_numpy(names, types, datas, valids, dicts, live)
+    b = batch_from_numpy(names, types, datas, valids, dicts, live,
+                         device="cpu")
     names2, types2, datas2, valids2, dicts2, live2 = batch_to_numpy(b)
     assert names2 == names and types2 == types
     for a, c in zip(datas, datas2):

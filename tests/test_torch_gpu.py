@@ -389,3 +389,108 @@ def test_queries_equal_on_cuda_and_cpu(cuda):
             assert all(x == pytest.approx(y, rel=1e-9)
                        if isinstance(y, float) else x == y
                        for x, y in zip(a, b)), (q, a, b)
+
+
+# ---------------------------------------------------------------------------
+# scan ingest on the card: pinned buffers, the side stream, the device domain
+
+def _staged_batches(rng, n_batches: int):
+    """Seeded host batches of varied sizes: int64, float64 with NULLs and
+    a constant (RLE) column."""
+    from trino_tpu_torch.spi.batch import Column, ColumnBatch
+    from trino_tpu_torch.spi.types import BIGINT, DOUBLE
+
+    out = []
+    for _ in range(n_batches):
+        n = int(rng.integers(1000, 40_000))
+        out.append(ColumnBatch(["a", "b", "c"], [
+            Column(BIGINT, rng.integers(-10**9, 10**9, n)),
+            Column(DOUBLE, rng.normal(size=n), rng.random(n) < 0.9),
+            Column(BIGINT, np.full(n, int(rng.integers(0, 5)), np.int64))]))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lazy", [(), (1,)])
+def test_staged_batches_equal_host_values(cuda, lazy):
+    """200 seeded batches through the coalescer's pinned buffers and the
+    side-stream copies, each consumed by a device op on the default stream
+    while later copies are in flight: every value equals the host's (a
+    missing event wait or record_stream shows as torn values)."""
+    from trino_tpu_torch.exec.prefetch import BatchCoalescer, DeviceStager
+
+    rng = np.random.default_rng(10)
+    host = _staged_batches(rng, 200)
+    stager = DeviceStager("cuda", lazy_channels=lazy)
+    coal = BatchCoalescer(1, alloc=stager.alloc)  # one batch per flush
+    sums, pending = [], None
+    for b in host:
+        coal.add(b)
+        staged, event = stager.stage(*coal.flush())
+        if pending is not None:  # consume the previous batch now
+            pb, pe = pending
+            stager.ready(pe)
+            sums.append(torch.stack([
+                (pb.columns[0].data * 3 + 1).sum().double(),
+                torch.where(pb.columns[1].valid, pb.columns[1].data,
+                            0.0).sum(),
+                pb.columns[2].data.double().sum()]))
+        pending = (staged, event)
+    stager.ready(pending[1])
+    pb = pending[0]
+    sums.append(torch.stack([
+        (pb.columns[0].data * 3 + 1).sum().double(),
+        torch.where(pb.columns[1].valid, pb.columns[1].data, 0.0).sum(),
+        pb.columns[2].data.double().sum()]))
+    got = torch.stack(sums).cpu().numpy()
+    for row, b in zip(got, host):
+        a = b.columns[0].data.numpy()
+        assert row[0] == float((a * 3 + 1).sum())
+        v = b.columns[1].valid.numpy()
+        assert row[1] == pytest.approx(b.columns[1].data.numpy()[v].sum(),
+                                       rel=1e-12)
+        assert row[2] == float(b.columns[2].data.numpy().sum())
+    assert stager.pool.reused > 0
+
+
+@pytest.mark.gpu
+def test_pinned_buffers_reused_only_after_their_event(cuda):
+    from trino_tpu_torch.exec.prefetch import PinnedBufferPool
+
+    pool = PinnedBufferPool()
+    buf = pool.acquire(torch.int64, 1000)
+    assert buf.is_pinned()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # keep the stream busy
+        event = torch.cuda.Event()
+        event.record(side)
+    pool.release(buf, event)
+    assert not event.query()
+    other = pool.acquire(torch.int64, 1000)
+    assert other.data_ptr() != buf.data_ptr()  # still in flight: a new one
+    event.synchronize()
+    again = pool.acquire(torch.int64, 1000)
+    assert again.data_ptr() == buf.data_ptr() and pool.reused == 1
+
+
+@pytest.mark.gpu
+def test_device_domain_on_card_equals_cpu(cuda):
+    from trino_tpu_torch.exec.kernels import _device_domain
+
+    rng = np.random.default_rng(3)
+    n = 300_000
+    for data, valid, live, dict_len in (
+            (rng.integers(-10**12, 10**12, n), rng.random(n) < 0.9,
+             rng.random(n) < 0.7, 0),
+            (np.where(rng.random(n) < 0.01, np.nan, rng.normal(size=n)),
+             None, rng.random(n) < 0.7, 0),
+            (rng.integers(0, 900, n).astype(np.int32), None,
+             rng.random(n) < 0.5, 1000)):
+        t = [None if x is None else torch.from_numpy(x)
+             for x in (data, valid, live)]
+        cpu = _device_domain(*t, dict_len).result()
+        gpu = _device_domain(*[None if x is None else x.cuda() for x in t],
+                             dict_len).result()
+        assert cpu[:2] == gpu[:2] and cpu[2] == gpu[2] and cpu[3] == gpu[3]
+        np.testing.assert_array_equal(cpu[4], gpu[4])

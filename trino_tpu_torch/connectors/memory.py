@@ -177,6 +177,11 @@ class MemoryConnector(Connector):
             if bounds[i + 1] > bounds[i] or n == 0 and i == 0
         ]
 
+    def is_resident(self, table: str) -> bool:
+        with self._lock:
+            n = len(self._data.get(table, []))
+            return n > 0 and self._pinned_batches.get(table, 0) == n
+
     def create_page_source(self, split: Split, columns: Sequence[str],
                            constraint=None) -> ConnectorPageSource:
         lo, hi = split.info

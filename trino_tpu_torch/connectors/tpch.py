@@ -24,6 +24,7 @@ lineitem/orders are ranges of *orders* so each split carries whole orders.
 from __future__ import annotations
 
 import datetime
+import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -272,7 +273,11 @@ class TpchConnector(Connector):
         self.sf = scale_factor
         self.batch_rows = batch_rows
         self._dict_cache: dict[tuple[str, str], np.ndarray] = {}
-        self._building: set[tuple[str, str]] = set()
+        # scans' prefetch threads generate concurrently: one thread builds
+        # a global dictionary while the others wait for it, and only that
+        # thread's own generation encodes locally (per-thread set)
+        self._dict_lock = threading.RLock()
+        self._local = threading.local()
         # vocab index -> sorted-dictionary code, per string column (the host
         # twin of the reference device generator): batch decode becomes ONE
         # integer gather instead of materializing python strings and binary-
@@ -364,14 +369,26 @@ class TpchConnector(Connector):
         if not t.is_dictionary_encoded:
             return None
         key = (table, column)
-        if key not in self._dict_cache:
-            self._building.add(key)
-            try:
-                values = self._string_values(table, column)
-            finally:
-                self._building.discard(key)
-            self._dict_cache[key] = np.unique(values)
+        if key in self._dict_cache:
+            return self._dict_cache[key]
+        with self._dict_lock:
+            if key not in self._dict_cache:
+                building = self._building
+                building.add(key)
+                try:
+                    values = self._string_values(table, column)
+                finally:
+                    building.discard(key)
+                self._dict_cache[key] = np.unique(values)
         return self._dict_cache[key]
+
+    @property
+    def _building(self) -> set:
+        """The dictionaries this thread is building."""
+        b = getattr(self._local, "building", None)
+        if b is None:
+            b = self._local.building = set()
+        return b
 
     # ---- generation -----------------------------------------------------
     def _string_values(self, table: str, column: str) -> np.ndarray:

@@ -3,7 +3,9 @@
 The port of the reference ``exec/driver.py`` (operator/Driver.java:372 —
 ``page = current.getOutput(); next.addInput(page)`` per adjacent pair,
 finish propagation, early close on satisfied LIMITs).  Single-threaded:
-pipelines run in dependency order, build sides first.
+pipelines run in dependency order, build sides first (the scans' prefetch
+threads are the only others, and every one has ended when
+:func:`run_pipelines` returns or raises).
 """
 
 from __future__ import annotations
@@ -15,10 +17,42 @@ import torch
 
 from ..ops.expr import check_error_scalars
 from ..spi.errors import GENERIC_INTERNAL_ERROR, TrinoError
-from .operators import Operator
-from .stats import OperatorStats, PipelineStats, QueryStats
+from .operators import Operator, ScanOperator
+from .stats import (EncodingStats, OperatorStats, PipelineStats, QueryStats,
+                    ScanIngestStats)
 
-__all__ = ["Driver", "run_pipelines"]
+__all__ = ["Driver", "run_pipelines", "collect_scan_stats",
+           "collect_encoding_stats"]
+
+
+def collect_scan_stats(pipelines: Sequence[Sequence[Operator]]
+                       ) -> Optional[ScanIngestStats]:
+    """Roll up the ScanOperators' ingest counters (None if no scan read a
+    batch)."""
+    total: Optional[ScanIngestStats] = None
+    for p in pipelines:
+        for op in p:
+            ingest = getattr(op, "ingest_stats", None)
+            if ingest is not None and ingest.scan_batches:
+                if total is None:
+                    total = ScanIngestStats()
+                total.merge(ingest)
+    return total
+
+
+def collect_encoding_stats(pipelines: Sequence[Sequence[Operator]]
+                           ) -> Optional[EncodingStats]:
+    """Roll up the operators' compressed-execution counters (None when no
+    operator saw an encoded batch)."""
+    total: Optional[EncodingStats] = None
+    for p in pipelines:
+        for op in p:
+            enc = getattr(op, "encoding_stats", None)
+            if enc is not None and (enc.any or enc.lazy_materialized):
+                if total is None:
+                    total = EncodingStats()
+                total.merge(enc)
+    return total
 
 
 class Driver:
@@ -88,13 +122,21 @@ def run_pipelines(pipelines: Sequence[Sequence[Operator]],
                   stats: Optional[QueryStats] = None) -> None:
     """Execute pipelines in dependency order, then raise any deferred
     expression error (one batched fetch over every operator's scalars)."""
-    for p in pipelines:
-        ps = None
-        if stats is not None:
-            ps = PipelineStats()
-            stats.pipelines.append(ps)
-        Driver(p, ps, sync=stats is not None and stats.sync).run()
+    try:
+        for p in pipelines:
+            ps = None
+            if stats is not None:
+                ps = PipelineStats()
+                stats.pipelines.append(ps)
+            Driver(p, ps, sync=stats is not None and stats.sync).run()
+    finally:
+        for p in pipelines:
+            for op in p:
+                if isinstance(op, ScanOperator):
+                    op.shutdown()
     if stats is not None:
         stats.read_counts()
+        stats.scan = collect_scan_stats(pipelines)
+        stats.encoding = collect_encoding_stats(pipelines)
     check_error_scalars([e for p in pipelines for op in p
                          for e in getattr(op, "pending_errors", ())])

@@ -39,11 +39,21 @@ from ..ops import gpu_kernels as GK
 
 __all__ = ["DeviceJoinTable", "JoinHashTable", "build_table",
            "probe_ranges_device", "run_pairs", "run_unique", "semi_mark",
-           "probe_key_remap"]
+           "probe_key_remap", "key_input"]
 
 _SENT_BUILD = -1  # 0xFFFFFFFFFFFFFFFF: build rows with NULL keys / dead rows
 _SENT_PROBE = -2  # 0xFFFFFFFFFFFFFFFE: probe rows with NULL keys
 _FLIP = -(1 << 63)
+
+
+def key_input(col) -> torch.Tensor:
+    """A key column's data for hashing: an RLE run expands on its device
+    from its one value into a contiguous tensor (kernels.rle_fill), since
+    the kernel wrappers refuse strided inputs; any other column hands on
+    ``data`` (a LAZY one materializes)."""
+    if col.encoding == "RLE":
+        return K.rle_fill(col.rle_value, len(col), col.device)
+    return col.data
 
 
 def _order_key(h):

@@ -29,7 +29,8 @@ __all__ = [
     "bucket", "key_planes", "hash_combine", "hash_row_gids",
     "hash_group_ids", "small_codes_group_space", "small_grouped_aggregate",
     "grouped_reduce", "finalize_groups", "group_keys_out", "device_sort",
-    "lexsort", "decimal_limb_tables", "combine_limb_sums",
+    "lexsort", "decimal_limb_tables", "combine_limb_sums", "rle_fill",
+    "DeviceDomain",
 ]
 
 
@@ -39,6 +40,105 @@ def bucket(n: int, minimum: int = 8) -> int:
     while c < n:
         c <<= 1
     return c
+
+
+def rle_fill(value: np.ndarray, length: int, device) -> torch.Tensor:
+    """Expand an RLE run on ``device`` from its one host scalar: a
+    contiguous ``torch.full``, so no run crosses from the host and a
+    kernel wrapper gets a dense input."""
+    from ..spi.batch import torch_dtype
+
+    value = np.asarray(value)
+    return torch.full((length,), value.item(), dtype=torch_dtype(value.dtype),
+                      device=device)
+
+
+class DeviceDomain:
+    """A build key column's (count, non-NaN count, min, max, presence per
+    dictionary code), computed on the keys' device and packed into one
+    byte buffer; on the card that buffer is a pinned host tensor filled by
+    one non-blocking copy, and :meth:`result` waits for that copy's event
+    only when the host needs the values."""
+
+    def __init__(self, host: torch.Tensor, event, dtype: np.dtype,
+                 dict_len: int):
+        self._host = host
+        self._event = event
+        self._dtype = dtype
+        self._dict_len = dict_len
+
+    def result(self) -> tuple:
+        """(count, non-NaN count, min, max, presence) on the host."""
+        if self._event is not None:
+            self._event.synchronize()
+        buf = self._host.numpy()
+        cnt, cnt_nonnan = (int(v) for v in buf[:16].view(np.int64))
+        item = self._dtype.itemsize
+        vmin, vmax = buf[16:16 + 2 * item].view(self._dtype)
+        presence = buf[16 + 2 * item:].view(np.bool_)
+        return cnt, cnt_nonnan, vmin, vmax, presence
+
+
+def _device_domain(data: torch.Tensor, valid, live,
+                   dict_len: int) -> DeviceDomain:
+    """The domain of build keys for dynamic filtering, as torch ops on the
+    keys' device with no host sync (reference: kernels._domain_fn): the
+    count of eligible (valid and live) keys, the count of those that are
+    not NaN, min / max of those with dtype sentinels, and per-code
+    presence for a dictionary of ``dict_len`` entries."""
+    eligible = valid
+    if live is not None:
+        eligible = live if eligible is None else eligible & live
+    n = int(data.shape[0])
+    dev = data.device
+    if data.dtype == torch.bool:
+        data = data.to(torch.uint8)
+    if eligible is None:
+        cnt = torch.tensor(n, dtype=torch.int64, device=dev)
+    else:
+        cnt = eligible.sum()
+    if data.is_floating_point():
+        ok = ~torch.isnan(data)
+        if eligible is not None:
+            ok = ok & eligible
+        cnt_nonnan = ok.sum()
+        big = torch.tensor(float("inf"), dtype=data.dtype, device=dev)
+    else:
+        ok = eligible
+        cnt_nonnan = cnt
+        big = torch.tensor(torch.iinfo(data.dtype).max, dtype=data.dtype,
+                           device=dev)
+    small = (-big if data.is_floating_point() else torch.tensor(
+        torch.iinfo(data.dtype).min, dtype=data.dtype, device=dev))
+    if n == 0:
+        vmin, vmax = big, small
+    elif ok is None:
+        vmin, vmax = data.min(), data.max()
+    else:
+        vmin = torch.where(ok, data, big).min()
+        vmax = torch.where(ok, data, small).max()
+    parts = [cnt.reshape(1).to(torch.int64).view(torch.uint8),
+             cnt_nonnan.reshape(1).to(torch.int64).view(torch.uint8),
+             vmin.reshape(1).view(torch.uint8),
+             vmax.reshape(1).view(torch.uint8)]
+    if dict_len:
+        codes = data.long()
+        if eligible is not None:
+            codes = torch.where(eligible, codes, dict_len)
+        presence = torch.zeros(dict_len + 1, dtype=torch.bool, device=dev)
+        presence[codes] = True
+        parts.append(presence[:dict_len].view(torch.uint8))
+    packed = torch.cat(parts)
+    event = None
+    if dev.type == "cuda":
+        host = torch.empty(packed.numel(), dtype=torch.uint8,
+                           pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        packed = host
+    np_dtype = torch.empty(0, dtype=data.dtype).numpy().dtype
+    return DeviceDomain(packed, event, np_dtype, dict_len)
 
 
 def _canon_float(x):

@@ -12,20 +12,27 @@ starts from a UnionSourceOperator.  Pipelines come back in dependency order
 (every build and every union input before the pipeline that reads it, a
 branch's own builds before the branch), so a sequential run is correct.  A
 TableWriter (CTAS, INSERT) ends its pipeline in a TableWriterOperator.
-DistinctLimit raises; no local exchange, dynamic filters, spill or
-revocation (not ported yet).
+INNER and RIGHT joins attach dynamic filters to their probe-side scan
+(exec/dynamic_filter.py), a scan takes the TableScan's pushed-down LIMIT,
+and :func:`plan_lazy_scan` marks the channels a scan's filter only passes
+through.  ``dynamic_filtering``, ``ingest`` and ``encoded_exec`` are the
+reference's ``Session.dynamic_filtering``, ``TRINO_TPU_PREFETCH*`` and
+``TRINO_TPU_ENCODED_EXEC`` as arguments, with their defaults.
+DistinctLimit raises; no local exchange, spill or revocation (not ported
+yet).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 from ..connectors.catalog import Catalog
 from ..planner import plan as P
 from ..spi.batch import Column, ColumnBatch
 from ..spi.connector import ColumnSchema, TableSchema
 from ..spi.types import BOOLEAN, Type
-from ..sql.ir import Call
+from ..sql.ir import Call, InputRef
+from .dynamic_filter import DynamicFilterHolder
 from .match_recognize import MatchRecognizeOperator
 from .operators import (
     FilterProjectOperator,
@@ -51,7 +58,9 @@ from .operators import (
     UnnestOperator,
     ValuesOperator,
     WindowOperator,
+    plan_lazy_scan,
 )
+from .prefetch import IngestConfig
 
 __all__ = ["LocalExecutionPlan", "LocalPlanner"]
 
@@ -68,11 +77,16 @@ class LocalExecutionPlan:
 
 class LocalPlanner:
     def __init__(self, catalog: Catalog, device, splits_per_node: int = 4,
-                 node_count: int = 1):
+                 node_count: int = 1, dynamic_filtering: bool = True,
+                 ingest: Optional[IngestConfig] = None,
+                 encoded_exec: bool = True):
         self.catalog = catalog
         self.device = device
         self.splits_per_node = splits_per_node
         self.node_count = node_count
+        self.dynamic_filtering = dynamic_filtering
+        self.ingest = ingest if ingest is not None else IngestConfig()
+        self.encoded_exec = encoded_exec
         self.pipelines: list[list[Operator]] = []
 
     def plan(self, root: P.PlanNode) -> LocalExecutionPlan:
@@ -80,6 +94,8 @@ class LocalPlanner:
         collector = OutputCollector()
         chain.append(collector)
         self.pipelines.append(chain)
+        for p in self.pipelines:
+            plan_lazy_scan(p)
         return LocalExecutionPlan(self.pipelines, collector,
                                   root.output_names, root.output_types)
 
@@ -89,7 +105,9 @@ class LocalPlanner:
             splits = conn.get_splits(node.table, self.splits_per_node,
                                      self.node_count)
             return [ScanOperator(conn, splits, node.columns, self.device,
-                                 constraint=node.constraint)]
+                                 constraint=node.constraint,
+                                 limit=node.limit, ingest=self.ingest,
+                                 encoded=self.encoded_exec)]
 
         if isinstance(node, P.Values):
             return [ValuesOperator(_values_batch(node).to(self.device))]
@@ -164,12 +182,27 @@ class LocalPlanner:
 
         if isinstance(node, P.Join):
             bridge = JoinBridge()
+            # dynamic filtering: INNER / RIGHT probe rows that cannot match
+            # are droppable, so the build keys' domain prunes the probe
+            # scan (server/DynamicFilterService.java:105)
+            holders = [None] * len(node.right_keys)
+            scan_attach = []
+            if (self.dynamic_filtering and node.left_keys
+                    and node.join_type in ("INNER", "RIGHT")):
+                for k, lch in enumerate(node.left_keys):
+                    col = _trace_to_scan_col(node.left, lch)
+                    if col is not None:
+                        holders[k] = DynamicFilterHolder()
+                        scan_attach.append((col, holders[k]))
             build = self._chain(node.right)
             build.append(JoinBuildSink(
                 bridge, node.right_keys, node.right.output_types,
-                node.right.output_names, self.device))
+                node.right.output_names, self.device,
+                dynamic_filter_holders=holders))
             self.pipelines.append(build)
             chain = self._chain(node.left)
+            if scan_attach and isinstance(chain[0], ScanOperator):
+                chain[0].dynamic_filters.extend(scan_attach)
             chain.append(LookupJoinOperator(
                 bridge, node.left_keys, node.join_type, node.residual,
                 node.output_names, node.output_types))
@@ -247,6 +280,36 @@ class LocalPlanner:
             return chain
 
         raise NotImplementedError(f"no operator for {type(node).__name__}")
+
+
+def _trace_to_scan_col(node: P.PlanNode, ch: int) -> Optional[int]:
+    """Map an output channel down the probe side's left spine to a
+    TableScan column index, or None when the channel is computed or
+    crosses a union boundary.  Descends only where rows pass through
+    unchanged (dropping a probe row cannot change other rows' results)."""
+    while True:
+        if isinstance(node, P.TableScan):
+            return ch
+        if isinstance(node, (P.Filter, P.Exchange)):
+            node = node.source
+            continue
+        if isinstance(node, P.Project):
+            e = node.expressions[ch]
+            if isinstance(e, InputRef):
+                node, ch = node.source, e.index
+                continue
+            return None
+        if isinstance(node, P.Join):
+            if ch < len(node.left.output_types):
+                node = node.left
+                continue
+            return None
+        if isinstance(node, P.SemiJoin):
+            if ch < len(node.source.output_types):
+                node = node.source
+                continue
+            return None
+        return None
 
 
 def _values_batch(node: P.Values) -> ColumnBatch:

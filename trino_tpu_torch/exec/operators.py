@@ -4,8 +4,10 @@ The port of the reference ``exec/operators.py`` (operator contract of
 operator/Operator.java:21 — ``needs_input``/``add_input``/``get_output``/
 ``is_finished``) for the operators the ported queries use:
 
-- sources: ScanOperator (synchronous path), ValuesOperator,
-  UnionSourceOperator, TableFunctionOperator;
+- sources: ScanOperator (the asynchronous ingest path of exec/prefetch.py
+  with dynamic filters, a pushed-down LIMIT and RLE / LAZY columns, or
+  the synchronous path), ValuesOperator, UnionSourceOperator,
+  TableFunctionOperator;
 - streaming: FilterProjectOperator,
   LookupJoinOperator (INNER, CROSS, LEFT, RIGHT, FULL, SINGLE; keyed or
   nested-loop), SemiJoinOperator (IN / EXISTS mark), GroupIdOperator,
@@ -16,7 +18,10 @@ operator/Operator.java:21 — ``needs_input``/``add_input``/``get_output``/
   OutputCollector and UnionSinkOperator are sinks.
 
 Filters mark rows dead in the batch's ``live`` mask instead of compacting;
-blocking operators concatenate their input on the device.
+blocking operators concatenate their input on the device.  Encoded columns
+pass FilterProject still encoded when it only hands them on
+(:func:`plan_lazy_scan` plans the LAZY ones); every other reader of
+``data`` gets a dense tensor on the device.
 """
 
 from __future__ import annotations
@@ -32,20 +37,23 @@ import torch
 from ..ops.expr import (compile_expression, expr_condition_mask,
                         expr_error_scope, reduce_error_lanes)
 from ..planner.plan import AggCall, SortKey, WindowFunc
-from ..spi.batch import (Column, ColumnBatch, _object_array, as_tensor,
-                         encode_sorted_objects, rescale_scaled_int,
+from ..spi.batch import (Column, ColumnBatch, _object_array, _same_dictionary,
+                         as_tensor, encode_sorted_objects, rescale_scaled_int,
                          torch_dtype, unify_dictionaries)
 from ..spi.connector import Connector, ConnectorPageSink, Split
 from ..spi.errors import SUBQUERY_MULTIPLE_ROWS, TrinoError
 from ..spi.types import BIGINT, BOOLEAN, DOUBLE, DecimalType, Type
 from ..sql.analyzer import STAT_AGGS
-from ..sql.ir import RowExpression, referenced_inputs
+from ..sql.ir import InputRef, RowExpression, referenced_inputs
 from . import join_exec as JX
 from . import kernels as K
 from . import window_kernels as WK
+from .prefetch import (BatchCoalescer, DeviceStager, IngestConfig,
+                       PrefetchingPageSource, encode_scan_batch)
+from .stats import EncodingStats, ScanIngestStats
 
 __all__ = [
-    "Operator", "ScanOperator", "FilterProjectOperator",
+    "Operator", "ScanOperator", "FilterProjectOperator", "plan_lazy_scan",
     "HashAggregationOperator", "JoinBridge", "JoinBuildSink",
     "LookupJoinOperator", "SemiJoinOperator", "SortOperator",
     "TopNOperator", "LimitOperator", "RenameOperator", "TableWriterOperator",
@@ -88,29 +96,68 @@ class Operator:
 
 
 class ScanOperator(Operator):
-    """Reads splits through the connector page source, applies the advisory
-    TupleDomain on the host batch (exec/domain_filter.py), then moves the
-    surviving rows to ``device``.  A batch already in device memory (a
-    pinned memory table) skips the host mask, as the reference's pinned
-    batches do (the filter above the scan still applies the predicate), and
-    is handed on without a copy."""
+    """Reads splits through the connector page source (operator/
+    TableScanOperator.java:46).  Each host batch is masked on the host by
+    the advisory TupleDomain (exec/domain_filter.py) and by the
+    ``dynamic_filters`` [(column index, holder)] of the joins it feeds
+    (exec/dynamic_filter.py), then moved to ``device``.  A batch already in
+    device memory, or of a device-resident table, skips the masks, the
+    coalescing and the encodings and is handed on without a copy (the
+    filter above the scan still applies the predicate).
+
+    With ``ingest.active`` (the default), unless the table is device-
+    resident, the scan runs the asynchronous path of exec/prefetch.py:
+    splits decode on background threads, small batches merge into pinned
+    buffers, and the next batch's copy to the card is issued on a side
+    stream while the previous one computes.
+    ``IngestConfig(enabled=False)`` runs the synchronous path, one split at
+    a time, each batch copied in the operator's thread.  ``limit``, a
+    pushed-down LIMIT, stops opening splits once that many rows are out
+    (the Limit above enforces the exact count).  With ``encoded`` the scan
+    makes RLE columns of constant runs and LAZY columns of the channels in
+    ``lazy_channels`` (set by :func:`plan_lazy_scan`)."""
 
     def __init__(self, connector: Connector, splits: Sequence[Split],
-                 columns: Sequence[str], device, constraint=None):
+                 columns: Sequence[str], device, constraint=None,
+                 dynamic_filters=None, limit: Optional[int] = None,
+                 ingest: Optional[IngestConfig] = None,
+                 encoded: bool = True):
         self.connector = connector
         self.splits = list(splits)
         self.columns = list(columns)
         self.device = torch.device(device)
         self.constraint = constraint if (
             constraint is not None and not constraint.is_all) else None
+        self.dynamic_filters = list(dynamic_filters or [])
+        self.limit = limit
+        self._emitted_rows = 0
         self._name_to_idx = {n: i for i, n in enumerate(self.columns)}
         self._domain_dict_cache: dict = {}
         self._source = None
         self.input_done = True
-        self.scan_rows = 0
+        self.ingest_cfg = ingest if ingest is not None else IngestConfig()
+        # a device-resident table has nothing to prefetch, mask or copy
+        self._resident = bool(self.splits) and connector.is_resident(
+            self.splits[0].table)
+        self._async = self.ingest_cfg.active and not self._resident
+        self.ingest_stats = ScanIngestStats()
+        self.encoded = encoded
+        self.lazy_channels: frozenset = frozenset()
+        self.encoding_stats = EncodingStats()
+        self._prefetcher: Optional[PrefetchingPageSource] = None
+        self._coalescer: Optional[BatchCoalescer] = None
+        self._stager: Optional[DeviceStager] = None
+        self._staged: Optional[tuple] = None  # (batch, copy event)
+        self._hold_back: Optional[ColumnBatch] = None
+        self._ingest_done = False
 
     def needs_input(self) -> bool:
         return False
+
+    def _on_host(self, batch: ColumnBatch) -> bool:
+        """A host batch to mask, coalesce and copy (not one in device
+        memory or of a device-resident table)."""
+        return not self._resident and batch.device.type == "cpu"
 
     def _apply_constraint(self, batch: ColumnBatch) -> ColumnBatch:
         from .domain_filter import tuple_domain_mask
@@ -121,13 +168,58 @@ class ScanOperator(Operator):
             return batch
         return batch.filter(as_tensor(mask))
 
+    def _apply_dynamic_filters(self, batch: ColumnBatch) -> ColumnBatch:
+        mask = None
+        for col_idx, holder in self.dynamic_filters:
+            c = batch.columns[col_idx]
+            m = holder.probe_mask(
+                c.data.numpy(), None if c.valid is None else c.valid.numpy(),
+                c.dictionary)
+            if m is not None:
+                mask = m if mask is None else (mask & m)
+        if mask is None or mask.all():
+            return batch
+        pruned = int(batch.num_rows - mask.sum())
+        self.dynamic_filters[0][1].rows_pruned += pruned  # once per batch
+        self.ingest_stats.rows_pruned += pruned
+        return batch.filter(torch.from_numpy(mask))
+
+    def _masked(self, batch: ColumnBatch) -> ColumnBatch:
+        if self.constraint is not None:
+            batch = self._apply_constraint(batch)
+        if self.dynamic_filters and batch.num_rows:
+            batch = self._apply_dynamic_filters(batch)
+        return batch
+
     def get_output(self) -> Optional[ColumnBatch]:
+        if self._async:
+            return self._get_output_async()
+        return self._get_output_sync()
+
+    def _limit_reached(self) -> bool:
+        return self.limit is not None and self._emitted_rows >= self.limit
+
+    def _count_limit(self, batch: ColumnBatch, raw_rows: int) -> None:
+        """Count a batch's rows toward a pushed-down LIMIT (a masked batch's
+        dead rows would need a device read: it counts none) and, on the
+        asynchronous path, hand the prefetcher its gate count."""
+        if self.limit is None:
+            return
+        kept = batch.num_rows if batch.live is None else 0
+        self._emitted_rows += kept
+        if self._prefetcher is not None:
+            self._prefetcher.consumed(raw_rows, kept)
+
+    def _get_output_sync(self) -> Optional[ColumnBatch]:
         while not self._closed:
             if self._source is None:
+                if self._limit_reached():
+                    self.splits = []  # pushed-down LIMIT satisfied
                 if not self.splits:
                     return None
                 self._source = self.connector.create_page_source(
                     self.splits.pop(0), self.columns)
+                self.ingest_stats.splits_opened += 1
             if self._source.is_finished():
                 self._source.close()
                 self._source = None
@@ -135,16 +227,126 @@ class ScanOperator(Operator):
             batch = self._source.get_next_batch()
             if batch is None:
                 continue
-            self.scan_rows += batch.num_rows
-            if self.constraint is not None and batch.device.type == "cpu":
-                batch = self._apply_constraint(batch)
-                if batch.num_rows == 0:
-                    continue
-            return batch.to(self.device)  # no copy when already there
+            if not self._on_host(batch):
+                self.ingest_stats.observe_batch(batch.nbytes, batch.num_rows)
+                self._count_limit(batch, batch.num_rows)
+                return batch.to(self.device)  # no copy when already there
+            batch = self._masked(batch)
+            if batch.num_rows == 0:
+                continue
+            self.ingest_stats.observe_batch(batch.nbytes, batch.num_rows)
+            self._count_limit(batch, batch.num_rows)
+            if self.encoded:
+                batch = encode_scan_batch(
+                    batch, self.lazy_channels, self.device,
+                    self.encoding_stats, self.ingest_stats)
+            if self.device.type != "cpu":
+                self.ingest_stats.h2d_bytes += sum(
+                    c.data.numel() * c.data.element_size()
+                    + (0 if c.valid is None else c.valid.numel())
+                    for c in batch.columns if c.encoding not in ("RLE",
+                                                                 "LAZY"))
+            return batch.to(self.device)
         return None
 
+    # -- asynchronous ingest -------------------------------------------------
+
+    def _ensure_ingest(self) -> None:
+        if self._prefetcher is not None or self._ingest_done:
+            return
+        self._stager = DeviceStager(self.device, self.ingest_stats,
+                                    self.lazy_channels, self.encoding_stats,
+                                    self.encoded)
+        self._coalescer = BatchCoalescer(self.ingest_cfg.coalesce_rows,
+                                         self.ingest_stats,
+                                         self._stager.alloc)
+        self._prefetcher = PrefetchingPageSource(
+            self.connector, self.splits, self.columns, self.ingest_cfg,
+            self.ingest_stats, limit_rows=self.limit)
+        self.splits = []  # the prefetcher's now
+
+    def _flush(self) -> Optional[tuple]:
+        flushed = self._coalescer.flush()
+        return None if flushed is None else self._stager.stage(*flushed)
+
+    def _produce_next(self) -> Optional[tuple]:
+        """One coalesced, staged (batch, event), or None at the end.  The
+        masks run here, on the consumer's thread (the holders' counters
+        are not thread-safe); a batch in device memory flushes the
+        coalescer first, so row order holds, then passes through."""
+        if self._ingest_done:
+            return None
+        self._ensure_ingest()
+        while True:
+            if self._limit_reached():
+                self._prefetcher.close()
+                self._ingest_done = True
+                return self._flush()
+            batch = self._prefetcher.get_next_batch()
+            if batch is None:
+                self._ingest_done = True
+                return self._flush()
+            if not self._on_host(batch):
+                batch = batch.to(self.device)
+                self._count_limit(batch, batch.num_rows)
+                flushed = self._flush()
+                if flushed is not None:
+                    self._hold_back = batch
+                    return flushed
+                return batch, None
+            rows = batch.num_rows
+            batch = self._masked(batch)
+            self._count_limit(batch, rows)
+            if batch.num_rows == 0:
+                continue
+            self._coalescer.add(batch)
+            if self._coalescer.ready():
+                return self._flush()
+
+    def _get_output_async(self) -> Optional[ColumnBatch]:
+        if self._closed:
+            return None
+        if self._hold_back is not None:
+            out, self._hold_back = (self._hold_back, None), None
+        elif self._staged is not None:
+            out, self._staged = self._staged, None
+        else:
+            out = self._produce_next()
+        if out is None:
+            return None
+        # issue the next batch's copy now, so it crosses while this one
+        # computes downstream
+        if self._staged is None and self._hold_back is None:
+            self._staged = self._produce_next()
+        batch, event = out
+        self._stager.ready(event)
+        return batch
+
     def is_finished(self) -> bool:
-        return self._closed or (self._source is None and not self.splits)
+        if self._closed:
+            return True
+        if not self._async:
+            return self._source is None and not self.splits
+        if self._staged is not None or self._hold_back is not None:
+            return False
+        if self._prefetcher is None:
+            return self._ingest_done or not self.splits
+        return self._ingest_done and self._coalescer.buffered_rows == 0
+
+    def close(self) -> None:
+        super().close()
+        if self._prefetcher is not None:
+            self._prefetcher.close()  # drop in-flight and unclaimed splits
+        if self._source is not None:
+            self._source.close()
+            self._source = None
+
+    def shutdown(self) -> None:
+        """Close and wait for the prefetch threads to end (the run is
+        over, or failed)."""
+        self.close()
+        if self._prefetcher is not None:
+            self._prefetcher.join()
 
 
 class ValuesOperator(Operator):
@@ -278,6 +480,7 @@ class FilterProjectOperator(Operator):
         self._compiled = None
         self._compiled_dicts = None
         self.pending_errors: list = []
+        self.encoding_stats = EncodingStats()
 
     def _compile(self, batch: ColumnBatch):
         dicts = [c.dictionary for c in batch.columns]
@@ -286,9 +489,9 @@ class FilterProjectOperator(Operator):
             return self._compiled
         types = [c.type for c in batch.columns]
         dev = batch.device
-        pred = (compile_expression(self.predicate, types, dicts, dev)
+        pred = (compile_expression(self.predicate, types, dicts, device=dev)
                 if self.predicate is not None else None)
-        projs = ([compile_expression(e, types, dicts, dev)
+        projs = ([compile_expression(e, types, dicts, device=dev)
                   for e in self.projections]
                  if self.projections is not None else None)
         self._compiled = (pred, projs)
@@ -298,9 +501,54 @@ class FilterProjectOperator(Operator):
     def needs_input(self) -> bool:
         return self._pending is None and super().needs_input()
 
+    def _encoded_plan(self, batch: ColumnBatch) -> tuple:
+        """(needed, passthrough) of the encoded path: ``needed`` are the
+        input channels the expressions read (the predicate's and every
+        projection's that is not a bare column); ``passthrough`` maps an
+        output position to the input channel it hands on unchanged.  Those
+        columns skip the expressions and keep their encoding: a selective
+        predicate reads only its own channels, and payload columns ride
+        through still RLE or LAZY (the late-materialization seam)."""
+        needed: set = set()
+        if self.predicate is not None:
+            needed |= referenced_inputs(self.predicate)
+        if self.projections is None:
+            return needed, {i: i for i in range(batch.num_columns)}
+        passthrough = {}
+        for j, e in enumerate(self.projections):
+            if (isinstance(e, InputRef) and str(batch.columns[e.index].type)
+                    == str(self.output_types[j])):
+                passthrough[j] = e.index
+            else:
+                needed |= referenced_inputs(e)
+        return needed, passthrough
+
+    def _observe_encoded(self, batch: ColumnBatch, needed: set) -> None:
+        es = self.encoding_stats
+        saved = n_rle = n_dict = 0
+        for i, c in enumerate(batch.columns):
+            enc = c.encoding
+            n_rle += enc == "RLE"
+            n_dict += enc == "DICT"
+            if enc in ("RLE", "LAZY") and i not in needed:
+                saved += c.flat_nbytes - c.nbytes
+        es.rle_batches += n_rle > 0
+        es.dict_batches += n_dict > 0
+        es.bytes_saved += max(saved, 0)
+
     def add_input(self, batch: ColumnBatch) -> None:
+        if any(c.encoding in ("RLE", "LAZY") for c in batch.columns):
+            needed, passthrough = self._encoded_plan(batch)
+            # an RLE input expands on the device; reading a LAZY one runs
+            # its thunk; channels nothing reads are never touched
+            cols = [((K.rle_fill(c.rle_value, len(c), c.device), c.valid)
+                     if c.encoding == "RLE" else (c.data, c.valid))
+                    if i in needed else (None, None)
+                    for i, c in enumerate(batch.columns)]
+            self._observe_encoded(batch, needed)
+        else:
+            cols, passthrough = _to_cols(batch), {}
         pred, projs = self._compile(batch)
-        cols = _to_cols(batch)
         live = batch.live
         n = batch.num_rows
         dev = batch.device
@@ -316,7 +564,11 @@ class FilterProjectOperator(Operator):
             else:
                 out_cols = []
                 with expr_condition_mask(live):
-                    for ce, t in zip(projs, self.output_types):
+                    for j, (ce, t) in enumerate(zip(projs,
+                                                    self.output_types)):
+                        if j in passthrough:
+                            out_cols.append(batch.columns[passthrough[j]])
+                            continue
                         d, v = ce(cols)
                         d = d.to(torch_dtype(t.storage_dtype))
                         if d.dim() == 0:
@@ -335,6 +587,29 @@ class FilterProjectOperator(Operator):
 
     def is_finished(self) -> bool:
         return self.input_done and self._pending is None
+
+
+def plan_lazy_scan(pipeline: Sequence[Operator]) -> None:
+    """Late-materialization planning: when a scan feeds straight into a
+    filtering FilterProject, every channel the filter only passes through
+    becomes LAZY; the mask is computed from the predicate's columns alone,
+    and a selective filter's payload bytes never cross to the device (the
+    LazyBlock contract of ScanFilterAndProjectOperator).  Called once per
+    pipeline by the local planner; a no-op for a scan without encodings."""
+    if len(pipeline) < 2:
+        return
+    scan, fp = pipeline[0], pipeline[1]
+    if not (isinstance(scan, ScanOperator) and scan.encoded
+            and isinstance(fp, FilterProjectOperator)
+            and fp.predicate is not None):
+        return
+    needed = set(referenced_inputs(fp.predicate))
+    if fp.projections is not None:
+        for e in fp.projections:
+            if not isinstance(e, InputRef):
+                needed |= referenced_inputs(e)
+    scan.lazy_channels = frozenset(
+        i for i in range(len(scan.columns)) if i not in needed)
 
 
 class RenameOperator(Operator):
@@ -393,6 +668,7 @@ class HashAggregationOperator(Operator):
         self._batches: list[ColumnBatch] = []
         self._result: Optional[ColumnBatch] = None
         self._emitted = False
+        self.encoding_stats = EncodingStats()
 
     def add_input(self, batch: ColumnBatch) -> None:
         if batch.num_rows:
@@ -479,10 +755,95 @@ class HashAggregationOperator(Operator):
                 raise NotImplementedError(f"aggregate {a.fn}")
         return specs, plan
 
+    # aggregates computable from one stored value and a live / valid count
+    _RLE_AGG_FNS = frozenset(("sum", "count", "count_star", "min", "max"))
+
+    def _rle_fast_path(self) -> Optional[ColumnBatch]:
+        """A global aggregation over RLE inputs: SUM(x) over a constant run
+        is ``value * run_count`` (the RunLengthEncodedBlock shortcut): host
+        arithmetic over per-batch scalars, no concatenation and no
+        expansion.  Taken only when every live mask and run mask is on the
+        host (counting a device mask would cost a sync)."""
+        if (self.group_keys or not self.aggs
+                or any(a.distinct for a in self.aggs)
+                or not all(a.fn in self._RLE_AGG_FNS for a in self.aggs)):
+            return None
+        for b in self._batches:
+            if b.live is not None and b.live.device.type != "cpu":
+                return None
+            for a in self.aggs:
+                if a.arg < 0:
+                    continue
+                c = b.columns[a.arg]
+                if c.encoding != "RLE" or (c.valid is not None and
+                                           c.valid.device.type != "cpu"):
+                    return None
+                if c.dictionary is not None and a.fn == "sum":
+                    return None  # codes do not sum; min / max do (sorted)
+        first = self._batches[0]
+        for a in self.aggs:  # min / max on codes need ONE dictionary
+            if a.arg < 0 or first.columns[a.arg].dictionary is None:
+                continue
+            d0 = first.columns[a.arg].dictionary
+            if not all(_same_dictionary(b.columns[a.arg].dictionary, d0)
+                       for b in self._batches[1:]):
+                return None
+
+        def counted(b: ColumnBatch, c: Column) -> int:
+            """Rows of this run that are live and valid."""
+            if c.valid is None and b.live is None:
+                return len(c)
+            m = torch.ones(len(c), dtype=torch.bool)
+            if c.valid is not None:
+                m &= c.valid
+            if b.live is not None:
+                m &= b.live
+            return int(m.sum())
+
+        out_cols: list[Column] = []
+        rows_folded = 0
+        for a, t in zip(self.aggs, self.output_types):
+            if a.arg < 0:  # count(*)
+                total = sum(b.live_count for b in self._batches)
+                out_cols.append(Column(t, np.array([total], np.int64)))
+                continue
+            pairs = [(b.columns[a.arg], counted(b, b.columns[a.arg]))
+                     for b in self._batches]
+            rows_folded += sum(cnt for _, cnt in pairs)
+            if a.fn == "count":
+                out_cols.append(Column(t, np.array(
+                    [sum(cnt for _, cnt in pairs)], np.int64)))
+                continue
+            alive = [(c, cnt) for c, cnt in pairs if cnt > 0]
+            if not alive:  # sum / min / max of no value is NULL
+                out_cols.append(Column(t, np.zeros(1, t.storage_dtype),
+                                       np.zeros(1, np.bool_),
+                                       pairs[0][0].dictionary))
+                continue
+            if a.fn == "sum":
+                dtype = np.dtype(t.storage_dtype)
+                if dtype.kind == "f":
+                    v = float(sum(float(c.rle_value) * cnt
+                                  for c, cnt in alive))
+                else:  # exact: python ints until the final cast
+                    v = sum(int(c.rle_value) * cnt for c, cnt in alive)
+                out_cols.append(Column(t, np.array([v], dtype)))
+            else:
+                pick = min if a.fn == "min" else max
+                v = pick(c.rle_value for c, _ in alive)
+                out_cols.append(Column(t, np.array([v], v.dtype), None,
+                                       alive[0][0].dictionary))
+        self.encoding_stats.rle_agg_rows += rows_folded
+        self.encoding_stats.rle_batches += len(self._batches)
+        return ColumnBatch(self.output_names, out_cols).to(first.device)
+
     def _compute(self) -> ColumnBatch:
         nk = len(self.group_keys)
         if not self._batches:
             return self._empty_result(nk)
+        fast = self._rle_fast_path()
+        if fast is not None:
+            return fast
         inp = _maybe_compact(ColumnBatch.concat(self._batches,
                                                 keep_live=True))
         live = inp.live
@@ -490,6 +851,10 @@ class HashAggregationOperator(Operator):
         specs, plan = self._specs(inp)
         presence = None
         space = K.small_codes_group_space(key_cols) if nk else 1
+        if nk and space is not None:
+            # every key is a small dictionary code: the group-by runs in
+            # code space
+            self.encoding_stats.code_group_batches += 1
         if space is not None:
             reduced, presence, keys_out, num_groups = (
                 K.small_grouped_aggregate(key_cols, live, specs,
@@ -606,12 +971,16 @@ class JoinBuildSink(Operator):
     (operator/join/HashBuilderOperator.java:57)."""
 
     def __init__(self, bridge: JoinBridge, key_channels: Sequence[int],
-                 types: Sequence[Type], names: Sequence[str], device):
+                 types: Sequence[Type], names: Sequence[str], device,
+                 dynamic_filter_holders=None):
         self.bridge = bridge
         self.key_channels = list(key_channels)
         self.types = list(types)
         self.names = list(names)
         self.device = torch.device(device)
+        # one holder per key channel (or None), filled at finish so the
+        # probe-side scan can prune (exec/dynamic_filter.py)
+        self.dynamic_filter_holders = list(dynamic_filter_holders or [])
         self._batches: list[ColumnBatch] = []
 
     def add_input(self, batch: ColumnBatch) -> None:
@@ -629,8 +998,13 @@ class JoinBuildSink(Operator):
                 Column(t, np.empty(0, t.storage_dtype)) for t in self.types])
             batch = batch.to(self.device)
         self._batches = []
-        keys = [(batch.columns[ch].data, batch.columns[ch].valid)
+        keys = [(JX.key_input(batch.columns[ch]), batch.columns[ch].valid)
                 for ch in self.key_channels]
+        for (data, valid), ch, holder in zip(keys, self.key_channels,
+                                             self.dynamic_filter_holders):
+            if holder is not None:
+                holder.fill_device(data, valid, batch.live,
+                                   batch.columns[ch].dictionary)
         self.bridge.key_dicts = [batch.columns[ch].dictionary
                                  for ch in self.key_channels]
         # a keyless (nested-loop) join reads the batch alone
@@ -659,7 +1033,7 @@ class _Residual:
         if self._dicts is None or not all(
                 a is b for a, b in zip(self._dicts, dicts)):
             ce = compile_expression(self.expr, [c.type for c in cols],
-                                    dicts, probe.device)
+                                    dicts, device=probe.device)
 
             def prog(pair_cols):
                 d, v = ce(pair_cols)
@@ -702,7 +1076,7 @@ def _nested_loop_pairs(probe: ColumnBatch, build: ColumnBatch, residual):
 def _probe_keys(batch: ColumnBatch, channels, bridge: "JoinBridge"):
     """Probe key (data, valid) pairs and the dictionary remaps into the
     build's code space."""
-    keys = [(batch.columns[ch].data, batch.columns[ch].valid)
+    keys = [(JX.key_input(batch.columns[ch]), batch.columns[ch].valid)
             for ch in channels]
     remaps = [JX.probe_key_remap(batch.columns[ch].dictionary,
                                  bridge.key_dicts[k], batch.device)
@@ -746,6 +1120,7 @@ class LookupJoinOperator(Operator):
         self._build_hits: Optional[torch.Tensor] = None
         self._probe_dicts: Optional[list] = None
         self._epilogue_done = not self._build_outer
+        self.encoding_stats = EncodingStats()
 
     @property
     def _outer(self) -> bool:
@@ -818,6 +1193,9 @@ class LookupJoinOperator(Operator):
                 self._null_extended(probe, probe.live)
             return
         keys, remaps = _probe_keys(probe, self.left_keys, self.bridge)
+        if any(r is not None for r in remaps):
+            # dictionary keys probe as remapped int32 codes, never values
+            self.encoding_stats.code_join_batches += 1
         residual = (self.residual.bind(probe, build)
                     if self.residual is not None else None)
         build_cols = _cols(build)

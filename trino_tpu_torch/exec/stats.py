@@ -2,8 +2,8 @@
 
 The Driver credits wall time, rows and batches to each operator as it moves
 batches (reference: operator/OperatorStats.java, the port of
-``exec/stats.py`` without its scan-ingest, sync, resilience, fused,
-resident, adaptive and encoding counters).  Rows are live rows: on the
+``exec/stats.py`` with its scan-ingest and encoding counters; the sync,
+resilience, fused, resident and adaptive ones are not ported).  Rows are live rows: on the
 card a masked batch's count is a device reduction, so the driver adds
 the counts up as tensors and :meth:`QueryStats.read_counts` reads them
 all once the run has ended.  Device work is asynchronous, so a
@@ -14,9 +14,135 @@ device work, at the cost of the overlap.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import time
+from dataclasses import dataclass, field, fields
+from typing import Optional
 
 import torch
+
+
+@dataclass
+class ScanIngestStats:
+    """Counters of one ScanOperator's ingest (prefetch, coalescing, device
+    staging); ``merge`` folds them into the query's roll-up.  Beyond the
+    reference's counters: the rows dynamic filters pruned and the bytes
+    the scan copied from host to device (staged batches and LAZY columns
+    materialized later)."""
+
+    scan_bytes: int = 0          # host bytes produced by connector sources
+    scan_rows: int = 0
+    scan_batches: int = 0        # raw connector batches
+    coalesced_batches: int = 0   # merged batches emitted to the pipeline
+    coalesced_rows: int = 0
+    staged_batches: int = 0      # batches copied to the device
+    splits_opened: int = 0
+    source_read_s: float = 0.0   # time inside connector get_next_batch
+    consumer_wait_s: float = 0.0  # consumer blocked waiting on prefetch
+    stage_s: float = 0.0         # host time issuing the device copies
+    queue_depth_max: int = 0
+    queue_depth_sum: int = 0
+    queue_samples: int = 0
+    prefetch_enabled: bool = False
+    first_batch_t: Optional[float] = None
+    last_batch_t: Optional[float] = None
+    rows_pruned: int = 0         # by dynamic filters
+    h2d_bytes: int = 0           # copied host -> device
+
+    def observe_batch(self, nbytes: int, rows: int) -> None:
+        now = time.perf_counter()
+        if self.first_batch_t is None:
+            self.first_batch_t = now
+        self.last_batch_t = now
+        self.scan_bytes += nbytes
+        self.scan_rows += rows
+        self.scan_batches += 1
+
+    @property
+    def wall_s(self) -> float:
+        if self.first_batch_t is None or self.last_batch_t is None:
+            return 0.0
+        return self.last_batch_t - self.first_batch_t
+
+    @property
+    def gbps(self) -> float:
+        """Scan ingest GB/s over the first -> last batch window."""
+        w = self.wall_s
+        return (self.scan_bytes / w) / 1e9 if w > 0 else 0.0
+
+    @property
+    def queue_depth_avg(self) -> float:
+        return (self.queue_depth_sum / self.queue_samples
+                if self.queue_samples else 0.0)
+
+    def merge(self, other: "ScanIngestStats") -> None:
+        for f in fields(self):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            if f.name == "queue_depth_max":
+                setattr(self, f.name, max(a, b))
+            elif f.name == "prefetch_enabled":
+                setattr(self, f.name, a or b)
+            elif f.name in ("first_batch_t", "last_batch_t"):
+                pick = min if f.name == "first_batch_t" else max
+                if b is not None:
+                    setattr(self, f.name, b if a is None else pick(a, b))
+            else:
+                setattr(self, f.name, a + b)
+
+    def text(self) -> str:
+        mode = "prefetch" if self.prefetch_enabled else "sync"
+        return (
+            f"scan[{mode}]: {self.scan_bytes / 1e9:.3f} GB "
+            f"({self.scan_rows} rows, {self.scan_batches} batches -> "
+            f"{self.coalesced_batches} coalesced) @ {self.gbps:.2f} GB/s, "
+            f"queue depth avg {self.queue_depth_avg:.1f} max "
+            f"{self.queue_depth_max}, read {self.source_read_s * 1e3:.1f} ms"
+            f" / wait {self.consumer_wait_s * 1e3:.1f} ms / stage "
+            f"{self.stage_s * 1e3:.1f} ms"
+        )
+
+
+@dataclass
+class EncodingStats:
+    """Counters of compressed execution: batches by encoding, bytes saved
+    against a flat representation, LAZY columns made and materialized, RLE
+    aggregation.  One instance per encoding-aware operator; ``merge``
+    folds them into the query's roll-up.  The exchange counter of the
+    reference stays 0 until exchanges are ported."""
+
+    rle_batches: int = 0        # batches carrying >= 1 RLE column
+    dict_batches: int = 0       # batches carrying >= 1 dictionary column
+    lazy_columns: int = 0       # LAZY columns made by the scan
+    lazy_materialized: int = 0  # thunks that ran
+    bytes_saved: int = 0        # flat-equivalent minus encoded bytes
+    lazy_skipped_bytes: int = 0  # payload bytes not staged with the batch
+    rle_agg_rows: int = 0       # rows aggregated as value * run_count
+    code_group_batches: int = 0  # group-bys that ran on int32 codes
+    code_join_batches: int = 0   # joins probed in code space
+    exchange_code_pages: int = 0  # pages whose codes crossed a shuffle
+
+    def merge(self, other: "EncodingStats") -> None:
+        for f in fields(self):
+            setattr(self, f.name,
+                    getattr(self, f.name) + getattr(other, f.name))
+
+    @property
+    def any(self) -> bool:
+        return any(getattr(self, f.name) for f in fields(self)
+                   if f.name != "lazy_materialized")
+
+    def text(self) -> str:
+        never = self.lazy_columns - self.lazy_materialized
+        return (
+            f"encoding: {self.rle_batches} RLE / {self.dict_batches} dict "
+            f"batches, {self.lazy_columns} lazy columns "
+            f"({never} never materialized, "
+            f"{self.lazy_skipped_bytes / 1e6:.2f} MB skipped), "
+            f"{self.bytes_saved / 1e6:.2f} MB saved vs flat, "
+            f"{self.rle_agg_rows} RLE-agg rows, "
+            f"{self.code_group_batches} code group-bys / "
+            f"{self.code_join_batches} code joins, "
+            f"{self.exchange_code_pages} code pages through exchange"
+        )
 
 
 @dataclass
@@ -38,6 +164,8 @@ class PipelineStats:
 class QueryStats:
     pipelines: list[PipelineStats] = field(default_factory=list)
     sync: bool = False  # synchronize the device after each operator call
+    scan: Optional[ScanIngestStats] = None  # the run's scans, rolled up
+    encoding: Optional[EncodingStats] = None  # compressed execution
 
     def by_operator(self) -> dict[str, float]:
         """Wall seconds summed per operator class name."""
@@ -63,8 +191,13 @@ class QueryStats:
                 setattr(o, attr, int(n))
 
     def text(self) -> str:
-        """The per-operator lines of EXPLAIN ANALYZE."""
+        """The stats lines of EXPLAIN ANALYZE: the scan and encoding
+        roll-ups, then per operator."""
         lines = []
+        if self.scan is not None and self.scan.scan_batches:
+            lines.append("  " + self.scan.text())
+        if self.encoding is not None and self.encoding.any:
+            lines.append("  " + self.encoding.text())
         for i, p in enumerate(self.pipelines):
             lines.append(f"  pipeline {i}:")
             for op in p.operators:

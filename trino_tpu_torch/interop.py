@@ -21,10 +21,10 @@ def batch_from_numpy(names: Sequence[str], types: Sequence[Type],
                      datas: Sequence[np.ndarray],
                      valids: Optional[Sequence[Optional[np.ndarray]]] = None,
                      dictionaries: Optional[Sequence] = None,
-                     live: Optional[np.ndarray] = None,
-                     device="cpu") -> ColumnBatch:
-    """Build a batch on ``device`` from numpy columns (None = all valid /
-    no dictionary / every row live)."""
+                     live: Optional[np.ndarray] = None, *,
+                     device) -> ColumnBatch:
+    """Build a batch on ``device`` (which the caller names) from numpy
+    columns (None = all valid / no dictionary / every row live)."""
     n = len(names)
     valids = list(valids) if valids is not None else [None] * n
     dictionaries = (list(dictionaries) if dictionaries is not None
@@ -40,7 +40,8 @@ def batch_from_numpy(names: Sequence[str], types: Sequence[Type],
 
 
 def batch_to_numpy(batch: ColumnBatch):
-    """(names, types, datas, valids, dictionaries, live) as host numpy."""
+    """(names, types, datas, valids, dictionaries, live) as host numpy;
+    LAZY and RLE columns are materialized."""
     datas = [c.data.cpu().numpy() for c in batch.columns]
     valids = [None if c.valid is None else c.valid.cpu().numpy()
               for c in batch.columns]

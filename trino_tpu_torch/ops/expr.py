@@ -1582,8 +1582,11 @@ def _lower(expr: RowExpression, input_dicts, device) -> Lowered:
 
 
 def compile_expression(expr: RowExpression, input_types: Sequence[Type],
-                       input_dicts: Optional[Sequence] = None,
-                       device="cpu") -> CompiledExpression:
+                       input_dicts: Optional[Sequence] = None, *,
+                       device) -> CompiledExpression:
+    """Lower ``expr`` over inputs of ``input_types`` (string inputs with
+    their dictionaries) to a program on ``device``, which the caller
+    names."""
     dicts = (list(input_dicts) if input_dicts is not None
              else [None] * len(input_types))
     low = _lower(expr, dicts, torch.device(device))

@@ -7,9 +7,15 @@ default, as in the reference) or ``"legacy"`` (the reference's
 ``TRINO_TPU_OPTIMIZER=legacy``).  CREATE TABLE and DROP TABLE run as
 metadata statements (the reference's ``execute_ddl``); CREATE TABLE AS and
 INSERT plan a TableWriter; EXPLAIN [ANALYZE] returns the plan text, the
-iterative optimizer's rule firings and, under ANALYZE, the run's
-per-operator times and rows.  No plan or result cache, sessions, access
-control, transactions or events (not ported yet).
+iterative optimizer's rule firings and, under ANALYZE, the run's scan
+and encoding roll-ups and per-operator times and rows.  The reference's
+session and environment knobs of the scan are arguments, with the
+reference's defaults: ``dynamic_filtering`` (build-side key domains prune
+probe scans), ``ingest`` (an ``exec.prefetch.IngestConfig``: split
+prefetch threads, coalescing into pinned buffers, side-stream copies to
+the card; ``IngestConfig(enabled=False)`` is the synchronous scan) and
+``encoded_exec`` (RLE and LAZY columns).  No plan or result cache,
+sessions, access control, transactions or events (not ported yet).
 
 The runner runs on the card unless the caller asks for the CPU:
 ``device="cuda"`` (the default) raises when CUDA is not available.
@@ -27,6 +33,7 @@ import torch
 from .connectors.catalog import Catalog, default_catalog
 from .exec.driver import run_pipelines
 from .exec.local_planner import LocalPlanner
+from .exec.prefetch import IngestConfig
 from .exec.stats import QueryStats
 from .planner.iterative import last_report
 from .planner.logical import LogicalPlanner
@@ -93,7 +100,10 @@ class QueryResult:
 class StandaloneQueryRunner:
     def __init__(self, catalog: Optional[Catalog] = None,
                  device="cuda", default_catalog_name: str = "tpch",
-                 splits_per_node: int = 4, optimizer: str = "iterative"):
+                 splits_per_node: int = 4, optimizer: str = "iterative",
+                 dynamic_filtering: bool = True,
+                 ingest: Optional[IngestConfig] = None,
+                 encoded_exec: bool = True):
         if optimizer not in OPTIMIZER_MODES:
             raise ValueError(f"unknown optimizer {optimizer!r}; expected "
                              f"one of {OPTIMIZER_MODES}")
@@ -106,6 +116,9 @@ class StandaloneQueryRunner:
         self.default_catalog_name = default_catalog_name
         self.splits_per_node = splits_per_node
         self.optimizer = optimizer
+        self.dynamic_filtering = dynamic_filtering
+        self.ingest = ingest if ingest is not None else IngestConfig()
+        self.encoded_exec = encoded_exec
 
     def create_plan(self, sql: str) -> PlanNode:
         return self._plan(parse_statement(sql))
@@ -121,7 +134,8 @@ class StandaloneQueryRunner:
     def execute(self, sql: str,
                 stats: Optional[QueryStats] = None) -> QueryResult:
         """Run one statement; ``stats`` (optional) collects per-operator
-        times, rows and batches of a query."""
+        times, rows and batches of a query, and its scan and encoding
+        roll-ups."""
         stmt = parse_statement(sql)
         if isinstance(stmt, ast.Explain):
             return self._execute_explain(stmt)
@@ -152,7 +166,10 @@ class StandaloneQueryRunner:
     def _run(self, plan: PlanNode,
              stats: Optional[QueryStats]) -> QueryResult:
         local = LocalPlanner(self.catalog, self.device,
-                             splits_per_node=self.splits_per_node).plan(plan)
+                             splits_per_node=self.splits_per_node,
+                             dynamic_filtering=self.dynamic_filtering,
+                             ingest=self.ingest,
+                             encoded_exec=self.encoded_exec).plan(plan)
         run_pipelines(local.pipelines, stats)
         batches = local.collector.batches
         if batches:

@@ -17,9 +17,12 @@ key-sorted pairs, ordered by :func:`_canon_key`) or python scaled ints
 (long decimals, numeric order), so comparisons, ORDER BY and GROUP BY on
 them run over the codes, as in the reference.
 
-Only the FLAT and DICT encodings of the reference exist here (RLE and LAZY
-are not ported yet), and there is no power-of-two padding: eager PyTorch
-does not recompile per shape.
+Besides FLAT and DICT, a column may be RLE (one value and a run length,
+expanded on its device only when something reads ``data``) or LAZY (a
+thunk whose host data is copied to the column's device on first read):
+the scan makes them (exec/prefetch.py) and encoding-aware operators pass
+them through.  There is no power-of-two padding: eager PyTorch does not
+recompile per shape.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from .types import (BOOLEAN, DATE, DOUBLE, TIMESTAMP, ArrayType, DecimalType,
 
 __all__ = ["Column", "ColumnBatch", "unify_dictionaries", "torch_dtype",
            "as_tensor", "encode_arrays", "encode_sorted_objects",
-           "rescale_scaled_int"]
+           "rescale_scaled_int", "maybe_rle", "RLE_DETECT_MIN_ROWS"]
 
 _TORCH_DTYPES = {
     np.dtype(np.bool_): torch.bool,
@@ -104,50 +107,286 @@ def encode_sorted_objects(values: Sequence, null_fill) -> tuple:
     return codes, valid, _object_array(uniq)
 
 
-class Column:
-    """One column: ``data`` tensor + ``valid`` mask (or None) + dictionary."""
+def _canon_device(device) -> torch.device:
+    """``device`` with its index filled in ("cuda" -> "cuda:<current>"),
+    so it compares equal to the device of the tensors made there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
-    __slots__ = ("type", "data", "valid", "dictionary")
+
+def _normalized_valid(valid):
+    """An all-valid mask carries nothing: None.  Checking costs a device
+    sync, so only host masks are normalized."""
+    if valid is None:
+        return None
+    valid = as_tensor(valid)
+    if valid.device.type == "cpu" and bool(valid.all()):
+        return None
+    return valid
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``; a copy from pinned host memory does not block
+    the host (the caller keeps the buffer until the copy's event)."""
+    if t.device == device:
+        return t
+    return t.to(device, non_blocking=t.device.type == "cpu"
+                and device.type == "cuda" and t.is_pinned())
+
+
+# dictionary byte accounting: object dictionaries (strings, tuples) report
+# pointer bytes through .nbytes, so the payload is summed once and memoized
+# by (id, len); accounting, not an allocator figure
+_DICT_NBYTES_CACHE: dict = {}
+
+
+def _dictionary_nbytes(d) -> int:
+    if d is None:
+        return 0
+    if d.dtype != object:
+        return int(d.nbytes)
+    hit = _DICT_NBYTES_CACHE.get(id(d))
+    if hit is not None and hit[0] == len(d):
+        return hit[1]
+    total = sum(len(str(v).encode("utf-8", "replace")) for v in d)
+    if len(_DICT_NBYTES_CACHE) > 4096:
+        _DICT_NBYTES_CACHE.clear()
+    _DICT_NBYTES_CACHE[id(d)] = (len(d), total)
+    return total
+
+
+class Column:
+    """One column: ``data`` tensor + ``valid`` mask (or None) + dictionary.
+
+    The reference's sealed Block shapes are an ``encoding`` tag:
+
+    - ``FLAT``: a dense tensor; ``DICT``: FLAT int32 codes with a host
+      ``dictionary`` (mandatory for strings);
+    - ``RLE``: ONE stored value repeated ``len`` times on ``device``
+      (``valid`` may still be a full-length mask);
+    - ``LAZY``: a thunk yielding host ``(data, valid)`` on first touch,
+      copied to ``device`` then; until touched the column costs no device
+      memory and no copy.
+
+    ``data`` / ``valid`` are properties: reading them on a LAZY column runs
+    the thunk exactly once; on an RLE column ``data`` is a contiguous
+    ``torch.full`` on the device, made once (kernel wrappers refuse strided
+    inputs).  Encoding-aware operators check ``encoding`` first."""
+
+    __slots__ = ("type", "dictionary", "_data", "_valid", "_length", "_enc",
+                 "_rle_value", "_thunk", "_nbytes_hint", "_device",
+                 "_on_materialize")
 
     def __init__(self, type: Type, data, valid=None, dictionary=None):
         self.type = type
         self.dictionary = dictionary
-        self.data = as_tensor(data)
-        if valid is not None:
-            valid = as_tensor(valid)
-            # an all-valid mask carries nothing; checking costs a device
-            # sync, so only host masks are normalized
-            if valid.device.type == "cpu" and bool(valid.all()):
-                valid = None
-        self.valid = valid
+        self._data = as_tensor(data)
+        self._length = int(self._data.shape[0])
+        self._device = self._data.device
+        self._enc = "FLAT"
+        self._rle_value = None
+        self._thunk = None
+        self._nbytes_hint = 0
+        self._on_materialize = None
+        self._valid = _normalized_valid(valid)
+
+    # -- encoded constructors ----------------------------------------------
+
+    @staticmethod
+    def rle(type_: Type, value, length: int, valid=None, dictionary=None, *,
+            device) -> "Column":
+        """Run-length column: ``value`` (the storage-dtype scalar, the int32
+        code for a dictionary column) repeated ``length`` times on
+        ``device``; ``valid`` may be a full-length mask (NULLs inside the
+        run), moved to ``device``."""
+        c = Column.__new__(Column)
+        c.type = type_
+        c.dictionary = dictionary
+        dtype = np.int32 if dictionary is not None else type_.storage_dtype
+        c._rle_value = np.asarray(value, dtype=dtype)
+        c._enc = "RLE"
+        c._data = None
+        c._length = int(length)
+        c._device = _canon_device(device)
+        c._thunk = None
+        c._nbytes_hint = 0
+        c._on_materialize = None
+        c._valid = _normalized_valid(
+            None if valid is None else as_tensor(valid, c._device))
+        return c
+
+    @staticmethod
+    def lazy(type_: Type, length: int, thunk, dictionary=None, *, device,
+             nbytes_hint: int = 0, on_materialize=None) -> "Column":
+        """Deferred column: ``thunk()`` returns host ``(data, valid)`` and
+        runs at most once, on the first ``data`` / ``valid`` read; the
+        column then copies both to ``device`` (non-blocking from pinned
+        memory) and calls ``on_materialize(column)``.  ``nbytes_hint``
+        stands for the bytes while nothing is materialized."""
+        c = Column.__new__(Column)
+        c.type = type_
+        c.dictionary = dictionary
+        c._enc = "LAZY"
+        c._rle_value = None
+        c._thunk = thunk
+        c._nbytes_hint = int(nbytes_hint)
+        c._on_materialize = on_materialize
+        c._data = None
+        c._valid = None
+        c._length = int(length)
+        c._device = _canon_device(device)
+        return c
+
+    # -- encoding accessors ------------------------------------------------
+
+    @property
+    def encoding(self) -> str:
+        """``FLAT | DICT | RLE | LAZY``; DICT is a flat code tensor with a
+        dictionary attached."""
+        if self._enc == "FLAT" and self.dictionary is not None:
+            return "DICT"
+        return self._enc
+
+    @property
+    def rle_value(self) -> np.ndarray:
+        """The RLE run's stored scalar (storage dtype; the code if DICT)."""
+        if self._enc != "RLE":
+            raise ValueError(f"rle_value of a {self.encoding} column")
+        return self._rle_value
+
+    @property
+    def is_materialized(self) -> bool:
+        return self._data is not None or self._enc == "RLE"
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _materialize(self) -> None:
+        if self._enc == "RLE":
+            self._data = torch.full((self._length,), self._rle_value.item(),
+                                    dtype=torch_dtype(self._rle_value.dtype),
+                                    device=self._device)
+            return
+        thunk, self._thunk = self._thunk, None
+        data, valid = thunk()
+        data = _to_device(as_tensor(data), self._device)
+        if int(data.shape[0]) != self._length:
+            raise ValueError(f"lazy column thunk gave {data.shape[0]} rows, "
+                             f"expected {self._length}")
+        self._data = data
+        self._valid = _normalized_valid(
+            None if valid is None
+            else _to_device(as_tensor(valid), self._device))
+        self._enc = "FLAT"
+        if self._on_materialize is not None:
+            self._on_materialize(self)
+
+    @property
+    def data(self) -> torch.Tensor:
+        if self._data is None:
+            self._materialize()
+        return self._data
+
+    @property
+    def valid(self) -> Optional[torch.Tensor]:
+        if self._data is None and self._enc == "LAZY":
+            self._materialize()
+        return self._valid
 
     def __len__(self) -> int:
-        return int(self.data.shape[0])
+        return self._length
 
     def __repr__(self) -> str:
-        return f"Column(type={self.type}, len={len(self)})"
+        return (f"Column(type={self.type}, encoding={self.encoding}, "
+                f"len={self._length})")
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes held: the run's one value for RLE, the hint while LAZY,
+        plus the mask and the dictionary's payload."""
+        if self._enc == "RLE":
+            n = int(self._rle_value.nbytes)
+        elif self._data is None:
+            n = self._nbytes_hint
+        else:
+            n = self._data.numel() * self._data.element_size()
+        if self._valid is not None:
+            n += self._valid.numel()
+        return n + _dictionary_nbytes(self.dictionary)
+
+    @property
+    def flat_nbytes(self) -> int:
+        """Bytes of the expanded flat representation (what execution
+        without encodings carries): the baseline of bytes saved."""
+        itemsize = np.dtype(np.int32 if self.dictionary is not None
+                            else self.type.storage_dtype).itemsize
+        n = self._length * itemsize
+        if self._valid is not None:
+            n += self._length
+        return n + _dictionary_nbytes(self.dictionary)
 
     def to(self, device) -> "Column":
-        return Column(self.type, self.data.to(device),
-                      None if self.valid is None else self.valid.to(device),
+        """The column on ``device`` (itself when already there); an RLE run
+        stays a run."""
+        dev = _canon_device(device)
+        if dev == self._device:
+            return self
+        if self._enc == "RLE":
+            return Column.rle(self.type, self._rle_value, self._length,
+                              self._valid, self.dictionary, device=dev)
+        valid = self.valid
+        return Column(self.type, self.data.to(dev),
+                      None if valid is None else valid.to(dev),
                       self.dictionary)
 
     def valid_mask(self) -> torch.Tensor:
         if self.valid is None:
             return torch.ones(len(self), dtype=torch.bool,
-                              device=self.data.device)
+                              device=self._device)
         return self.valid
 
+    def _empty_flat(self) -> "Column":
+        """A zero-row flat column: an empty selection of a LAZY column
+        skips its thunk."""
+        dtype = np.int32 if self.dictionary is not None \
+            else self.type.storage_dtype
+        return Column(self.type, torch.empty(0, dtype=torch_dtype(dtype),
+                                             device=self._device),
+                      None, self.dictionary)
+
     def filter(self, mask: torch.Tensor) -> "Column":
+        if self._enc == "RLE":
+            # a selection of a constant run is still a constant run
+            n = int(mask.sum())
+            valid = None if self._valid is None else self._valid[mask]
+            return Column.rle(self.type, self._rle_value, n, valid,
+                              self.dictionary, device=self._device)
+        if self._data is None and not bool(mask.any()):
+            return self._empty_flat()
         valid = None if self.valid is None else self.valid[mask]
         return Column(self.type, self.data[mask], valid, self.dictionary)
 
     def take(self, idx: torch.Tensor) -> "Column":
         """Rows at integer positions ``idx`` (same device)."""
+        if self._enc == "RLE":
+            valid = None if self._valid is None else self._valid[idx]
+            return Column.rle(self.type, self._rle_value, int(idx.shape[0]),
+                              valid, self.dictionary, device=self._device)
+        if self._data is None and int(idx.shape[0]) == 0:
+            return self._empty_flat()
         valid = None if self.valid is None else self.valid[idx]
         return Column(self.type, self.data[idx], valid, self.dictionary)
 
     def slice_rows(self, start: int, stop: int) -> "Column":
+        if self._enc == "RLE":
+            stop = min(stop, self._length)
+            valid = None if self._valid is None else self._valid[start:stop]
+            return Column.rle(self.type, self._rle_value,
+                              max(0, stop - start), valid, self.dictionary,
+                              device=self._device)
         valid = None if self.valid is None else self.valid[start:stop]
         return Column(self.type, self.data[start:stop], valid,
                       self.dictionary)
@@ -321,11 +560,15 @@ def unify_dictionaries(columns: Sequence[Column]) -> list[Column]:
         remaps = [np.searchsorted(merged, d).astype(np.int32) for d in dicts]
     out = []
     for c, d, remap in zip(columns, dicts, remaps):
+        if c.encoding == "RLE":  # the run's one code moves
+            out.append(Column.rle(
+                c.type, remap[int(c.rle_value)] if len(d) else 0, len(c),
+                c.valid, merged, device=c.device))
+            continue
         if not len(d):
-            data = torch.zeros(len(c), dtype=torch.int32,
-                               device=c.data.device)
+            data = torch.zeros(len(c), dtype=torch.int32, device=c.device)
         else:
-            data = as_tensor(remap, c.data.device)[c.data.long()]
+            data = as_tensor(remap, c.device)[c.data.long()]
         out.append(Column(c.type, data, c.valid, merged))
     return out
 
@@ -366,7 +609,11 @@ class ColumnBatch:
 
     @property
     def device(self) -> torch.device:
-        return self.columns[0].data.device
+        return self.columns[0].device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(c.nbytes for c in self.columns)
 
     def column(self, name: str) -> Column:
         return self.columns[self.names.index(name)]
@@ -409,6 +656,10 @@ class ColumnBatch:
         out_cols = []
         for i in range(len(names)):
             cols = [b.columns[i] for b in batches]
+            rle = _concat_rle(cols)
+            if rle is not None:
+                out_cols.append(rle)
+                continue
             if cols[0].type.is_dictionary_encoded:
                 cols = unify_dictionaries(cols)
             data = torch.cat([c.data for c in cols])
@@ -430,3 +681,38 @@ class ColumnBatch:
         dense = self.compact()
         cols = [c.to_pylist() for c in dense.columns]
         return list(zip(*cols)) if cols else []
+
+
+def _concat_rle(cols: Sequence[Column]) -> Optional[Column]:
+    """One RLE column covering a concatenation of runs of one value (and
+    one dictionary), or None."""
+    first = cols[0]
+    if not all(c.encoding == "RLE" for c in cols) or any(
+            c.rle_value != first.rle_value or c.device != first.device
+            or not _same_dictionary(c.dictionary, first.dictionary)
+            for c in cols[1:]):
+        return None
+    valid = None
+    if any(c.valid is not None for c in cols):
+        valid = torch.cat([c.valid_mask() for c in cols])
+    return Column.rle(first.type, first.rle_value, sum(len(c) for c in cols),
+                      valid, first.dictionary, device=first.device)
+
+
+# below this a run saves nothing worth the check
+RLE_DETECT_MIN_ROWS = 64
+
+
+def maybe_rle(col: Column) -> Column:
+    """Constant-run detection at page build: a host FLAT / DICT column
+    whose every element equals its first becomes RLE (on the CPU; the
+    caller moves it).  A first / last probe rejects most columns in
+    O(1)."""
+    if (col.encoding not in ("FLAT", "DICT") or len(col) < RLE_DETECT_MIN_ROWS
+            or col.device.type != "cpu"):
+        return col
+    data = col.data.numpy()
+    if data[0] != data[-1] or not (data == data[0]).all():
+        return col
+    return Column.rle(col.type, data[0], len(col), col.valid, col.dictionary,
+                      device="cpu")

@@ -158,6 +158,12 @@ class Connector:
     def get_splits(self, table: str, splits_per_node: int, node_count: int) -> list[Split]:
         raise NotImplementedError
 
+    def is_resident(self, table: str) -> bool:
+        """Every batch of ``table`` is held in memory on its device (a
+        pinned table): scans hand them on as they are, with no prefetch
+        threads, masks or copies."""
+        return False
+
     def create_page_source(self, split: Split, columns: Sequence[str],
                            constraint=None) -> ConnectorPageSource:
         """``constraint`` is an advisory spi/predicate.TupleDomain the

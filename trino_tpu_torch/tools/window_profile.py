@@ -11,14 +11,16 @@ all of them) once to warm it, five more times without the profiler, then
 once under ``torch.profiler``, each run with the device synchronized at
 its end.  For each query it prints the median wall ms of the unprofiled
 runs (the profiler's own host work would inflate the wall of the traced
-one, which is printed beside it), the summed device time of the traced
-run's kernels, the share of the median unprofiled wall the device was
-idle (one stream: kernels do not overlap), and the operations that took
+one, which is printed beside it), the traced run's device time (the
+union of its kernels', copies' and sets' intervals), the share of the
+median unprofiled wall the device was idle, and the operations that took
 the most device time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import statistics
 import sys
 import time
@@ -62,9 +64,6 @@ def _device_us(evt) -> float:
 def profile(runner, sql: str) -> tuple:
     """(median unprofiled wall ms, traced wall ms, device ms, rows of (op
     name, device ms, calls))."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
     runner.execute(sql)
     torch.cuda.synchronize()
     walls = []
@@ -73,22 +72,66 @@ def profile(runner, sql: str) -> tuple:
         runner.execute(sql)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(walls)
+    traced, busy, ops, _ = trace(runner, sql)
+    return statistics.median(walls), traced, busy, ops
+
+
+def trace(runner, sql: str, stats=None) -> tuple:
+    """One run of ``sql`` under ``torch.profiler``: (traced wall ms, device
+    ms, rows of (op name, device ms, calls), host-to-device bytes by
+    memcpy kind, e.g. "Memcpy HtoD (Pinned -> Device)").  The device ms is
+    the union of the device events' intervals (kernels, copies, sets): a
+    side stream's copies overlap the compute stream's kernels.  The bytes
+    come from the trace's copy events; the trace is written to, read from
+    and removed under build/profiles/.  ``stats`` (a QueryStats) is handed
+    to the run."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.execute(sql)
+        runner.execute(sql, stats=stats)
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3
-    # kernels, memcpys and memsets: the events that ran on the device
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(_device_us(e) for e in device) / 1e3
     ops = sorted(((e.key, _device_us(e) / 1e3, e.count) for e in
                   prof.key_averages() if _device_us(e) > 0
                   and e.device_type != torch.autograd.DeviceType.CUDA),
                  key=lambda r: -r[1])
-    return wall, traced, busy, ops
+    out = os.path.join("build", "profiles")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"trace-{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    spans, htod = [], {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in _DEVICE_CATS:
+            continue
+        spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        name = e.get("name", "")
+        if "HtoD" in name:
+            htod[name] = htod.get(name, 0) + int(
+                e.get("args", {}).get("bytes", 0))
+    return traced, _union_ms(spans), ops, htod
+
+
+# trace-event categories of work on the device
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _union_ms(spans) -> float:
+    """Total length of the union of [start, end) us intervals, in ms."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total / 1e3
 
 
 def main(argv: list[str]) -> int:
