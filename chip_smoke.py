@@ -4,7 +4,7 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10, 11, 12, 13, 14, 6, 9, so the kernel phase holds
+the order 1-5, 7, 8, 10-15, 6, 9, so the kernel phase holds
 the staged, surface, window and nested paths' calls too).  The tpch path
 runs the runner's default scan: dynamic filters, split prefetch threads,
 coalescing into pinned buffers with side-stream copies, RLE / LAZY
@@ -36,7 +36,10 @@ default optimizer, the iterative one:
      (phase 11), labelled "surface": G1's insert, J3's probe, G3's segment
      sum; the largest insert of W3, W5 and W7 (phase 12), labelled
      "windows" (few keys, many rows each); and the nested path's largest
-     insert (phase 13), labelled "nested".  The bound's random table traffic is one 32-byte sector per
+     insert (phase 13), labelled "nested"; and ANALYZE's insert over a
+     one-column copy of l_extendedprice (the shape phase 15's ANALYZE
+     gives each column that is not a dictionary: two planes, no live
+     mask, 5,998,321 rows), labelled "statements".  The bound's random table traffic is one 32-byte sector per
      distinct home slot of the live rows (rows of one key share theirs);
   7. staging: the eight TPC-H tables at SF 1 into the memory connector on
      cuda (connectors/staging.py: orders and lineitem generated on the
@@ -102,7 +105,19 @@ default optimizer, the iterative one:
      the card, against the host domain of the same keys; then the staged
      path's 24 queries with ingest on and off, in turns (its batches skip
      the new path).  It prints os.cpu_count() and the prefetch thread
-     count.
+     count;
+ 15. statements: over ``li15``, a CTAS copy of the staged SF 1 lineitem,
+     CALL memory.pin_table, ANALYZE (row count and the 16 NDVs against
+     numpy over the host generator, a hash_insert per column that is not
+     a dictionary, device-to-host bytes traced), DELETE (count and a
+     grouped aggregate of the kept rows against numpy, the table still
+     resident), Q21 and Q12 read through views (rows equal, hash_probe
+     launched), a materialized view of R1 refreshed after an INSERT
+     (rows against numpy, staleness, masked_segment_sum_f32 launched,
+     backing table resident), a rolled-back INSERT, SET SESSION
+     dynamic_filtering on the tpch path (Q12 prunes nothing, then again)
+     and SHOW TABLES; each step's ms beside the card's name and power
+     limit.  Its launches are the kernels line's ``launches_statements``.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -772,11 +787,28 @@ def _same_generated(torch, dev_col, host_col, what: str) -> None:
         raise AssertionError(f"{what}: staged column != host generator")
 
 
+def host_generated(mem, table: str) -> tuple:
+    """(staged batch, the host generator's batch) of the staged TPC-H
+    ``table`` (orders or lineitem) at PATH_SF.  The fresh host generator's
+    dictionary cache holds the staged vocabularies: it then maps each
+    row's vocabulary index through them instead of first building its
+    data-derived dictionaries (python strings for 6 M comments: minutes at
+    SF 1), and equal codes mean equal strings."""
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    (split,) = mem.get_splits(table, 1, 1)
+    cols = mem.get_table_schema(table).column_names()
+    staged = mem.create_page_source(split, cols).get_next_batch()
+    tpch = TpchConnector(PATH_SF)
+    for name in cols:
+        if staged.column(name).dictionary is not None:
+            tpch._dict_cache[(table, name)] = staged.column(name).dictionary
+    return staged, tpch._generate(table, cols, 0, tpch.row_count("orders"))
+
+
 def stage_sf1(torch, default_catalog, stage_memory_tables):
     """Phase 7: all eight tables into memory on cuda, orders and lineitem
     checked column by column against the host generator."""
-    from trino_tpu_torch.connectors.tpch import TpchConnector
-
     cat = default_catalog(PATH_SF)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -793,25 +825,13 @@ def stage_sf1(torch, default_catalog, stage_memory_tables):
     mem = cat.connector("memory")
     t0 = time.perf_counter()
     for t in ("orders", "lineitem"):
-        (split,) = mem.get_splits(t, 1, 1)
-        cols = mem.get_table_schema(t).column_names()
-        staged = mem.create_page_source(split, cols).get_next_batch()
-        # a fresh host generator whose dictionary cache holds the staged
-        # vocabularies: it then maps each row's vocabulary index through
-        # them instead of first building its data-derived dictionaries
-        # (python strings for 6 M comments: minutes at SF 1), and equal
-        # codes mean equal strings
-        tpch = TpchConnector(PATH_SF)
-        for name in cols:
-            if staged.column(name).dictionary is not None:
-                tpch._dict_cache[(t, name)] = staged.column(name).dictionary
-        host = tpch._generate(t, cols, 0, tpch.row_count("orders"))
+        staged, host = host_generated(mem, t)
         if staged.num_rows != host.num_rows or staged.live is not None:
             raise AssertionError(f"staged {t}: {staged.num_rows} rows")
-        for name in cols:
+        for name in staged.names:
             _same_generated(torch, staged.column(name), host.column(name),
                             f"staged {t}.{name}")
-        log(f"staging SF{PATH_SF:g} {t}: {len(cols)} columns x "
+        log(f"staging SF{PATH_SF:g} {t}: {len(staged.names)} columns x "
             f"{host.num_rows} rows bit-identical to the host generator")
     log(f"bit-identity check: {time.perf_counter() - t0:.1f} s")
     return cat
@@ -1554,6 +1574,261 @@ def ingest(torch, StandaloneQueryRunner, catalog, sqls: dict,
     log(f"ingest: {time.perf_counter() - t_phase:.1f} s for phase 14")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the statements a session sends besides queries
+
+
+LI15 = "li15"  # the copy of the staged lineitem the statements rewrite
+# phase 6's one-column copy of the staged lineitem, for ANALYZE's insert
+ANALYZE_CASE = "memory.px6"
+DELETE_SQL = "delete from li15 where l_shipdate > date '1998-09-02'"
+DELETE_CUT = (1998, 9, 2)
+R15_SQL = ("create materialized view r15 as select l_linenumber, "
+           "sum(cast(l_quantity as real)) as q, "
+           "sum(cast(l_extendedprice as real)) as p "
+           "from li15 group by l_linenumber")
+DTOH_SLACK = 64  # device-to-host bytes per column for counts and sizes
+
+
+def _host_ndv(col) -> int:
+    """Distinct values of a host generator column (no NULLs in TPC-H)."""
+    if isinstance(col, Strings):
+        return len(set(col.dictionary[np.unique(col.codes)]))
+    return len(np.unique(col))
+
+
+def _dtoh(copies: dict) -> int:
+    return sum(v for k, v in copies.items() if "DtoH" in k)
+
+
+def statements(torch, GK, StandaloneQueryRunner, staged_cat, tpch_runner,
+               smi: str, q12_rows: list) -> dict:
+    """Phase 15: the statements a session sends besides queries, over a
+    copy of the staged SF 1 lineitem (``li15``, so the other phases read
+    the staged tables unchanged): CALL memory.pin_table; ANALYZE (row count
+    and 16 NDVs against numpy over the host generator's columns, made as
+    phase 7 makes them, a hash_insert per column that is not a dictionary,
+    device-to-host bytes no more than the dictionaries' present codes);
+    DELETE (count and a grouped aggregate of the kept rows against numpy,
+    residency kept, no column through the host); Q21 and Q12 read through
+    views (rows equal the direct queries, hash_probe launched); a
+    materialized view of R1 over li15 refreshed after an INSERT (rows
+    against numpy, staleness true then false, masked_segment_sum_f32
+    launched, backing table resident); START TRANSACTION, INSERT, ROLLBACK
+    (count back, residency kept); SET SESSION dynamic_filtering = false on
+    the tpch path (Q12's rows equal, nothing pruned) and back; SHOW
+    TABLES.  Each step's ms is printed beside the card's name and power
+    limit.  Returns the phase's launches, which must include every
+    kernel."""
+    from trino_tpu_torch.connectors.tpch_queries import QUERIES
+    from trino_tpu_torch.exec.stats import QueryStats
+    from trino_tpu_torch.tools.window_profile import copy_bytes
+
+    t_phase = time.perf_counter()
+    label = f"statements SF{PATH_SF:g}"
+    runner = StandaloneQueryRunner(staged_cat, device="cuda",
+                                   default_catalog_name="memory",
+                                   splits_per_node=1)
+    mem = staged_cat.connector("memory")
+    t0 = time.perf_counter()
+    li = _numpy_columns(host_generated(mem, "lineitem")[1])
+    cols = list(li)
+    n = len(li["l_orderkey"])
+    log(f"{label}: host generator's lineitem for numpy, {n} rows, "
+        f"{time.perf_counter() - t0:.1f} s")
+    GK.reset_launch_counts()
+
+    def run(sql: str, step: str, r=None, stats=None) -> list:
+        t0 = time.perf_counter()
+        rows = (r or runner).execute(sql, stats=stats).rows()
+        torch.cuda.synchronize()
+        log(f"{label} {step}: {(time.perf_counter() - t0) * 1e3:.1f} ms "
+            f"[{smi}]")
+        return rows
+
+    def resident(table: str, when: str) -> None:
+        if not mem.is_resident(table):
+            raise AssertionError(f"{label}: {table} not resident {when}")
+        for split in mem.get_splits(table, 1, 1):
+            src = mem.create_page_source(split,
+                                         mem.get_table_schema(table)
+                                         .column_names())
+            while (b := src.get_next_batch()) is not None:
+                for name, c in zip(b.names, b.columns):
+                    if c.device.type != runner.device.type:
+                        raise AssertionError(
+                            f"{label}: {table}.{name} on {c.device} "
+                            f"{when}")
+
+    def launched(before: dict, kernel: str) -> int:
+        return GK.LAUNCHES[kernel] - before[kernel]
+
+    # 1. a copy of the staged lineitem, pinned through CALL
+    if run(f"create table memory.{LI15} as select * from lineitem",
+           "1 create table li15 as select * from lineitem") != [(n,)]:
+        raise AssertionError(f"{label}: li15 does not hold {n} rows")
+    if run(f"call memory.pin_table('{LI15}')", "1 call memory.pin_table") \
+            != [(f"pinned {LI15}",)]:
+        raise AssertionError(f"{label}: pin_table did not answer")
+    resident(LI15, "after CALL memory.pin_table")
+
+    # 2. ANALYZE on the card
+    before = dict(GK.LAUNCHES)
+    if run(f"analyze memory.{LI15}", "2 analyze memory.li15") != [(n,)]:
+        raise AssertionError(f"{label}: ANALYZE counted other than {n}")
+    stats = mem.get_table_statistics(LI15)
+    schema = mem.get_table_schema(LI15)
+    dict_ndv = 0
+    for c in schema.columns:
+        want = _host_ndv(li[c.name])
+        if stats.ndv[c.name] != want:
+            raise AssertionError(f"{label}: NDV of {c.name} "
+                                 f"{stats.ndv[c.name]}, numpy {want}")
+        if c.type.is_dictionary_encoded:
+            dict_ndv += want
+    non_dict = sum(not c.type.is_dictionary_encoded for c in schema.columns)
+    inserts = launched(before, "hash_insert")
+    if inserts < non_dict:
+        raise AssertionError(f"{label}: ANALYZE launched hash_insert "
+                             f"{inserts} times for {non_dict} columns")
+    copies = copy_bytes(lambda: runner.execute(f"analyze memory.{LI15}"))
+    limit = 8 * dict_ndv + DTOH_SLACK * len(cols)
+    if _dtoh(copies) > limit:
+        raise AssertionError(f"{label}: ANALYZE copied {_dtoh(copies)} "
+                             f"bytes to the host, limit {limit}")
+    log(f"{label}: ANALYZE rows {n}, 16 NDVs equal numpy "
+        f"({dict(stats.ndv)}); hash_insert {inserts} launches for "
+        f"{non_dict} columns that are not dictionaries; device-to-host "
+        f"{_dtoh(copies)} bytes (limit {limit}: the present codes of the "
+        f"dictionaries); copies by kind {copies}")
+
+    # 3. DELETE: rewritten on the card, still resident
+    gone = li["l_shipdate"] > _days(*DELETE_CUT)
+    keep = ~gone
+    if run(DELETE_SQL, "3 delete from li15 where l_shipdate > "
+           "date '1998-09-02'") != [(int(gone.sum()),)]:
+        raise AssertionError(f"{label}: DELETE count is not numpy's "
+                             f"{int(gone.sum())}")
+    resident(LI15, "after DELETE")
+    got = run("select l_linenumber, count(*), sum(l_quantity) from li15 "
+              "group by l_linenumber order by l_linenumber",
+              "3 grouped aggregate over the kept rows")
+    uk, inv = np.unique(li["l_linenumber"][keep], return_inverse=True)
+    sums = np.bincount(inv, weights=li["l_quantity"][keep])
+    same_rows(got, [(int(k), int(c), _dec(int(round(s)), 2)) for k, c, s in
+                    zip(uk, np.bincount(inv), sums)],
+              f"{label} kept rows vs numpy")
+    copies = copy_bytes(lambda: runner.execute(DELETE_SQL))
+    if _dtoh(copies) > DTOH_SLACK * len(cols):
+        raise AssertionError(f"{label}: a DELETE copied {_dtoh(copies)} "
+                             "bytes to the host")
+    resident(LI15, "after a second DELETE")
+    log(f"{label}: DELETE removed {int(gone.sum())} rows as numpy, kept "
+        f"{int(keep.sum())}; a second DELETE (no rows) copied "
+        f"{_dtoh(copies)} bytes to the host")
+
+    # 4. views over the staged tables
+    run(f"create view v15_q21 as {QUERIES[21]}", "4 create view v15_q21")
+    run("create view v15_li as select * from lineitem",
+        "4 create view v15_li")
+    before = dict(GK.LAUNCHES)
+    got = run("select * from v15_q21", "4 Q21 through view v15_q21")
+    probes = launched(before, "hash_probe")
+    same_rows(sorted(got), sorted(runner.execute(QUERIES[21]).rows()),
+              f"{label} Q21 through a view vs direct")
+    if probes <= 0:
+        raise AssertionError(f"{label}: Q21 through a view launched no "
+                             "hash_probe")
+    q12_view = QUERIES[12].replace("    lineitem\n", "    v15_li\n")
+    if q12_view == QUERIES[12]:
+        raise AssertionError(f"{label}: Q12's text has no lineitem line")
+    same_rows(run(q12_view, "4 Q12 over view v15_li"), q12_rows,
+              f"{label} Q12 over a view vs direct")
+    log(f"{label}: Q21 through a view equals the direct query "
+        f"({len(got)} rows, hash_probe {probes} launches); Q12 over a "
+        "view of lineitem equals Q12")
+
+    # 5. a materialized view of R1 over li15, refreshed after an INSERT
+    def oracle(mask):
+        return real_oracle(lambda t, cs: {c: li[c][mask] for c in cs}, "R1")
+
+    before = dict(GK.LAUNCHES)
+    run(R15_SQL, "5 create materialized view r15 (R1 over li15)")
+    read_mv = "select * from r15 order by l_linenumber"
+    same_rows(run(read_mv, "5 select from r15"), oracle(keep),
+              f"{label} r15 vs numpy", KERNEL_VS_F64_RTOL)
+    if runner.catalog.mv_is_stale("r15"):
+        raise AssertionError(f"{label}: r15 stale after its creation")
+    run("insert into li15 select * from lineitem "
+        "where l_shipdate > date '1998-09-02'",
+        "5 insert the deleted rows back into li15")
+    if not runner.catalog.mv_is_stale("r15"):
+        raise AssertionError(f"{label}: r15 not stale after an INSERT")
+    seg = GK.LAUNCHES["masked_segment_sum_f32"]
+    run("refresh materialized view r15", "5 refresh materialized view r15")
+    seg = GK.LAUNCHES["masked_segment_sum_f32"] - seg
+    if seg <= 0 or runner.catalog.mv_is_stale("r15"):
+        raise AssertionError(f"{label}: REFRESH launched {seg} segment "
+                             "sums and left r15 stale")
+    same_rows(run(read_mv, "5 select from r15"), oracle(slice(None)),
+              f"{label} refreshed r15 vs numpy", KERNEL_VS_F64_RTOL)
+    resident("__mv_r15", "after REFRESH")
+    run(f"call memory.pin_table('{LI15}')",
+        "5 call memory.pin_table (the inserted batch)")
+    resident(LI15, "after the second pin")
+    log(f"{label}: r15 equals numpy's R1 over the kept rows, then over "
+        f"all rows after INSERT + REFRESH ({seg} segment-sum launches); "
+        "stale after the INSERT, fresh after the REFRESH; backing table "
+        f"resident; phase launches so far {dict(GK.LAUNCHES)}")
+
+    # 6. a rolled-back INSERT
+    start = run("select count(*) from li15", "6 count")[0][0]
+    run("start transaction", "6 start transaction")
+    added = run("insert into li15 select * from lineitem "
+                "where l_orderkey < 100000", "6 insert")[0][0]
+    mid = run("select count(*) from li15", "6 count")[0][0]
+    run("rollback", "6 rollback")
+    end = run("select count(*) from li15", "6 count")[0][0]
+    if (start, mid, end) != (n, n + added, n) or added <= 0:
+        raise AssertionError(f"{label}: counts {start}, {mid}, {end} "
+                             f"around a rolled-back insert of {added}")
+    resident(LI15, "after ROLLBACK")
+    log(f"{label}: ROLLBACK of a {added}-row INSERT: count {start} -> "
+        f"{mid} -> {end}, li15 resident")
+
+    # 7. SET SESSION on the tpch path: no dynamic filtering, then back
+    pruned = {}
+    for value in ("false", "true"):
+        run(f"set session dynamic_filtering = {value}",
+            f"7 set session dynamic_filtering = {value}", tpch_runner)
+        st = QueryStats()
+        same_rows(run(QUERIES[12], f"7 Q12 (dynamic_filtering = {value})",
+                      tpch_runner, st), q12_rows,
+                  f"{label} Q12 dynamic_filtering = {value}")
+        pruned[value] = st.scan.rows_pruned
+    if pruned["false"] != 0 or pruned["true"] <= 0:
+        raise AssertionError(f"{label}: rows pruned {pruned}")
+    log(f"{label}: Q12 on the tpch path pruned {pruned['false']} rows with "
+        f"dynamic_filtering = false, {pruned['true']} with true")
+
+    # 8. SHOW TABLES
+    tables = {r[0] for r in run("show tables", "8 show tables")}
+    want = {LI15, "v15_q21", "v15_li", "r15", "__mv_r15", "lineitem"}
+    if not want <= tables:
+        raise AssertionError(f"{label}: SHOW TABLES lacks {want - tables}")
+    for sql in ("drop view v15_q21", "drop view v15_li",
+                "drop materialized view r15", f"drop table {LI15}"):
+        runner.execute(sql)
+    launches = dict(GK.LAUNCHES)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{label}: no launch of {missing}")
+    torch.cuda.empty_cache()
+    log(f"{label} launches: {launches}")
+    log(f"statements: {time.perf_counter() - t_phase:.1f} s for phase 15")
+    return launches
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -1612,6 +1887,9 @@ def kernel_cases(torch, GK, captured) -> list:
         raise AssertionError("the nested path made no hash_insert call")
     q, args = max(calls, key=lambda qc: _rows_of("hash_insert", qc[1]))
     cases.append(("hash_insert", f"nested: largest insert ({q[7:]})", args))
+    cases.append(("hash_insert", "statements: ANALYZE of l_extendedprice",
+                  pick("statements ANALYZE", "hash_insert",
+                       lambda c: True)))
     return cases
 
 
@@ -1744,10 +2022,17 @@ def main() -> int:
     ingest(torch, StandaloneQueryRunner, runner.catalog, sqls, scans,
            staged_cat)
 
+    # -- 15. the statements a session sends besides queries ----------------
+    statement_launches = statements(torch, GK, StandaloneQueryRunner,
+                                    staged_cat, runner, smi,
+                                    path_rows["Q12"])
+
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
     # kept apart from the path runs so the held tensors do not inflate
     # their peak memory, and its launches are not the paths'.
+    staged.execute(f"create table {ANALYZE_CASE} as "
+                   "select l_extendedprice from lineitem")
     captured = capture_calls(GK, [
         (f"{prefix}{name}", r, sqls[name]) for prefix, r in
         (("", runner), ("staged ", staged)) for name in CAPTURE_QUERIES]
@@ -1756,7 +2041,9 @@ def main() -> int:
         + [(f"windows {name}", staged, WINDOW_QUERIES[name])
            for name in WINDOW_CAPTURE]
         + [(f"nested {name}", staged, NESTED_QUERIES[name])
-           for name in NESTED_CAPTURE])
+           for name in NESTED_CAPTURE]
+        + [("statements ANALYZE", staged, f"analyze {ANALYZE_CASE}")])
+    staged.execute(f"drop table {ANALYZE_CASE}")
     cases = kernel_cases(torch, GK, captured)
     log(library_read_rate(torch, cases[7][2][0]))
     entries = {}
@@ -1800,6 +2087,7 @@ def main() -> int:
             "launches_surface": surface_launches[kernel],
             "launches_windows": window_launches[kernel],
             "launches_nested": nested_launches[kernel],
+            "launches_statements": statement_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],

@@ -494,3 +494,101 @@ def test_device_domain_on_card_equals_cpu(cuda):
                              dict_len).result()
         assert cpu[:2] == gpu[:2] and cpu[2] == gpu[2] and cpu[3] == gpu[3]
         np.testing.assert_array_equal(cpu[4], gpu[4])
+
+
+# ---------------------------------------------------------------------------
+# statements on the card: ANALYZE, DELETE, REFRESH, CALL pin_table
+
+def _refuse_plain(monkeypatch):
+    """A statement on the card must launch the kernels: a plain version
+    called with a CUDA tensor fails the test (the CPU runner keeps
+    them)."""
+    def refusing(orig):
+        def call(*args):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError("plain version on the card's path")
+            return orig(*args)
+        return call
+
+    for name in ("hash_insert_plain", "hash_probe_plain",
+                 "masked_segment_sum_f32_plain"):
+        monkeypatch.setattr(GK, name, refusing(getattr(GK, name)))
+
+
+def _statement_runners():
+    from trino_tpu_torch.runner import Session
+
+    gpu = StandaloneQueryRunner(default_catalog(0.01), device="cuda",
+                                session=Session(default_catalog="memory"))
+    cpu = StandaloneQueryRunner(default_catalog(0.01), device="cpu",
+                                session=Session(default_catalog="memory"))
+    return gpu, cpu
+
+
+@pytest.mark.gpu
+def test_analyze_on_card_equals_cpu(cuda, monkeypatch):
+    gpu, cpu = _statement_runners()
+    for r in (gpu, cpu):
+        r.execute("create table li as select * from tpch.lineitem")
+        r.execute("insert into li select * from tpch.lineitem "
+                  "where l_orderkey < 1000")  # a second batch
+    assert gpu.execute("call memory.pin_table('li')").rows() == [
+        ("pinned li",)]
+    mem = gpu.catalog.connector("memory")
+    assert mem.is_resident("li")
+    schema = mem.get_table_schema("li")
+    non_dict = sum(not c.type.is_dictionary_encoded for c in schema.columns)
+    _refuse_plain(monkeypatch)
+    before = GK.LAUNCHES["hash_insert"]
+    assert gpu.execute("analyze li").rows() == cpu.execute(
+        "analyze li").rows()
+    assert GK.LAUNCHES["hash_insert"] - before == non_dict
+    got = mem.get_table_statistics("li")
+    want = cpu.catalog.connector("memory").get_table_statistics("li")
+    assert (got.row_count, got.ndv) == (want.row_count, want.ndv)
+
+
+@pytest.mark.gpu
+def test_delete_and_refresh_keep_cuda_tables_resident(cuda, monkeypatch):
+    gpu, cpu = _statement_runners()
+    for r in (gpu, cpu):
+        r.execute("create table o as select o_orderkey, o_orderstatus, "
+                  "o_totalprice from tpch.orders")
+    gpu.execute("call memory.pin_table('o')")
+    mem = gpu.catalog.connector("memory")
+    _refuse_plain(monkeypatch)
+    sql = "delete from o where o_orderstatus = 'F'"
+    assert gpu.execute(sql).rows() == cpu.execute(sql).rows()
+    assert mem.is_resident("o")
+    for sql in ("create materialized view m as select o_orderstatus, "
+                "count(*) c, sum(o_totalprice) s from o group by "
+                "o_orderstatus",
+                "insert into o select o_orderkey, o_orderstatus, "
+                "o_totalprice from tpch.orders where o_orderkey < 100",
+                "refresh materialized view m"):
+        gpu.execute(sql)
+        cpu.execute(sql)
+    assert mem.is_resident("__mv_m")
+    for table in ("o", "__mv_m"):
+        for b in mem._data[table]:
+            assert all(c.device.type == "cuda" for c in b.columns), table
+    q = "select * from m order by o_orderstatus"
+    assert gpu.execute(q).rows() == cpu.execute(q).rows()
+
+
+@pytest.mark.gpu
+def test_call_pin_table_pins_to_the_runners_device(cuda):
+    from trino_tpu_torch.spi.batch import Column, ColumnBatch
+    from trino_tpu_torch.spi.types import BIGINT
+
+    gpu, _ = _statement_runners()
+    gpu.execute("create table p (v bigint)")
+    mem = gpu.catalog.connector("memory")
+    mem.finish_insert("p", [[ColumnBatch(["v"], [
+        Column(BIGINT, np.arange(1000, dtype=np.int64))])]])  # a host batch
+    assert not mem.is_resident("p")
+    gpu.execute("call memory.pin_table('p')")
+    assert mem.is_resident("p")
+    assert all(c.device == torch.device("cuda", torch.cuda.current_device())
+               for b in mem._data["p"] for c in b.columns)
+    assert gpu.execute("select sum(v) from p").rows() == [(499500,)]

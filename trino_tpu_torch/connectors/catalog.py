@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import itertools
 import threading
+from typing import Optional
+
+from ..caching.result_cache import version_vector
 from ..spi.connector import Connector, TableSchema
 
 __all__ = ["Catalog", "default_catalog"]
@@ -67,6 +70,25 @@ class Catalog:
         """Schema/stats changed (DDL, ANALYZE, connector registration):
         cached plans built against the old catalog state must miss."""
         self.generation += 1
+
+    def table_versions(self, tables) -> Optional[tuple]:
+        """Sorted (catalog, table, version) vector for a (catalog, table)
+        iterable; None when any table is unversioned or unresolvable."""
+        return version_vector(tuple(tables), self)
+
+    def mv_is_stale(self, name: str) -> bool:
+        """A materialized view is stale when some base table's current
+        data_version differs from the vector captured at refresh.  Views
+        never refreshed, or with unversioned bases, report stale (the
+        conservative answer)."""
+        view = self.views.get(name)
+        if view is None or not view.materialized:
+            raise KeyError(f"no such materialized view: {name}")
+        if view.backing is None or view.base_versions is None:
+            return True
+        current = self.table_versions(
+            [(c, t) for c, t, _v in view.base_versions])
+        return current != view.base_versions
 
     def connector(self, name: str) -> Connector:
         if name not in self._connectors:

@@ -7,8 +7,10 @@ Tables live as lists of ColumnBatches; splits partition the batch list.
 so later scans hand its tensors to the operators with no copy: the warmed
 tables a benchmark reads (TPC-H staged by ``connectors/staging.py``).
 
-Not ported: transactions, connector procedures (the port has no CALL) and
-result-cache invalidation (the port has no result cache).
+Transactions roll INSERT / CTAS / CREATE TABLE back to a snapshot of the
+batch lists, and ``CALL memory.truncate_table`` / ``memory.pin_table`` are
+its procedures.  Not ported: result-cache invalidation (the port has no
+result cache).
 """
 
 from __future__ import annotations
@@ -158,11 +160,46 @@ class MemoryConnector(Connector):
 
     def drop_table(self, table: str) -> None:
         with self._lock:
-            self._schemas.pop(table, None)
-            self._data.pop(table, None)
-            self._pinned_batches.pop(table, None)
-            self._versions.pop(table, None)
-            getattr(self, "_analyzed_stats", {}).pop(table, None)
+            self._forget(table)
+
+    def _forget(self, table: str) -> None:
+        # callers hold self._lock
+        self._schemas.pop(table, None)
+        self._data.pop(table, None)
+        self._pinned_batches.pop(table, None)
+        self._versions.pop(table, None)
+        getattr(self, "_analyzed_stats", {}).pop(table, None)
+
+    def row_count(self, table: str) -> int:
+        """Rows held, from shapes (no device sync): stored batches are
+        compact (the sink's writer and ``pin_to_device`` compact them)."""
+        with self._lock:
+            if table not in self._schemas:
+                raise KeyError(f"memory: no such table {table!r}")
+            return sum(b.num_rows for b in self._data[table])
+
+    def get_procedures(self) -> dict:
+        """CALL memory.truncate_table('t') / memory.pin_table('t')
+        (reference: spi/procedure/Procedure.java — connector-registered
+        procedures dispatched by CallTask).  ``pin_table`` takes the
+        engine's device as the keyword ``device``, which the runner's CALL
+        passes (as Trino injects the session into a procedure)."""
+
+        def truncate_table(table: str) -> str:
+            with self._lock:
+                if table not in self._schemas:
+                    raise KeyError(f"memory: no such table {table!r}")
+                self._data[table] = []
+                self._pinned_batches.pop(table, None)
+                self._bump_version(table)
+            return f"truncated {table}"
+
+        def pin_table(table: str, *, device) -> str:
+            self.get_table_schema(table)  # existence check
+            self.pin_to_device(table, device)
+            return f"pinned {table}"
+
+        return {"truncate_table": truncate_table, "pin_table": pin_table}
 
     def get_splits(self, table: str, splits_per_node: int,
                    node_count: int) -> list[Split]:
@@ -207,6 +244,39 @@ class MemoryConnector(Connector):
             for staged in fragments:
                 self._data[table].extend(staged)
             self._bump_version(table)
+
+    # ---- transactions ----------------------------------------------------
+    def begin_transaction(self):
+        """Snapshot handle: per-table batch-list lengths + the table set.
+        Rollback undoes INSERT/CTAS/CREATE TABLE performed since BEGIN by
+        truncating back to the snapshot (DELETE's drop-and-rewrite is not
+        transactional — as in the reference memory connector, which only
+        supports INSERT/CREATE in a transaction)."""
+        with self._lock:
+            return {
+                "tables": set(self._schemas),
+                "lengths": {t: len(b) for t, b in self._data.items()},
+            }
+
+    def commit_transaction(self, handle) -> None:
+        pass  # writes applied eagerly; commit just drops the snapshot
+
+    def rollback_transaction(self, handle) -> None:
+        if handle is None:
+            return
+        with self._lock:
+            for t in list(self._schemas):
+                if t not in handle["tables"]:
+                    self._forget(t)
+            for t, n in handle["lengths"].items():
+                if t in self._data and len(self._data[t]) > n:
+                    del self._data[t][n:]
+                    # the pinned batches lead the list: a table resident at
+                    # BEGIN is resident again, over batches that still exist
+                    if t in self._pinned_batches:
+                        self._pinned_batches[t] = min(
+                            self._pinned_batches[t], n)
+                    self._bump_version(t)
 
     def pin_to_device(self, table: str, device) -> None:
         """Make a table device-resident: each batch is compacted and moved

@@ -27,10 +27,10 @@ from ..ops import gpu_kernels as GK
 
 __all__ = [
     "bucket", "key_planes", "hash_combine", "hash_row_gids",
-    "hash_group_ids", "small_codes_group_space", "small_grouped_aggregate",
-    "grouped_reduce", "finalize_groups", "group_keys_out", "device_sort",
-    "lexsort", "decimal_limb_tables", "combine_limb_sums", "rle_fill",
-    "DeviceDomain",
+    "distinct_count", "hash_group_ids", "small_codes_group_space",
+    "small_grouped_aggregate", "grouped_reduce", "finalize_groups",
+    "group_keys_out", "device_sort", "lexsort", "decimal_limb_tables",
+    "combine_limb_sums", "rle_fill", "DeviceDomain",
 ]
 
 
@@ -281,6 +281,20 @@ def hash_row_gids(keys: Sequence[tuple], live=None):
     row_gid, count, _table, _sgid = GK.hash_insert(
         torch.stack(planes), h32, live, S)
     return row_gid, count
+
+
+def distinct_count(data, valid=None) -> int:
+    """Distinct non-NULL values of one column (ANALYZE's NDV):
+    :func:`hash_row_gids`' count over the one key ``(data, None)`` with
+    ``valid`` as the live mask, so the count runs through ``hash_insert`` on
+    the column's device and only the count reaches the host.  Floats
+    compare as ``np.unique`` does: ``-0.0 == 0.0`` and NaN is one value
+    (``key_planes`` canonicalizes them)."""
+    if data.shape[0] == 0:
+        return 0
+    if valid is not None:
+        valid = valid.contiguous()
+    return hash_row_gids([(data, None)], valid)[1]
 
 
 def hash_group_ids(keys: Sequence[tuple], live=None) -> tuple:

@@ -1,0 +1,1 @@
+"""execution layer of the torch port (see module docstrings)."""

@@ -4,18 +4,30 @@ The port of the reference ``runner.py`` (StandaloneQueryRunner.execute):
 parse -> analyze/plan -> optimize -> local plan -> run the pipelines on
 ``device``.  ``optimizer`` selects the optimizer: ``"iterative"`` (the
 default, as in the reference) or ``"legacy"`` (the reference's
-``TRINO_TPU_OPTIMIZER=legacy``).  CREATE TABLE and DROP TABLE run as
-metadata statements (the reference's ``execute_ddl``); CREATE TABLE AS and
-INSERT plan a TableWriter; EXPLAIN [ANALYZE] returns the plan text, the
-iterative optimizer's rule firings and, under ANALYZE, the run's scan
-and encoding roll-ups and per-operator times and rows.  The reference's
-session and environment knobs of the scan are arguments, with the
-reference's defaults: ``dynamic_filtering`` (build-side key domains prune
-probe scans), ``ingest`` (an ``exec.prefetch.IngestConfig``: split
-prefetch threads, coalescing into pinned buffers, side-stream copies to
-the card; ``IngestConfig(enabled=False)`` is the synchronous scan) and
-``encoded_exec`` (RLE and LAZY columns).  No plan or result cache,
-sessions, access control, transactions or events (not ported yet).
+``TRINO_TPU_OPTIMIZER=legacy``).  EXPLAIN [ANALYZE] returns the plan text,
+the iterative optimizer's rule firings and, under ANALYZE, the run's scan
+and encoding roll-ups and per-operator times and rows.
+
+Besides queries, CREATE TABLE AS and INSERT (a TableWriter plan), the
+runner takes the statements a session sends, as the reference does:
+START TRANSACTION / COMMIT / ROLLBACK (``execution/transaction.py``), SET
+SESSION, SHOW TABLES / COLUMNS, CREATE / DROP TABLE, CREATE / DROP
+FUNCTION, CREATE [OR REPLACE] / DROP VIEW, CREATE / REFRESH / DROP
+MATERIALIZED VIEW, CALL of a connector procedure, ANALYZE and DELETE.
+Access control (``spi/security.py``) checks writes before a statement runs
+and the scanned columns of every plan.  ANALYZE counts distinct values on
+the runner's device through ``hash_insert``; DELETE and a refresh keep a
+device-resident table resident.
+
+The ``Session`` holds what the port acts on: ``default_catalog``,
+``user``, ``splits_per_node``, ``node_count`` and ``dynamic_filtering``,
+read on every statement.  SET SESSION also accepts the reference's other
+properties and stores them unread, except the three the port cannot honour
+yet, which take only their defaults.  The port-only arguments ``ingest`` (an
+``exec.prefetch.IngestConfig``: split prefetch threads, coalescing into
+pinned buffers, side-stream copies to the card), ``encoded_exec`` (RLE and
+LAZY columns), ``optimizer`` and ``device`` are not session properties.
+No plan or result cache and no query events (not ported yet).
 
 The runner runs on the card unless the caller asks for the CPU:
 ``device="cuda"`` (the default) raises when CUDA is not available.
@@ -23,29 +35,37 @@ The runner runs on the card unless the caller asks for the CPU:
 
 from __future__ import annotations
 
+import inspect
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .connectors.catalog import Catalog, default_catalog
+from .caching.plan_cache import scan_tables
+from .connectors.catalog import Catalog, ViewDefinition, default_catalog
+from .exec import kernels as K
 from .exec.driver import run_pipelines
 from .exec.local_planner import LocalPlanner
 from .exec.prefetch import IngestConfig
 from .exec.stats import QueryStats
+from .execution.transaction import handle_transaction_stmt
 from .planner.iterative import last_report
 from .planner.logical import LogicalPlanner
 from .planner.optimizer import OPTIMIZER_MODES, optimize
-from .planner.plan import PlanNode, plan_text
+from .planner.plan import PlanNode, TableScan, plan_text
 from .spi.batch import Column, ColumnBatch
-from .spi.connector import ColumnSchema, TableSchema
+from .spi.connector import (ColumnSchema, Connector, TableSchema,
+                            TableStatistics)
+from .spi.security import AccessControlManager
 from .spi.types import BIGINT, VARCHAR, parse_type
 from .sql import ast
+from .sql.analyzer import is_builtin_function
 from .sql.parser import parse_statement
 
-__all__ = ["QueryResult", "StandaloneQueryRunner", "execute_ddl"]
+__all__ = ["QueryResult", "Session", "StandaloneQueryRunner", "execute_ddl",
+           "execute_session_stmt", "SETTABLE_SESSION_PROPERTIES"]
 
 
 def text_result(name: str, lines: list[str]) -> "QueryResult":
@@ -65,29 +85,6 @@ def _split_name(name: str, default: str) -> tuple[str, str]:
     return parts[0], parts[-1]
 
 
-def execute_ddl(stmt, catalog: Catalog,
-                default_catalog_name: str) -> Optional["QueryResult"]:
-    """CREATE TABLE (with columns) and DROP TABLE; None for any other
-    statement (reference: runner.execute_ddl)."""
-    if isinstance(stmt, ast.CreateTable):
-        cat, table = _split_name(stmt.table, default_catalog_name)
-        catalog.connector(cat).create_table(TableSchema(table, tuple(
-            ColumnSchema(n, parse_type(t)) for n, t in stmt.columns)))
-    elif isinstance(stmt, ast.DropTable):
-        cat, table = _split_name(stmt.table, default_catalog_name)
-        conn = catalog.connector(cat)
-        try:
-            conn.get_table_schema(table)
-        except KeyError:
-            if not stmt.if_exists:
-                raise
-            return count_result("rows", 0)
-        conn.drop_table(table)
-    else:
-        return None
-    return count_result("rows", 0)
-
-
 @dataclass
 class QueryResult:
     names: list[str]
@@ -97,13 +94,416 @@ class QueryResult:
         return self.batch.to_pylist()
 
 
+# ---------------------------------------------------------------------------
+# the session
+
+
+# properties of the reference's Session that only its distributed runner
+# reads (not ported yet), with the reference's defaults: SET SESSION accepts
+# them, as the reference's standalone runner does, and keeps the value in
+# ``Session.properties``; nothing in the port reads them
+STORED_SESSION_PROPERTIES = {
+    "use_collectives": True, "exchange_serde": False, "retry_policy": "NONE",
+    "task_retry_attempts": 2, "query_retry_attempts": 2,
+    "retry_initial_delay_s": 0.1, "retry_max_delay_s": 2.0,
+    "heartbeat_interval_s": 0.5, "heartbeat_failure_threshold": 3,
+    "max_worker_replacements": 2, "exchange_backoff_min_s": 0.05,
+    "exchange_backoff_max_s": 2.0, "exchange_max_failure_duration_s": 120.0,
+    "task_scheduler": "THREADS", "executor_workers": 4,
+    "query_concurrency": 16, "query_max_queued": 200,
+    "fte_speculative": True, "fte_speculative_delay_s": 0.25,
+    "fte_memory_growth": 2.0, "speculation": None,
+    "speculation_lag_multiplier": 2.0, "speculation_min_delay_s": 0.25,
+    "speculation_nonleaf": None, "blacklist_ttl_s": None,
+    "blacklist_threshold": None, "drain_timeout_s": None, "adaptive": None,
+    "broadcast_threshold_bytes": 0, "skew_factor": 0.0,
+    "scale_writers": False, "writer_task_limit": 4,
+}
+
+# properties the reference's standalone runner acts on that the port cannot
+# honour yet: memory accounting, spill and the local exchange (ROADMAP.md,
+# queue 1 item 2).  Only their defaults are accepted.
+UNSUPPORTED_SESSION_PROPERTIES = {"hbm_limit_bytes": 16 << 30,
+                                  "spill_to_disk_bytes": 0,
+                                  "task_concurrency": 1}
+
+
+@dataclass
+class Session:
+    """Per-query knobs (the SystemSessionProperties miniature): the fields
+    the port acts on, with the reference's defaults.  The reference's other
+    properties live in ``properties`` once SET SESSION sets them (see
+    :data:`STORED_SESSION_PROPERTIES`); :meth:`get` reads either kind."""
+
+    default_catalog: str = "tpch"
+    user: str = "user"
+    splits_per_node: int = 4
+    node_count: int = 1
+    dynamic_filtering: bool = True
+    # active transaction (execution/transaction.py); None = autocommit
+    transaction: object = None
+    _transaction_manager: object = None
+    # SET SESSION values of STORED_ / UNSUPPORTED_SESSION_PROPERTIES
+    properties: dict = field(default_factory=dict)
+
+    def get(self, name: str):
+        if name in _PROPERTY_DEFAULTS:
+            return self.properties.get(name, _PROPERTY_DEFAULTS[name])
+        return getattr(self, name)
+
+
+_PROPERTY_DEFAULTS = {**STORED_SESSION_PROPERTIES,
+                      **UNSUPPORTED_SESSION_PROPERTIES}
+
+# knobs SET SESSION may touch; identity/transaction state is NOT settable
+# through SQL (a restricted user must not setattr session.user)
+SETTABLE_SESSION_PROPERTIES = {
+    "default_catalog", "splits_per_node", "node_count", "dynamic_filtering",
+    *_PROPERTY_DEFAULTS}
+
+
+def _literal_value(e):
+    """Constant AST node -> python value (SET SESSION / CALL arguments)."""
+    if isinstance(e, (ast.IntLiteral, ast.DoubleLiteral, ast.BooleanLiteral,
+                      ast.StringLiteral)):
+        return e.value
+    if isinstance(e, ast.DecimalLiteral):
+        return float(e.text)
+    if isinstance(e, ast.NullLiteral):
+        return None
+    raise ValueError("expected a constant")
+
+
+def execute_session_stmt(stmt, session: Session) -> Optional[QueryResult]:
+    """SET SESSION (reference: execution/SetSessionTask.java): mutate a
+    public Session knob with loose literal typing; None for any other
+    statement.  A value the port cannot honour raises before it is
+    stored."""
+    if not isinstance(stmt, ast.SetSession):
+        return None
+    name = stmt.name.lower()
+    if name not in SETTABLE_SESSION_PROPERTIES:
+        raise KeyError(f"unknown or protected session property: {name}")
+    value = _literal_value(stmt.value)
+    current = session.get(name)
+    if isinstance(current, bool) and not isinstance(value, bool):
+        value = str(value).lower() in ("true", "1")
+    elif isinstance(current, int) and not isinstance(value, bool) \
+            and value is not None:
+        value = int(value)
+    default = UNSUPPORTED_SESSION_PROPERTIES.get(name, value)
+    if value != default:
+        raise NotImplementedError(
+            f"session property {name} = {value}: the port has no memory "
+            "accounting, spill or local exchange yet (ROADMAP.md queue 1 "
+            f"item 2); only the default {default} runs")
+    if name in _PROPERTY_DEFAULTS:
+        session.properties[name] = value
+    else:
+        setattr(session, name, value)
+    return text_result("result", [f"{name} = {value}"])
+
+
+# ---------------------------------------------------------------------------
+# access control
+
+
+def check_select_access(plan, access_control, user: str) -> None:
+    """Every table the plan scans needs SELECT on its projected columns
+    (reference: AccessControlManager.checkCanSelectFromColumns called from
+    StatementAnalyzer)."""
+    def walk(node):
+        if isinstance(node, TableScan):
+            access_control.check_can_select(
+                user, node.catalog, node.table, node.columns)
+        for c in node.children:
+            walk(c)
+
+    walk(plan)
+
+
+def check_ddl_access(stmt, access_control, user: str,
+                     default_catalog_name: str) -> None:
+    """Pre-execution privilege checks for metadata/write statements."""
+    if isinstance(stmt, (ast.CreateTable, ast.CreateTableAsSelect)):
+        cat, table = _split_name(stmt.table, default_catalog_name)
+        access_control.check_can_create_table(user, cat, table)
+    elif isinstance(stmt, ast.DropTable):
+        cat, table = _split_name(stmt.table, default_catalog_name)
+        access_control.check_can_drop_table(user, cat, table)
+    elif isinstance(stmt, ast.InsertInto):
+        cat, table = _split_name(stmt.table, default_catalog_name)
+        access_control.check_can_insert(user, cat, table)
+    elif isinstance(stmt, ast.Delete):
+        cat, table = _split_name(stmt.table, default_catalog_name)
+        access_control.check_can_delete(user, cat, table)
+
+
+# ---------------------------------------------------------------------------
+# metadata statements
+
+
+def _refresh_materialized_view(name: str, catalog: Catalog, plan, run,
+                               device) -> int:
+    """(Re)materialize a view into its backing table ``__mv_<name>`` in the
+    'memory' catalog, pinned on ``device`` (the refresh's batch is already
+    there, so reads hand its tensors on uncopied); returns the row count
+    (reference: operator/RefreshMaterializedViewOperator.java:27)."""
+    view = catalog.views[name]
+    conn = catalog.connector("memory")
+    base_plan = plan(ast.QueryStatement(view.query))
+    # capture the base tables' data_version vector BEFORE reading them:
+    # Catalog.mv_is_stale compares these against current tokens, and a base
+    # mutation racing the refresh must leave the MV looking stale, not fresh
+    base_versions = catalog.table_versions(scan_tables(base_plan))
+    result = run(base_plan)
+    batch = result.batch.compact()
+    backing = f"__mv_{name}"
+    conn.drop_table(backing)
+    conn.create_table(TableSchema(backing, tuple(
+        ColumnSchema(n, c.type)
+        for n, c in zip(result.names, batch.columns))))
+    sink = conn.create_page_sink(backing)
+    sink.append(batch.rename(list(result.names)))
+    conn.finish_insert(backing, sink.finish())
+    conn.pin_to_device(backing, device)
+    view.backing = ("memory", backing)
+    view.base_versions = base_versions
+    return batch.num_rows
+
+
+def _present_codes(col: Column) -> np.ndarray:
+    """The dictionary codes present among a column's non-NULL rows, from a
+    presence mask over the dictionary built on the column's device: only
+    the present codes reach the host."""
+    n_dict = len(col.dictionary)
+    codes = col.data.long()
+    if col.valid is not None:
+        codes = torch.where(col.valid, codes, n_dict)
+    presence = torch.zeros(n_dict + 1, dtype=torch.bool, device=codes.device)
+    presence[codes] = True
+    return torch.nonzero(presence[:n_dict]).flatten().cpu().numpy()
+
+
+def _analyze(stmt: ast.Analyze, catalog: Catalog, default_catalog_name: str,
+             device) -> QueryResult:
+    """ANALYZE: the row count and, per column, the number of distinct
+    non-NULL values, stored through ``set_analyzed_statistics`` (reference:
+    runner._execute_ddl's ANALYZE, StatisticsWriterOperator.java:35).  Each
+    column is read on ``device`` and counted on its own, so no more than
+    one column's batches are held there at a time."""
+    cat, table, schema = catalog.resolve_table(stmt.table,
+                                               default_catalog_name)
+    conn = catalog.connector(cat)
+    rows = 0
+    ndv = {}
+    for c in schema.columns:
+        rows, count = _column_ndv(conn, table, c.name, device)
+        ndv[c.name] = float(count)
+    conn.set_analyzed_statistics(table, TableStatistics(
+        row_count=float(rows), ndv=ndv))
+    return count_result("rows", rows)
+
+
+def _column_ndv(conn: Connector, table: str, name: str,
+                device) -> tuple[int, int]:
+    """(rows, distinct non-NULL values) of one column.  Batches that are
+    not dictionaries are counted together by ``K.distinct_count`` (the
+    ``hash_insert`` kernel on the card); a dictionary batch gives its
+    present codes on the device, then their values on the host, and the
+    values are unioned (codes are per-batch namespaces)."""
+    rows = 0
+    flat: list[Column] = []
+    values: set = set()
+    for split in conn.get_splits(table, 1, 1):
+        src = conn.create_page_source(split, [name])
+        while not src.is_finished():
+            b = src.get_next_batch()
+            if b is None:
+                continue
+            b = b.to(device).compact()
+            rows += b.num_rows
+            col = b.columns[0]
+            if col.dictionary is not None:
+                values.update(col.dictionary[_present_codes(col)])
+            elif len(col):
+                flat.append(col)
+    count = len(values)
+    if len(flat) == 1:
+        count += K.distinct_count(flat[0].data, flat[0].valid)
+    elif flat:
+        valid = None
+        if any(c.valid is not None for c in flat):
+            valid = torch.cat([c.valid_mask() for c in flat])
+        count += K.distinct_count(torch.cat([c.data for c in flat]), valid)
+    return rows, count
+
+
+def _delete(stmt: ast.Delete, catalog: Catalog, default_catalog_name: str,
+            plan, run, device) -> QueryResult:
+    """DELETE as a drop-and-rewrite (the simple connectors have no row-id
+    deletes): the rows to keep, ``NOT coalesce(pred, false)`` (a NULL
+    predicate keeps its row), are staged first, then replace the table.  A
+    table that was resident is pinned again on ``device``, where the kept
+    rows already are; only their count reaches the host."""
+    cat, table, schema = catalog.resolve_table(stmt.table,
+                                               default_catalog_name)
+    conn = catalog.connector(cat)
+    impl = getattr(type(conn), "create_page_sink", None)
+    if impl is None or impl is Connector.create_page_sink:
+        raise ValueError(f"connector {cat} does not support DELETE")
+    row_count = getattr(conn, "row_count", None)
+    if row_count is not None:
+        before = row_count(table)
+    else:
+        stats = conn.get_table_statistics(table)
+        before = (int(stats.row_count)
+                  if stats.row_count == stats.row_count else None)
+    if before is None:  # no stats: count the table first
+        cq = ast.Query(ast.QuerySpec(
+            (ast.SelectItem(ast.FunctionCall("count", (), is_star=True)),),
+            False, ast.Table(f"{cat}.{table}"), None, (), None))
+        before = int(run(plan(ast.QueryStatement(cq))).rows()[0][0])
+    if stmt.where is None:
+        keep_where = ast.BooleanLiteral(False)
+    else:
+        keep_where = ast.Not(ast.FunctionCall(
+            "coalesce", (stmt.where, ast.BooleanLiteral(False))))
+    q = ast.Query(ast.QuerySpec(
+        (ast.SelectItem(None),), False,
+        ast.Table(f"{cat}.{table}"), keep_where, (), None))
+    resident = conn.is_resident(table)
+    kept = run(plan(ast.QueryStatement(q))).batch.compact()
+    # stage the kept rows FIRST: a failed rewrite cannot destroy data
+    staging = f"__rewrite_{table}"
+    conn.drop_table(staging)
+    conn.create_table(TableSchema(staging, schema.columns))
+    try:
+        sink = conn.create_page_sink(staging)
+        sink.append(kept)
+        conn.finish_insert(staging, sink.finish())
+    except BaseException:
+        conn.drop_table(staging)
+        raise
+    conn.drop_table(table)
+    conn.create_table(TableSchema(table, schema.columns))
+    sink = conn.create_page_sink(table)
+    for split in conn.get_splits(staging, 1, 1):
+        src = conn.create_page_source(split, schema.column_names())
+        while not src.is_finished():
+            b = src.get_next_batch()
+            if b is not None:
+                sink.append(b)
+    conn.finish_insert(table, sink.finish())
+    conn.drop_table(staging)
+    if resident:
+        conn.pin_to_device(table, device)
+    return count_result("rows", before - kept.num_rows)
+
+
+def execute_ddl(stmt, catalog: Catalog, default_catalog_name: str,
+                plan, run, device) -> Optional[QueryResult]:
+    """Metadata statements: CREATE / DROP TABLE, FUNCTION, VIEW and
+    MATERIALIZED VIEW, REFRESH, CALL, ANALYZE and DELETE; None for any
+    other statement.  ``plan`` plans a query statement, ``run`` runs that
+    plan into a QueryResult; ``device`` is the runner's.  Any of them may change how later statements plan, so
+    each bumps the catalog's generation (reference: runner.execute_ddl)."""
+    out = _execute_ddl(stmt, catalog, default_catalog_name, plan, run,
+                       device)
+    if out is not None:
+        catalog.bump_generation()
+    return out
+
+
+def _execute_ddl(stmt, catalog: Catalog, default_catalog_name: str,
+                 plan, run, device) -> Optional[QueryResult]:
+    if isinstance(stmt, ast.CreateFunction):
+        if is_builtin_function(stmt.name):
+            raise ValueError(
+                f"cannot create function {stmt.name!r}: shadows a builtin")
+        catalog.sql_functions[stmt.name.lower()] = (
+            stmt.params, stmt.return_type, stmt.body)
+        return count_result("rows", 0)
+    if isinstance(stmt, ast.DropFunction):
+        if catalog.sql_functions.pop(stmt.name.lower(), None) is None:
+            raise KeyError(f"no such function: {stmt.name}")
+        return count_result("rows", 0)
+    if isinstance(stmt, ast.CreateView):
+        name = stmt.name.split(".")[-1]
+        if name in catalog.views and not stmt.replace:
+            raise ValueError(f"view already exists: {name}")
+        catalog.views[name] = ViewDefinition(stmt.query, stmt.materialized)
+        if stmt.materialized:
+            _refresh_materialized_view(name, catalog, plan, run, device)
+        return count_result("rows", 0)
+    if isinstance(stmt, ast.DropView):
+        name = stmt.name.split(".")[-1]
+        view = catalog.views.pop(name, None)
+        if view is None:
+            if stmt.if_exists:
+                return count_result("rows", 0)
+            raise KeyError(f"no such view: {name}")
+        if view.backing is not None:
+            catalog.connector(view.backing[0]).drop_table(view.backing[1])
+        return count_result("rows", 0)
+    if isinstance(stmt, ast.RefreshMaterializedView):
+        name = stmt.name.split(".")[-1]
+        if name not in catalog.views or not catalog.views[name].materialized:
+            raise KeyError(f"no such materialized view: {name}")
+        rows = _refresh_materialized_view(name, catalog, plan, run, device)
+        return count_result("rows", rows)
+    if isinstance(stmt, ast.CallProcedure):
+        cat, proc = _split_name(stmt.name, default_catalog_name)
+        procs = catalog.connector(cat).get_procedures()
+        if proc not in procs:
+            raise KeyError(f"no such procedure: {cat}.{proc}")
+        fn = procs[proc]
+        # a procedure that places data takes the engine's device
+        kwargs = ({"device": device}
+                  if "device" in inspect.signature(fn).parameters else {})
+        out = fn(*[_literal_value(a) for a in stmt.args], **kwargs)
+        return text_result("result", [str(out)])
+    if isinstance(stmt, ast.Analyze):
+        return _analyze(stmt, catalog, default_catalog_name, device)
+    if isinstance(stmt, ast.CreateTable):
+        cat, table = _split_name(stmt.table, default_catalog_name)
+        catalog.connector(cat).create_table(TableSchema(table, tuple(
+            ColumnSchema(n, parse_type(t)) for n, t in stmt.columns)))
+        return count_result("rows", 0)
+    if isinstance(stmt, ast.DropTable):
+        cat, table = _split_name(stmt.table, default_catalog_name)
+        conn = catalog.connector(cat)
+        try:
+            conn.get_table_schema(table)
+        except KeyError:
+            if stmt.if_exists:
+                return count_result("rows", 0)
+            raise
+        conn.drop_table(table)
+        return count_result("rows", 0)
+    if isinstance(stmt, ast.Delete):
+        return _delete(stmt, catalog, default_catalog_name, plan, run,
+                       device)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the runner
+
+
 class StandaloneQueryRunner:
+    """``session`` (a :class:`Session`) carries the properties; the
+    arguments ``default_catalog_name``, ``splits_per_node`` and
+    ``dynamic_filtering``, when given, fill it in."""
+
     def __init__(self, catalog: Optional[Catalog] = None,
-                 device="cuda", default_catalog_name: str = "tpch",
-                 splits_per_node: int = 4, optimizer: str = "iterative",
-                 dynamic_filtering: bool = True,
+                 device="cuda", default_catalog_name: Optional[str] = None,
+                 splits_per_node: Optional[int] = None,
+                 optimizer: str = "iterative",
+                 dynamic_filtering: Optional[bool] = None,
                  ingest: Optional[IngestConfig] = None,
-                 encoded_exec: bool = True):
+                 encoded_exec: bool = True,
+                 session: Optional[Session] = None):
         if optimizer not in OPTIMIZER_MODES:
             raise ValueError(f"unknown optimizer {optimizer!r}; expected "
                              f"one of {OPTIMIZER_MODES}")
@@ -113,10 +513,14 @@ class StandaloneQueryRunner:
                 "StandaloneQueryRunner(device='cuda'): CUDA is not "
                 "available; pass device='cpu' to run on the CPU")
         self.catalog = catalog if catalog is not None else default_catalog()
-        self.default_catalog_name = default_catalog_name
-        self.splits_per_node = splits_per_node
+        self.session = session if session is not None else Session()
+        for name, value in (("default_catalog", default_catalog_name),
+                            ("splits_per_node", splits_per_node),
+                            ("dynamic_filtering", dynamic_filtering)):
+            if value is not None:
+                setattr(self.session, name, value)
+        self.access_control = AccessControlManager()
         self.optimizer = optimizer
-        self.dynamic_filtering = dynamic_filtering
         self.ingest = ingest if ingest is not None else IngestConfig()
         self.encoded_exec = encoded_exec
 
@@ -124,9 +528,11 @@ class StandaloneQueryRunner:
         return self._plan(parse_statement(sql))
 
     def _plan(self, stmt) -> PlanNode:
-        plan = LogicalPlanner(self.catalog, self.default_catalog_name,
+        plan = LogicalPlanner(self.catalog, self.session.default_catalog,
                               self.optimizer).plan(stmt)
-        return optimize(plan, self.catalog, self.optimizer)
+        plan = optimize(plan, self.catalog, self.optimizer)
+        check_select_access(plan, self.access_control, self.session.user)
+        return plan
 
     def explain(self, sql: str) -> str:
         return plan_text(self.create_plan(sql))
@@ -137,11 +543,30 @@ class StandaloneQueryRunner:
         times, rows and batches of a query, and its scan and encoding
         roll-ups."""
         stmt = parse_statement(sql)
+        session = self.session
+        if handle_transaction_stmt(stmt, session, self.catalog):
+            return count_result("rows", 0)
+        check_ddl_access(stmt, self.access_control, session.user,
+                         session.default_catalog)
+        out = execute_session_stmt(stmt, session)
+        if out is not None:
+            return out
         if isinstance(stmt, ast.Explain):
             return self._execute_explain(stmt)
-        ddl = execute_ddl(stmt, self.catalog, self.default_catalog_name)
-        if ddl is not None:
-            return ddl
+        if isinstance(stmt, ast.ShowTables):
+            conn = self.catalog.connector(session.default_catalog)
+            return text_result("Table", sorted(
+                list(conn.list_tables()) + list(self.catalog.views)))
+        if isinstance(stmt, ast.ShowColumns):
+            _cat, _table, schema = self.catalog.resolve_table(
+                stmt.table, session.default_catalog)
+            return text_result(
+                "Column", [f"{c.name} {c.type}" for c in schema.columns])
+        out = execute_ddl(stmt, self.catalog, session.default_catalog,
+                          self._plan, lambda p: self._run(p, None),
+                          self.device)
+        if out is not None:
+            return out
         return self._run(self._plan(stmt), stats)
 
     def _execute_explain(self, stmt: ast.Explain) -> QueryResult:
@@ -165,9 +590,11 @@ class StandaloneQueryRunner:
 
     def _run(self, plan: PlanNode,
              stats: Optional[QueryStats]) -> QueryResult:
+        session = self.session
         local = LocalPlanner(self.catalog, self.device,
-                             splits_per_node=self.splits_per_node,
-                             dynamic_filtering=self.dynamic_filtering,
+                             splits_per_node=session.splits_per_node,
+                             node_count=session.node_count,
+                             dynamic_filtering=session.dynamic_filtering,
                              ingest=self.ingest,
                              encoded_exec=self.encoded_exec).plan(plan)
         run_pipelines(local.pipelines, stats)

@@ -623,11 +623,12 @@ class ColumnBatch:
                            None if self.live is None else self.live.to(device))
 
     def compact(self) -> "ColumnBatch":
-        """Drop dead rows (stays on the batch's device, ``live`` = None)."""
+        """Drop dead rows (stays on the batch's device, ``live`` = None):
+        one host sync for the live positions, then a gather per column."""
         if self.live is None:
             return self
-        return ColumnBatch(self.names,
-                           [c.filter(self.live) for c in self.columns])
+        idx = torch.nonzero(self.live).flatten()
+        return ColumnBatch(self.names, [c.take(idx) for c in self.columns])
 
     def filter(self, mask: torch.Tensor) -> "ColumnBatch":
         assert self.live is None, "filter() on a masked batch (compact first)"

@@ -98,6 +98,30 @@ def trace(runner, sql: str, stats=None) -> tuple:
                   prof.key_averages() if _device_us(e) > 0
                   and e.device_type != torch.autograd.DeviceType.CUDA),
                  key=lambda r: -r[1])
+    events = _device_events(prof)
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events]
+    htod = {k: v for k, v in _copy_bytes(events).items() if "HtoD" in k}
+    return traced, _union_ms(spans), ops, htod
+
+
+def copy_bytes(fn) -> dict:
+    """Bytes of every memcpy kind the device ran during one call of ``fn``
+    under ``torch.profiler`` (device synchronized at its end), by the
+    trace's event name, e.g. "Memcpy DtoH (Device -> Pageable)"."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _copy_bytes(_device_events(prof))
+
+
+def _device_events(prof) -> list:
+    """The trace's device events (kernels, copies, sets); the trace is
+    written to, read from and removed under build/profiles/."""
     out = os.path.join("build", "profiles")
     os.makedirs(out, exist_ok=True)
     path = os.path.join(out, f"trace-{os.getpid()}.json")
@@ -107,16 +131,18 @@ def trace(runner, sql: str, stats=None) -> tuple:
             events = json.load(f)["traceEvents"]
     finally:
         os.remove(path)
-    spans, htod = [], {}
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS]
+
+
+def _copy_bytes(events) -> dict:
+    out: dict = {}
     for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in _DEVICE_CATS:
-            continue
-        spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-        name = e.get("name", "")
-        if "HtoD" in name:
-            htod[name] = htod.get(name, 0) + int(
+        if e.get("cat") == "gpu_memcpy":
+            name = e.get("name", "")
+            out[name] = out.get(name, 0) + int(
                 e.get("args", {}).get("bytes", 0))
-    return traced, _union_ms(spans), ops, htod
+    return out
 
 
 # trace-event categories of work on the device
