@@ -4,8 +4,8 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10-15, 6, 9, so the kernel phase holds
-the staged, surface, window and nested paths' calls too).  The tpch path
+the order 1-5, 7, 8, 10-16, 6, 9, so the kernel phase holds
+the staged, surface, window, nested and parallel paths' calls too).  The tpch path
 runs the runner's default scan: dynamic filters, split prefetch threads,
 coalescing into pinned buffers with side-stream copies, RLE / LAZY
 columns.  Every runner but phase 10's legacy one plans with the port's
@@ -39,7 +39,9 @@ default optimizer, the iterative one:
      insert (phase 13), labelled "nested"; and ANALYZE's insert over a
      one-column copy of l_extendedprice (the shape phase 15's ANALYZE
      gives each column that is not a dictionary: two planes, no live
-     mask, 5,998,321 rows), labelled "statements".  The bound's random table traffic is one 32-byte sector per
+     mask, 5,998,321 rows), labelled "statements"; and the largest
+     insert of one of Q18's four partition drivers behind the HASH local
+     exchange (phase 16), labelled "local exchange".  The bound's random table traffic is one 32-byte sector per
      distinct home slot of the live rows (rows of one key share theirs);
   7. staging: the eight TPC-H tables at SF 1 into the memory connector on
      cuda (connectors/staging.py: orders and lineitem generated on the
@@ -117,7 +119,17 @@ default optimizer, the iterative one:
      backing table resident), a rolled-back INSERT, SET SESSION
      dynamic_filtering on the tpch path (Q12 prunes nothing, then again)
      and SHOW TABLES; each step's ms beside the card's name and power
-     limit.  Its launches are the kernels line's ``launches_statements``.
+     limit.  Its launches are the kernels line's ``launches_statements``;
+ 16. engine: the local exchange (Q1, Q3, Q18, Q21, R1 on the tpch path
+     with task_concurrency = 4 against 1, splits_per_node = 8: rows equal,
+     numpy checks, warm ms in turns, hash_insert launches), revocation
+     (Q18, Q21 under a 256 MiB pool against unlimited: rows, revocations,
+     bytes revoked, peak memory), PARTIAL -> FINAL (Q18's lineitem
+     group-by over the staged batch against SINGLE, exact), host syncs
+     (EXPLAIN ANALYZE's sync line of Q3 and Q21, syncs now and before the
+     sync-free probe, a run under SG.forbidden(cuda_sync_debug=True)) and
+     the time-sharing executor (Q1, Q3, Q6 at once on two workers against
+     run_pipelines).  Its launches are ``launches_engine``.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -735,7 +747,7 @@ def per_operator(QueryStats, runner, sqls: dict, label: str,
     seconds)."""
     out = {}
     for name in names:
-        st = QueryStats(sync=True)
+        st = QueryStats(per_op_sync=True)
         t0 = time.perf_counter()
         runner.execute(sqls[name], stats=st)
         total = (time.perf_counter() - t0) * 1e3
@@ -1829,6 +1841,291 @@ def statements(torch, GK, StandaloneQueryRunner, staged_cat, tpch_runner,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the single-node engine
+
+
+ENGINE_QUERIES = ("Q1", "Q3", "Q18", "Q21", "R1")
+REVOKE_QUERIES = ("Q18", "Q21")
+REVOKE_LIMIT = 256 << 20  # below Q18's 843 and Q21's 1517 MiB peaks
+SYNC_QUERIES = ("Q3", "Q21")
+EXECUTOR_QUERIES = ("Q1", "Q3", "Q6")
+ENGINE_WAIT_S = 300.0
+
+
+def _count_calls(module, name: str):
+    """Wrap module.name to count its calls; returns (counter, restore)."""
+    orig = getattr(module, name)
+    n = [0]
+
+    def spy(*a, **kw):
+        n[0] += 1
+        return orig(*a, **kw)
+
+    setattr(module, name, spy)
+    return n, lambda: setattr(module, name, orig)
+
+
+def engine(torch, GK, StandaloneQueryRunner, staged_cat, tpch_runner,
+           sqls: dict, numpy_rows: dict, smi: str) -> tuple:
+    """Phase 16: the local exchange, revocation, PARTIAL / FINAL
+    aggregation, host-sync accounting and the time-sharing executor at SF 1.
+    (a) Q1, Q3, Q18, Q21, R1 on the tpch path with task_concurrency = 4 and
+    1 (splits_per_node = 8), and 4 with one prefetch thread per scan
+    shard: rows equal, Q1 / Q3 / R1 also the numpy checks; warm ms of the
+    settings in turns (1, 4, 4/1t, 4/1t, 4, 1) and the hash_insert
+    launches per query.  (b) Q18 and Q21 with a 256 MiB pool:
+    rows equal the unlimited run; revocations (at least one over the two),
+    bytes revoked and the peak device memory of both, absolute and above
+    the memory allocated before the run.  (c) Q18's lineitem group-by (sum(l_quantity) by
+    l_orderkey) over the staged batch, fed in 65,536-row slices, as
+    PARTIAL -> FINAL (early flushes of FLUSH_ROWS included) against SINGLE:
+    equal on the card.  (d) EXPLAIN ANALYZE's sync line of Q3 and Q21, each
+    query's host syncs now and before the sync-free probe (now + the probe
+    batches that went through the padded expand, each of which cost one
+    blocking sync before), and a warm run of each under
+    SG.forbidden(cuda_sync_debug=True) with a synchronous scan (no other
+    thread touches the card while a hot region runs): no blocking sync in a
+    hot region.  (e) TimeSharingTaskExecutor(2) runs Q1, Q3 and Q6 at once:
+    rows equal run_pipelines'.  Returns (the phase's launches, the
+    task_concurrency = 4 runner, for phase 6's capture)."""
+    from trino_tpu_torch.exec import join_exec as JX
+    from trino_tpu_torch.exec import syncguard as SG
+    from trino_tpu_torch.exec.driver import run_pipelines
+    from trino_tpu_torch.exec.executor import TimeSharingTaskExecutor
+    from trino_tpu_torch.exec.local_planner import LocalPlanner
+    from trino_tpu_torch.exec.operators import (HashAggregationOperator,
+                                                split_aggregation)
+    from trino_tpu_torch.exec.prefetch import IngestConfig
+    from trino_tpu_torch.exec.stats import QueryStats
+    from trino_tpu_torch.planner.plan import AggCall
+    from trino_tpu_torch.runner import Session
+    from trino_tpu_torch.spi.batch import ColumnBatch
+    from trino_tpu_torch.spi.types import BIGINT
+    from trino_tpu_torch.sql.analyzer import agg_result_type
+
+    t_phase = time.perf_counter()
+    label = f"engine SF{PATH_SF:g}"
+    cat = tpch_runner.catalog
+    GK.reset_launch_counts()
+
+    def run(r, sql, stats=None):
+        t0 = time.perf_counter()
+        rows = r.execute(sql, stats=stats).rows()
+        torch.cuda.synchronize()
+        return rows, (time.perf_counter() - t0) * 1e3
+
+    def rtol_of(name):
+        return REAL_PARITY_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+
+    # (a) the local exchange: 4 parallel drivers against 1, and 4 with one
+    # prefetch thread per scan shard (4 threads in all, as 1 driver has)
+    settings = {"1": (1, None), "4": (4, None),
+                "4/1t": (4, IngestConfig(threads=1))}
+    runners = {k: StandaloneQueryRunner(cat, device="cuda", ingest=ing,
+                                        session=Session(splits_per_node=8,
+                                                        task_concurrency=c))
+               for k, (c, ing) in settings.items()}
+    for name in ENGINE_QUERIES:
+        rows, ms, inserts = {}, {k: [] for k in settings}, {}
+        for k in settings:
+            before = GK.LAUNCHES["hash_insert"]
+            rows[k] = run(runners[k], sqls[name])[0]
+            inserts[k] = GK.LAUNCHES["hash_insert"] - before
+        for k in ("1", "4", "4/1t", "4/1t", "4", "1"):
+            ms[k].append(run(runners[k], sqls[name])[1])
+        worst = 0.0
+        for k in ("4", "4/1t"):
+            worst = max(worst, same_rows(rows[k], rows["1"],
+                                         f"{label} {name} {k} vs 1",
+                                         rtol_of(name)))
+        msg = ""
+        if name in numpy_rows:
+            same_rows(rows["4"], numpy_rows[name], f"{label} {name} vs numpy",
+                      KERNEL_VS_F64_RTOL if name in REAL_QUERIES
+                      else DOUBLE_RTOL)
+            msg = ", and numpy's"
+        warm = "; ".join(f"{k}: {sum(v) / 2:.1f} ({v[0]:.1f}, {v[1]:.1f})"
+                         for k, v in ms.items())
+        log(f"{label} (a) {name}: {len(rows['1'])} rows equal with 4 drivers "
+            f"and 1{msg} (largest float rel diff {worst:.3g}); warm ms by "
+            f"task_concurrency (/1t: one prefetch thread per shard), in "
+            f"turns 1, 4, 4/1t, 4/1t, 4, 1: {warm}; hash_insert launches "
+            f"{inserts} [{smi}]")
+
+    # (b) revocation under a pool below the queries' peaks
+    unlimited = runners["1"]
+    limited = StandaloneQueryRunner(cat, device="cuda", session=Session(
+        splits_per_node=8, hbm_limit_bytes=REVOKE_LIMIT))
+    revocations = 0
+    for name in REVOKE_QUERIES:
+        peaks = {}
+        for key, r, st in (("unlimited", unlimited, None),
+                           ("limited", limited, QueryStats())):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            rows_ms = run(r, sqls[name], st)
+            peaks[key] = (rows_ms, torch.cuda.max_memory_allocated() / 2**20,
+                          (torch.cuda.max_memory_allocated() - base) / 2**20)
+        (want, ms_u), peak_u, above_u = peaks["unlimited"]
+        (got, ms_l), peak_l, above_l = peaks["limited"]
+        same_rows(got, want, f"{label} {name} at {REVOKE_LIMIT >> 20} MiB")
+        spills, moved = st.spills()
+        revocations += spills
+        log(f"{label} (b) {name}: rows equal the unlimited run; "
+            f"hbm_limit_bytes={REVOKE_LIMIT >> 20} MiB: {spills} "
+            f"revocations, {moved} bytes revoked, peak {peak_l:.1f} MiB "
+            f"({above_l:.1f} above the start), {ms_l:.1f} ms; unlimited: "
+            f"peak {peak_u:.1f} MiB ({above_u:.1f} above the start), "
+            f"{ms_u:.1f} ms [{smi}]")
+    if revocations <= 0:
+        raise AssertionError(f"{label} (b): nothing revoked under "
+                             f"{REVOKE_LIMIT >> 20} MiB")
+
+    # (c) PARTIAL -> FINAL over the staged lineitem
+    mem = staged_cat.connector("memory")
+    (split,) = mem.get_splits("lineitem", 1, 1)
+    src = mem.create_page_source(split, ["l_orderkey", "l_quantity"])
+    batch = None
+    while batch is None:
+        batch = src.get_next_batch()
+    qty_t = batch.columns[1].type
+    aggs = [AggCall("sum", 1, agg_result_type("sum", qty_t)),
+            AggCall("count", -1, BIGINT)]
+    names, types = ["k", "s", "c"], [batch.columns[0].type, aggs[0].type,
+                                      BIGINT]
+    slices = [batch.slice(i, min(i + (1 << 16), batch.num_rows))
+              for i in range(0, batch.num_rows, 1 << 16)]
+
+    def agg_run(ops):
+        outs, t0 = [], time.perf_counter()
+        for b in slices:
+            pending = [b]
+            for op in ops:
+                nxt = []
+                for p in pending:
+                    op.add_input(p)
+                    while (o := op.get_output()) is not None:
+                        nxt.append(o)
+                pending = nxt
+            outs += pending
+        for i, op in enumerate(ops):
+            op.finish_input()
+            tail = []
+            while (o := op.get_output()) is not None:
+                tail.append(o)
+            for nxt_op in ops[i + 1:]:
+                more = []
+                for p in tail:
+                    nxt_op.add_input(p)
+                    while (o := nxt_op.get_output()) is not None:
+                        more.append(o)
+                tail = more
+            outs += tail
+        out = ColumnBatch.concat(outs)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    single, ms_s = agg_run([HashAggregationOperator([0], aggs, names,
+                                                    types)])
+    partial, final = split_aggregation(HashAggregationOperator(
+        [0], aggs, names, types))
+    flushes = [0]
+    orig_flush = partial._compute
+
+    def counted_compute():
+        flushes[0] += 1
+        return orig_flush()
+
+    partial._compute = counted_compute
+    split_out, ms_p = agg_run([partial, final])
+
+    def by_key(b):
+        order = torch.argsort(b.columns[0].data)
+        return [c.data[order] for c in b.columns]
+
+    a, b2 = by_key(single), by_key(split_out)
+    if not all(torch.equal(x, y) for x, y in zip(a, b2)):
+        raise AssertionError(f"{label} (c): PARTIAL -> FINAL != SINGLE")
+    log(f"{label} (c) lineitem sum(l_quantity), count(*) by l_orderkey over "
+        f"{len(slices)} slices of {batch.num_rows} staged rows: "
+        f"{single.num_rows} groups, PARTIAL -> FINAL equals SINGLE exactly "
+        f"({flushes[0]} PARTIAL computes, "
+        f"FLUSH_ROWS={HashAggregationOperator.FLUSH_ROWS}); SINGLE "
+        f"{ms_s:.1f} ms, PARTIAL -> FINAL {ms_p:.1f} ms [{smi}]")
+    del a, b2, single, split_out, slices, batch
+
+    # (d) host syncs: EXPLAIN ANALYZE, now against before, forbidden mode
+    sync_runner = StandaloneQueryRunner(cat, device="cuda",
+                                        ingest=IngestConfig(enabled=False))
+    for name in SYNC_QUERIES:
+        lines = [r[0] for r in tpch_runner.execute(
+            "explain analyze " + sqls[name]).rows()]
+        line = next(x for x in lines if x.startswith("  exec: "))
+        calls, restore = _count_calls(JX, "probe_ranges_device")
+        st = QueryStats()
+        try:
+            run(tpch_runner, sqls[name], st)
+        finally:
+            restore()
+        now = st.sync.host_syncs
+        log(f"{label} (d) {name}: EXPLAIN ANALYZE{line}")
+        log(f"{label} (d) {name}: {now} host syncs "
+            f"({st.sync.blocking_syncs} blocking, "
+            f"{st.sync.hot_loop_syncs} in hot loops); before the sync-free "
+            f"probe {now + calls[0]} ({calls[0]} padded-expand probe "
+            f"batches, one blocking int(counts.sum()) each)")
+        run(sync_runner, sqls[name])  # warm: kernels, seeds, caches
+        st = QueryStats()
+        with SG.forbidden(cuda_sync_debug=True):
+            run(sync_runner, sqls[name], st)
+        if st.sync.hot_loop_syncs:
+            raise AssertionError(f"{label} (d) {name}: "
+                                 f"{st.sync.hot_loop_syncs} hot-loop syncs")
+        log(f"{label} (d) {name}: a run under SG.forbidden("
+            "cuda_sync_debug=True) (synchronous scan) made no blocking sync "
+            f"in a hot region: {st.sync.text()}")
+
+    # (e) the time-sharing executor
+    ex = TimeSharingTaskExecutor(2)
+    try:
+        plans = {}
+        for name in EXECUTOR_QUERIES:
+            plans[name] = LocalPlanner(cat, "cuda").plan(
+                tpch_runner.create_plan(sqls[name]))
+        t0 = time.perf_counter()
+        handles = {n: ex.submit(lp.pipelines) for n, lp in plans.items()}
+        for h in handles.values():
+            h.wait(ENGINE_WAIT_S)
+        torch.cuda.synchronize()
+        ms_ex = (time.perf_counter() - t0) * 1e3
+    finally:
+        ex.shutdown()
+    t0 = time.perf_counter()
+    for name, lp in plans.items():
+        seq = LocalPlanner(cat, "cuda").plan(
+            tpch_runner.create_plan(sqls[name]))
+        run_pipelines(seq.pipelines)
+        same_rows(ColumnBatch.concat(lp.collector.batches).to_pylist(),
+                  ColumnBatch.concat(seq.collector.batches).to_pylist(),
+                  f"{label} (e) {name} executor vs run_pipelines")
+    torch.cuda.synchronize()
+    ms_seq = (time.perf_counter() - t0) * 1e3
+    log(f"{label} (e) TimeSharingTaskExecutor(2) ran "
+        f"{', '.join(EXECUTOR_QUERIES)} at once in {ms_ex:.1f} ms; rows "
+        f"equal run_pipelines' (one after another: {ms_seq:.1f} ms) "
+        f"[{smi}]")
+    launches = dict(GK.LAUNCHES)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{label}: no launch of {missing}")
+    torch.cuda.empty_cache()
+    log(f"{label} launches: {launches}")
+    log(f"engine: {time.perf_counter() - t_phase:.1f} s for phase 16")
+    return launches, runners["4"]
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -1890,6 +2187,11 @@ def kernel_cases(torch, GK, captured) -> list:
     cases.append(("hash_insert", "statements: ANALYZE of l_extendedprice",
                   pick("statements ANALYZE", "hash_insert",
                        lambda c: True)))
+    # one partition driver's insert behind the HASH local exchange: the
+    # largest, a live-masked view when its driver did not compact it
+    cases.append(("hash_insert", "local exchange: Q18 largest insert of one "
+                  "partition driver (task_concurrency=4)",
+                  pick("engine Q18", "hash_insert", lambda c: True)))
     return cases
 
 
@@ -2027,6 +2329,11 @@ def main() -> int:
                                     staged_cat, runner, smi,
                                     path_rows["Q12"])
 
+    # -- 16. the rest of the single-node engine ----------------------------
+    engine_launches, parallel = engine(torch, GK, StandaloneQueryRunner,
+                                       staged_cat, runner, sqls, numpy_rows,
+                                       smi)
+
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
     # kept apart from the path runs so the held tensors do not inflate
@@ -2042,7 +2349,8 @@ def main() -> int:
            for name in WINDOW_CAPTURE]
         + [(f"nested {name}", staged, NESTED_QUERIES[name])
            for name in NESTED_CAPTURE]
-        + [("statements ANALYZE", staged, f"analyze {ANALYZE_CASE}")])
+        + [("statements ANALYZE", staged, f"analyze {ANALYZE_CASE}"),
+           ("engine Q18", parallel, sqls["Q18"])])
     staged.execute(f"drop table {ANALYZE_CASE}")
     cases = kernel_cases(torch, GK, captured)
     log(library_read_rate(torch, cases[7][2][0]))
@@ -2088,6 +2396,7 @@ def main() -> int:
             "launches_windows": window_launches[kernel],
             "launches_nested": nested_launches[kernel],
             "launches_statements": statement_launches[kernel],
+            "launches_engine": engine_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],
@@ -2096,7 +2405,7 @@ def main() -> int:
             "library_ms": res["lib_ms"], "shape": res["shape"], "cases": []})
         entry["max_abs_err"] = max(entry["max_abs_err"], res["err"])
         entry["cases"].append(case)
-    del captured, cases, args, res, staged, staged_cat, runner
+    del captured, cases, args, res, staged, staged_cat, runner, parallel
     torch.cuda.empty_cache()
 
     # -- 9. SF 10: Q1 and Q3 over staged tables -----------------------------

@@ -592,3 +592,121 @@ def test_call_pin_table_pins_to_the_runners_device(cuda):
     assert all(c.device == torch.device("cuda", torch.cuda.current_device())
                for b in mem._data["p"] for c in b.columns)
     assert gpu.execute("select sum(v) from p").rows() == [(499500,)]
+
+
+# ---------------------------------------------------------------------------
+# the engine's host-sync accounting, revocation and parallel drivers
+
+
+@pytest.mark.gpu
+def test_async_scalar_ready_only_after_its_event(cuda):
+    from trino_tpu_torch.exec import syncguard as SG
+
+    x = torch.ones(1000, device="cuda")
+    torch.cuda._sleep(int(2e8))  # keep the stream busy for ~0.1 s
+    h = SG.async_scalar(x.sum(), "test.gpu")
+    assert not h.ready() and h.get_if_ready() is None
+    before = SG.snapshot()
+    assert float(h.get()) == 1000.0  # waits: one counted blocking sync
+    d = SG.take_delta(before)
+    assert (d.blocking_syncs, d.by_tag) == (1, {"test.gpu": 1})
+    assert h.ready() and float(h.get_if_ready()) == 1000.0
+
+
+@pytest.mark.gpu
+def test_revoking_partition_buffers_lowers_memory_allocated(cuda):
+    from trino_tpu_torch.exec.local_exchange import HASH, LocalExchange
+    from trino_tpu_torch.exec.operators import HashAggregationOperator
+    from trino_tpu_torch.exec.revoking import TaskMemoryContext
+    from trino_tpu_torch.planner.plan import AggCall
+    from trino_tpu_torch.spi.batch import Column, ColumnBatch
+    from trino_tpu_torch.spi.types import BIGINT
+
+    n = 1 << 22
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 5000, n)
+    vals = rng.integers(0, 100, n)
+    ex = LocalExchange(1, 4, HASH, key_channels=[0])
+    ex.deposit(0, ColumnBatch(["k", "v"], [
+        Column(BIGINT, torch.from_numpy(keys).cuda()),
+        Column(BIGINT, torch.from_numpy(vals).cuda())]))
+    mem = TaskMemoryContext(16 << 30)
+    aggs = []
+    for j in range(4):
+        op = HashAggregationOperator([0], [AggCall("sum", 1, BIGINT)],
+                                     ["k", "s"], [BIGINT, BIGINT])
+        op.attach_memory(mem)
+        op.add_input(ex.poll(j))
+        aggs.append(op)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    freed = sum(op.revoke_memory() for op in aggs)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    # the four live-mask views share the key and value columns: each
+    # counts them, and they leave the card with the last view
+    assert freed >= 4 * 16 * n and before - after >= 16 * n
+    got = {}
+    for op in aggs:
+        op.finish_input()
+        got.update(dict(op.get_output().to_pylist()))
+    want = np.bincount(keys, weights=vals, minlength=5000)
+    assert got == {k: int(want[k]) for k in np.unique(keys)}
+
+
+@pytest.mark.gpu
+def test_concurrent_partition_drivers_give_one_drivers_rows(cuda):
+    from trino_tpu_torch.runner import Session
+
+    cat = default_catalog(0.1)
+    one = StandaloneQueryRunner(cat, device="cuda",
+                                session=Session(splits_per_node=8))
+    four = StandaloneQueryRunner(cat, device="cuda", session=Session(
+        splits_per_node=8, task_concurrency=4))
+    r1 = ("select l_linenumber, sum(cast(l_quantity as real)) from "
+          "lineitem group by l_linenumber order by l_linenumber")
+    for sql in (QUERIES[1], QUERIES[18], QUERIES[21], r1):
+        a, b = one.execute(sql).rows(), four.execute(sql).rows()
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            for u, v in zip(x, y):
+                if isinstance(u, float):
+                    assert abs(u - v) <= 1e-4 * abs(u), (x, y)
+                else:
+                    assert u == v, (x, y)
+
+
+@pytest.mark.gpu
+def test_probe_steady_state_makes_no_sync_on_card(cuda):
+    from trino_tpu_torch.exec import syncguard as SG
+    from trino_tpu_torch.exec.operators import (JoinBridge, JoinBuildSink,
+                                                LookupJoinOperator)
+    from trino_tpu_torch.spi.batch import Column, ColumnBatch
+    from trino_tpu_torch.spi.types import BIGINT
+
+    rng = np.random.default_rng(8)
+    bk = np.repeat(np.arange(20000, dtype=np.int64), 4)
+    bridge = JoinBridge()
+    sink = JoinBuildSink(bridge, [0], [BIGINT, BIGINT], ["bk", "bv"], "cuda")
+    sink.add_input(ColumnBatch(["bk", "bv"], [
+        Column(BIGINT, torch.from_numpy(bk).cuda()),
+        Column(BIGINT, torch.from_numpy(bk).cuda())]))
+    sink.finish_input()
+    op = LookupJoinOperator(bridge, [0], "INNER", None,
+                            ["pk", "bk", "bv"], [BIGINT] * 3)
+    out = []
+    for i in range(8):
+        pk = torch.from_numpy(rng.integers(0, 25000, 1 << 16)).cuda()
+        b = ColumnBatch(["pk"], [Column(BIGINT, pk)])
+        if i < 2:
+            op.add_input(b)
+        else:
+            with SG.forbidden(cuda_sync_debug=True):
+                op.add_input(b)
+        while (o := op.get_output()) is not None:
+            out.append(o)
+    op.finish_input()
+    while not op.is_finished():
+        if (o := op.get_output()) is not None:
+            out.append(o)
+    assert sum(int(o.live.sum()) for o in out) > 0

@@ -105,9 +105,10 @@ def test_explain_analyze_counts_the_result_rows(port, q):
     assert re.fullmatch(r"optimizer: iterative, \d+ rule firings, "
                         r"[\d.]+ms", lines[head])
     total = next(i for i, l in enumerate(lines) if l.startswith("total: "))
-    # after the scan and encoding roll-ups, one line per operator
+    # after the scan, host-sync and encoding roll-ups, one line per operator
     ops = [_OP_LINE.fullmatch(l) for l in lines[total + 1:]
-           if not l.startswith(("  pipeline ", "  scan[", "  encoding: "))]
+           if not l.startswith(("  pipeline ", "  scan[", "  exec: ",
+                                "  encoding: "))]
     assert all(ops)
     # the last pipeline ends Rename -> OutputCollector: what the last
     # operator before the sink hands on is the result

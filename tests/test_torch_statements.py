@@ -11,8 +11,9 @@ Port-only cases cover what the reference does not hold: ANALYZE's distinct
 counts against numpy (signed zeros, NaN, dictionaries split across
 batches, RLE / LAZY / long-decimal / array columns) and through the
 ``hash_insert`` route, residency after DELETE, REFRESH and ROLLBACK, the
-22 plans after ANALYZE of staged tables, and the session properties the
-port refuses.
+22 plans after ANALYZE of staged tables, and the engine's session
+properties (``task_concurrency`` and ``hbm_limit_bytes`` run, the disk
+tier's ``spill_to_disk_bytes`` raises).
 """
 
 from types import SimpleNamespace
@@ -579,16 +580,32 @@ def test_plans_after_analyze_match_reference(analyzed, q):
 
 
 # ---------------------------------------------------------------------------
-# session properties the port refuses
+# the session properties of the engine: two run, the disk tier raises
+
+ENGINE_SQL = ("select l_orderkey, count(*), sum(l_quantity) from lineitem, "
+              "orders where l_orderkey = o_orderkey and o_orderdate < "
+              "date '1995-01-01' group by l_orderkey order by 3 desc, 1 "
+              "limit 10")
 
 
 @pytest.mark.parametrize("name,value", [
     ("task_concurrency", 4), ("hbm_limit_bytes", 1 << 20),
     ("spill_to_disk_bytes", 1 << 20)])
 def test_unsupported_session_properties_raise(name, value):
-    _, port = _runners()
+    """``task_concurrency`` and ``hbm_limit_bytes`` are set as in the
+    reference and the query after them gives its rows (parallel drivers
+    over eight splits; a 1 MiB pool); only ``spill_to_disk_bytes`` still
+    raises, naming the queue item it waits for, and keeps its default."""
+    ref, port = _runners()
+    if name != "spill_to_disk_bytes":
+        for sql in ("set session splits_per_node = 8",
+                    f"set session {name} = {value}", ENGINE_SQL):
+            _same(ref, port, sql)
+        assert port.session.get(name) == getattr(Session(**{name: value}),
+                                                 name) == value
+        return
     default = port.session.get(name)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         port.execute(f"set session {name} = {value}")
     assert port.session.get(name) == default  # not stored
     port.execute(f"set session {name} = {default}")  # the default runs

@@ -19,6 +19,7 @@ the result at the first probe, not at fill time.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -40,6 +41,8 @@ class DynamicFilterHolder:
         self.dict_values: Optional[set] = None  # for dictionary columns
         self.has_nan = False  # the build had NaN keys (NaN joins NaN here)
         self.rows_pruned = 0  # probe rows this filter dropped
+        # the parallel scan shards of one probe share the holder
+        self._lock = threading.Lock()
         # a device domain not read yet (exec/kernels.DeviceDomain): a
         # blocking read at fill time would stall the build pipeline for a
         # result the probe needs only later
@@ -54,14 +57,13 @@ class DynamicFilterHolder:
         the host in one fetch and keeps :meth:`fill`'s exact set; a larger
         build, or a dictionary column, derives its domain on its device
         (range, plus presence per dictionary code)."""
+        from . import syncguard as SG
         from .kernels import _device_domain
 
         n = int(data.shape[0])
         if n <= MAX_DISTINCT_SET and dictionary is None:
-            data = data.cpu().numpy()
-            valid = None if valid is None else valid.cpu().numpy()
-            if live is not None:
-                keep = live.cpu().numpy()
+            data, valid, keep = SG.fetch([data, valid, live], "df.build-keys")
+            if keep is not None:
                 data = data[keep]
                 valid = None if valid is None else valid[keep]
             self.fill(data, valid, None)
@@ -106,7 +108,7 @@ class DynamicFilterHolder:
             if np.issubdtype(uniq.dtype, np.floating):
                 # NaN would poison the range (x <= NaN is False); the join
                 # treats NaN = NaN as a match, so remember it apart
-                self.has_nan = bool(np.isnan(uniq).any())
+                self.has_nan = bool(np.count_nonzero(np.isnan(uniq)))
                 uniq = uniq[~np.isnan(uniq)]
                 if uniq.size == 0:
                     if not self.has_nan:
@@ -118,6 +120,10 @@ class DynamicFilterHolder:
             if uniq.size <= MAX_DISTINCT_SET:
                 self.values = uniq
         self.ready = True
+
+    def add_pruned(self, rows: int) -> None:
+        with self._lock:
+            self.rows_pruned += rows
 
     def _dictionary_mask(self, dictionary: np.ndarray) -> np.ndarray:
         if self._code_ok is None or self._code_ok[0] is not dictionary:
@@ -132,7 +138,9 @@ class DynamicFilterHolder:
         if not self.ready:
             return None
         if self._pending_device is not None:
-            self._materialize()
+            with self._lock:
+                if self._pending_device is not None:
+                    self._materialize()
         data = np.asarray(data)
         if self.empty:
             return np.zeros(data.shape[0], bool)

@@ -49,8 +49,8 @@ def rle_fill(value: np.ndarray, length: int, device) -> torch.Tensor:
     from ..spi.batch import torch_dtype
 
     value = np.asarray(value)
-    return torch.full((length,), value.item(), dtype=torch_dtype(value.dtype),
-                      device=device)
+    return torch.full((length,), value[()],
+                      dtype=torch_dtype(value.dtype), device=device)
 
 
 class DeviceDomain:
@@ -68,8 +68,12 @@ class DeviceDomain:
         self._dict_len = dict_len
 
     def result(self) -> tuple:
-        """(count, non-NaN count, min, max, presence) on the host."""
+        """(count, non-NaN count, min, max, presence) on the host; a wait
+        for the copy is a counted sync (exec/syncguard.py)."""
         if self._event is not None:
+            from . import syncguard as SG
+
+            SG.count_sync("df.domain", blocking=not self._event.query())
             self._event.synchronize()
         buf = self._host.numpy()
         cnt, cnt_nonnan = (int(v) for v in buf[:16].view(np.int64))

@@ -18,8 +18,12 @@ and :func:`plan_lazy_scan` marks the channels a scan's filter only passes
 through.  ``dynamic_filtering``, ``ingest`` and ``encoded_exec`` are the
 reference's ``Session.dynamic_filtering``, ``TRINO_TPU_PREFETCH*`` and
 ``TRINO_TPU_ENCODED_EXEC`` as arguments, with their defaults.
-DistinctLimit raises; no local exchange, spill or revocation (not ported
-yet).
+
+Each plan gets one ``TaskMemoryContext(hbm_limit_bytes)`` (exec/
+revoking.py) that every blocking operator reserves its buffer in.  With
+``task_concurrency`` > 1, a pipeline whose source is a multi-split scan
+forks into parallel driver chains behind local exchanges
+(:meth:`LocalPlanner._parallelize`).  DistinctLimit raises (not ported).
 """
 
 from __future__ import annotations
@@ -33,8 +37,12 @@ from ..spi.connector import ColumnSchema, TableSchema
 from ..spi.types import BOOLEAN, Type
 from ..sql.ir import Call, InputRef
 from .dynamic_filter import DynamicFilterHolder
+from .local_exchange import (GATHER, HASH, LocalExchange,
+                             LocalExchangeSinkOperator,
+                             LocalExchangeSourceOperator)
 from .match_recognize import MatchRecognizeOperator
 from .operators import (
+    BufferedInputMixin,
     FilterProjectOperator,
     GroupIdOperator,
     HashAggregationOperator,
@@ -61,6 +69,7 @@ from .operators import (
     plan_lazy_scan,
 )
 from .prefetch import IngestConfig
+from .revoking import TaskMemoryContext
 
 __all__ = ["LocalExecutionPlan", "LocalPlanner"]
 
@@ -79,7 +88,9 @@ class LocalPlanner:
     def __init__(self, catalog: Catalog, device, splits_per_node: int = 4,
                  node_count: int = 1, dynamic_filtering: bool = True,
                  ingest: Optional[IngestConfig] = None,
-                 encoded_exec: bool = True):
+                 encoded_exec: bool = True,
+                 hbm_limit_bytes: int = 16 << 30,
+                 task_concurrency: int = 1):
         self.catalog = catalog
         self.device = device
         self.splits_per_node = splits_per_node
@@ -87,6 +98,10 @@ class LocalPlanner:
         self.dynamic_filtering = dynamic_filtering
         self.ingest = ingest if ingest is not None else IngestConfig()
         self.encoded_exec = encoded_exec
+        self.task_concurrency = task_concurrency
+        # the task's device pool: blocking operators reserve their buffered
+        # bytes as revocable memory (exec/revoking.py)
+        self.memory = TaskMemoryContext(hbm_limit_bytes)
         self.pipelines: list[list[Operator]] = []
 
     def plan(self, root: P.PlanNode) -> LocalExecutionPlan:
@@ -94,10 +109,99 @@ class LocalPlanner:
         collector = OutputCollector()
         chain.append(collector)
         self.pipelines.append(chain)
+        if self.task_concurrency > 1:
+            self.pipelines = [q for p in self.pipelines
+                              for q in self._parallelize(p)]
         for p in self.pipelines:
             plan_lazy_scan(p)
+            for op in p:
+                if isinstance(op, BufferedInputMixin):
+                    op.attach_memory(self.memory)
         return LocalExecutionPlan(self.pipelines, collector,
                                   root.output_names, root.output_types)
+
+    def _parallelize(self, pipeline: list[Operator]) -> list[list[Operator]]:
+        """Intra-task parallelism (LocalExchange.java:67 +
+        AddLocalExchanges.java:111): a pipeline whose source is a
+        multi-split scan forks into ``task_concurrency`` driver chains, each
+        scanning every c-th split with its own prefetch threads and copy
+        stream.  Row-parallel operators (filter / project, keyed INNER /
+        LEFT / SINGLE lookup joins and keyed semi-joins, all probing the one
+        shared build) clone into every chain; at the first grouped
+        aggregation the rows cross a bounded HASH local exchange into
+        ``task_concurrency`` aggregation drivers (disjoint groups, so their
+        outputs simply concatenate); everything further down runs in one
+        consumer chain behind a GATHER exchange.  The pipelines of one
+        cluster share a ``_concurrent_group`` tag, and run_pipelines runs
+        them at once."""
+        scan = pipeline[0]
+        if not isinstance(scan, ScanOperator):
+            return [pipeline]
+        c = min(self.task_concurrency, len(scan.splits))
+        if c < 2:
+            return [pipeline]
+
+        def clone(op: Operator) -> Optional[Operator]:
+            if isinstance(op, FilterProjectOperator):
+                return FilterProjectOperator(
+                    op.predicate, op.projections, op.output_names,
+                    op.output_types)
+            if isinstance(op, LookupJoinOperator) and op.join_type in (
+                    "INNER", "LEFT", "SINGLE") and op.left_keys:
+                return LookupJoinOperator(
+                    op.bridge, op.left_keys, op.join_type, op.residual_expr,
+                    op.output_names, op.output_types)
+            if isinstance(op, SemiJoinOperator) and op.source_keys:
+                return SemiJoinOperator(
+                    op.bridge, op.source_keys, op.null_aware,
+                    op.residual_expr, op.output_names, op.output_types)
+            return None
+
+        n_prefix = 1
+        while (n_prefix < len(pipeline)
+               and clone(pipeline[n_prefix]) is not None):
+            n_prefix += 1
+        rest = pipeline[n_prefix:]
+        if not rest:
+            return [pipeline]
+        last = pipeline[n_prefix - 1]
+        names = scan.columns if last is scan else last.output_names
+        # partition point: a grouped aggregation -> HASH exchange + c clones
+        agg = rest[0] if (isinstance(rest[0], HashAggregationOperator)
+                          and rest[0].group_keys) else None
+        gid = object()  # this exchange cluster's tag
+
+        def tag(p: list[Operator]) -> list[Operator]:
+            p[0]._concurrent_group = gid
+            return p
+
+        exch = LocalExchange(c, c if agg is not None else 1,
+                             HASH if agg is not None else GATHER,
+                             key_channels=(agg.group_keys if agg is not None
+                                           else ()))
+        chains = []
+        for i in range(c):
+            shard = ScanOperator(
+                scan.connector, scan.splits[i::c], scan.columns, self.device,
+                constraint=scan.constraint,
+                dynamic_filters=scan.dynamic_filters, limit=scan.limit,
+                ingest=scan.ingest_cfg, encoded=scan.encoded)
+            chains.append(tag([shard] + [clone(op) for op in
+                                         pipeline[1:n_prefix]]
+                              + [LocalExchangeSinkOperator(exch, i, names)]))
+        if agg is None:
+            return chains + [tag([LocalExchangeSourceOperator(exch, 0)]
+                                 + rest)]
+        gather = LocalExchange(c, 1, GATHER)
+        for j in range(c):
+            chains.append(tag([
+                LocalExchangeSourceOperator(exch, j),
+                HashAggregationOperator(agg.group_keys, agg.aggs,
+                                        agg.output_names, agg.output_types,
+                                        agg.step),
+                LocalExchangeSinkOperator(gather, j, agg.output_names)]))
+        return chains + [tag([LocalExchangeSourceOperator(gather, 0)]
+                             + rest[1:])]
 
     def _chain(self, node: P.PlanNode) -> list[Operator]:
         if isinstance(node, P.TableScan):

@@ -12,28 +12,35 @@ operator/Operator.java:21 — ``needs_input``/``add_input``/``get_output``/
   LookupJoinOperator (INNER, CROSS, LEFT, RIGHT, FULL, SINGLE; keyed or
   nested-loop), SemiJoinOperator (IN / EXISTS mark), GroupIdOperator,
   ReplicateOperator, UnnestOperator, LimitOperator, RenameOperator;
-- blocking: HashAggregationOperator (SINGLE step; the variance family,
-  any_value and exact long-decimal sum / avg too), JoinBuildSink,
-  WindowOperator, SortOperator / TopNOperator;
+- blocking: HashAggregationOperator (SINGLE, PARTIAL and FINAL steps; the
+  variance family, any_value and exact long-decimal sum / avg too),
+  JoinBuildSink, WindowOperator, SortOperator / TopNOperator, each a
+  :class:`BufferedInputMixin` whose buffered batches are reserved in the
+  task's memory pool and revoked to host memory when it is full
+  (exec/revoking.py);
   OutputCollector and UnionSinkOperator are sinks.
 
 Filters mark rows dead in the batch's ``live`` mask instead of compacting;
 blocking operators concatenate their input on the device.  Encoded columns
 pass FilterProject still encoded when it only hands them on
 (:func:`plan_lazy_scan` plans the LAZY ones); every other reader of
-``data`` gets a dense tensor on the device.
+``data`` gets a dense tensor on the device.  Deliberate host reads go
+through exec/syncguard.py; the join probes make none in their steady state
+(exec/join_exec.py's padded expand).
 """
 
 from __future__ import annotations
 
 import decimal
 import itertools
+import threading
 from collections import deque
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..ops.expr import SUBQUERY_MULTIPLE_ROWS as ERR_MULTIPLE_ROWS
 from ..ops.expr import (compile_expression, expr_condition_mask,
                         expr_error_scope, reduce_error_lanes)
 from ..planner.plan import AggCall, SortKey, WindowFunc
@@ -47,9 +54,12 @@ from ..sql.analyzer import STAT_AGGS
 from ..sql.ir import InputRef, RowExpression, referenced_inputs
 from . import join_exec as JX
 from . import kernels as K
+from . import syncguard as SG
 from . import window_kernels as WK
 from .prefetch import (BatchCoalescer, DeviceStager, IngestConfig,
                        PrefetchingPageSource, encode_scan_batch)
+from .revoking import (batch_device_nbytes, batch_device_residual,
+                       to_device, to_host)
 from .stats import EncodingStats, ScanIngestStats
 
 __all__ = [
@@ -60,7 +70,8 @@ __all__ = [
     "OutputCollector", "ValuesOperator", "LocalUnionBridge",
     "UnionSinkOperator", "UnionSourceOperator", "GroupIdOperator",
     "ReplicateOperator", "WindowOperator", "UnnestOperator",
-    "TableFunctionOperator",
+    "TableFunctionOperator", "BufferedInputMixin", "partial_agg_layout",
+    "split_aggregation",
 ]
 
 
@@ -179,8 +190,8 @@ class ScanOperator(Operator):
                 mask = m if mask is None else (mask & m)
         if mask is None or mask.all():
             return batch
-        pruned = int(batch.num_rows - mask.sum())
-        self.dynamic_filters[0][1].rows_pruned += pruned  # once per batch
+        pruned = batch.num_rows - int(np.count_nonzero(mask))
+        self.dynamic_filters[0][1].add_pruned(pruned)  # once per batch
         self.ingest_stats.rows_pruned += pruned
         return batch.filter(torch.from_numpy(mask))
 
@@ -641,57 +652,237 @@ _COMPACT_MIN_LANES = 1 << 16  # below this the count sync costs more
 
 def _maybe_compact(batch: ColumnBatch) -> ColumnBatch:
     """Shrink a sparsely-live batch (a selective join keeps its probe
-    batch's shape) before hashing or sorting it."""
+    batch's shape) before hashing or sorting it: one counted sync for the
+    live count."""
     if batch.live is None or batch.num_rows < _COMPACT_MIN_LANES:
         return batch
-    if batch.live_count * _COMPACT_FACTOR <= batch.num_rows:
+    count = int(SG.fetch(batch.live.sum(), "exec.compact-count"))
+    if count * _COMPACT_FACTOR <= batch.num_rows:
         return batch.compact()
     return batch
 
 
-class HashAggregationOperator(Operator):
+class BufferedInputMixin:
+    """Blocking operators accumulate ``self._batches``; with a
+    TaskMemoryContext attached (exec/revoking.py) their bytes are reserved
+    as revocable memory, and a revocation moves them to ``_revoked`` in host
+    memory (pinned on the card) until :meth:`buffered_batches` brings them
+    back at finish.  ``spill_count`` counts the revocations that moved
+    bytes, ``revoked_bytes`` the bytes they moved.  Batches are appended
+    and taken under ``_buf_lock``, never held while the memory context is
+    called, because a concurrent driver's reservation may revoke this
+    operator's buffer."""
+
+    _mem = None  # TaskMemoryContext, set by attach_memory
+    spill_count = 0
+    revoked_bytes = 0
+
+    def _buffer_state(self):
+        if "_buf_lock" not in self.__dict__:
+            self._buf_lock = threading.RLock()
+            self._revoked = []  # [(host batch, its device)]
+        return self._buf_lock
+
+    def attach_memory(self, mem) -> None:
+        self._mem = mem
+        if mem is not None:
+            mem.register(self)
+
+    def buffer(self, batch: ColumnBatch) -> None:
+        """Append an input batch and reserve its bytes."""
+        with self._buffer_state():
+            self._batches.append(batch)
+        self.account_memory()
+
+    def account_memory(self) -> None:
+        if self._mem is not None:
+            self._mem.update(self, batch_device_residual(self))
+
+    def revoke_memory(self) -> int:
+        freed = 0
+        with self._buffer_state():
+            for b in self._batches:
+                freed += batch_device_nbytes(b)
+                self._revoked.append((to_host(b), b.device))
+            self._batches = []
+        if freed:
+            self.spill_count += 1
+            self.revoked_bytes += freed
+        return freed
+
+    def release_memory(self) -> None:
+        """Drop the input buffer and its reservation once finish consumed
+        it (a lingering reservation would revoke other operators' live
+        buffers for nothing)."""
+        with self._buffer_state():
+            self._batches = []
+            self._revoked = []
+        if self._mem is not None:
+            self._mem.update(self, 0)
+
+    def buffered_batches(self) -> list:
+        """The operator's whole input in arrival order: revoked batches
+        copied back to their device first (every revocation takes all that
+        was buffered), then the ones still there."""
+        with self._buffer_state():
+            if self._revoked:
+                self._batches = [to_device(b, dev) for b, dev
+                                 in self._revoked] + self._batches
+                self._revoked = []
+            return self._batches
+
+
+def partial_agg_layout(aggs: Sequence[AggCall]) -> list:
+    """Per AggCall, the (state name, state type) columns of its PARTIAL
+    output (the reference's ``planner/add_exchanges.partial_agg_layout``):
+    avg -> (sum, count) with the decimal scale folded into the sum, the
+    variance family -> (sum, sum of squares, count), count -> count, any
+    other -> one column of its own type."""
+    out = []
+    for a in aggs:
+        if a.fn == "avg":
+            out.append([("avg_sum", DOUBLE), ("avg_count", BIGINT)])
+        elif a.fn in STAT_AGGS:
+            out.append([("stat_sum", DOUBLE), ("stat_sumsq", DOUBLE),
+                        ("stat_count", BIGINT)])
+        elif a.fn == "count":
+            out.append([("count", BIGINT)])
+        else:
+            out.append([(a.fn, a.type)])
+    return out
+
+
+def split_aggregation(op: "HashAggregationOperator") -> Optional[tuple]:
+    """A SINGLE aggregation as a (PARTIAL, FINAL) pair of operators that
+    together compute its output from the same input (the single-node form
+    of the reference's PARTIAL / exchange / FINAL split in
+    ``planner/add_exchanges``), or None when it cannot split: a DISTINCT
+    aggregate or a long-decimal average."""
+    if op.step != "SINGLE" or any(
+            a.distinct or (a.fn == "avg" and isinstance(a.type, DecimalType))
+            for a in op.aggs):
+        return None
+    nk = len(op.group_keys)
+    names, types = list(op.output_names[:nk]), list(op.output_types[:nk])
+    calls, ch = [], nk
+    for i, (a, states) in enumerate(zip(op.aggs,
+                                        partial_agg_layout(op.aggs))):
+        calls.append(AggCall(a.fn, ch, a.type, False))
+        ch += len(states)
+        for j, (_, t) in enumerate(states):
+            names.append(f"_s{i}_{j}")
+            types.append(t)
+    partial = HashAggregationOperator(op.group_keys, op.aggs, names, types,
+                                      "PARTIAL")
+    final = HashAggregationOperator(list(range(nk)), calls, op.output_names,
+                                    op.output_types, "FINAL")
+    return partial, final
+
+
+class HashAggregationOperator(BufferedInputMixin, Operator):
     """Grouped aggregation (operator/HashAggregationOperator.java:53):
     accumulate batches, then at finish either the small-code path (all keys
     small dictionary codes: no hashing, a scatter into the static group
     space) or the hash path (``hash_insert`` group ids + grouped_reduce).
-    Only the SINGLE step (the standalone runner's) is ported."""
+
+    ``step`` is SINGLE, PARTIAL or FINAL.  PARTIAL emits the mergeable
+    states of :func:`partial_agg_layout` after the group keys; FINAL reads
+    such rows (group keys first, each call's ``arg`` its first state
+    channel) and merges them: sums of sums and of counts, min / max /
+    any_value of the states.  A grouped PARTIAL step flushes early: once
+    ``FLUSH_ROWS`` input rows are buffered it emits their states at once,
+    so its buffer stays bounded by the flush window (the
+    InMemoryHashAggregationBuilder partial flush).  DISTINCT aggregates and
+    long-decimal averages run SINGLE only."""
+
+    FLUSH_ROWS = 1 << 20
 
     def __init__(self, group_keys: Sequence[int], aggs: Sequence[AggCall],
                  output_names: Sequence[str], output_types: Sequence[Type],
                  step: str = "SINGLE"):
-        if step != "SINGLE":
-            raise NotImplementedError(f"aggregation step {step}")
+        if step not in ("SINGLE", "PARTIAL", "FINAL"):
+            raise ValueError(f"aggregation step {step}")
         self.group_keys = list(group_keys)
         self.aggs = list(aggs)
         self.output_names = list(output_names)
         self.output_types = list(output_types)
+        self.step = step
         self._batches: list[ColumnBatch] = []
+        self._buffered_rows = 0
+        self._flushed: list[ColumnBatch] = []
         self._result: Optional[ColumnBatch] = None
         self._emitted = False
         self.encoding_stats = EncodingStats()
 
+    def _can_flush(self) -> bool:
+        # PARTIAL states merge downstream; SINGLE / FINAL see all input
+        return self.step == "PARTIAL" and bool(self.group_keys)
+
     def add_input(self, batch: ColumnBatch) -> None:
-        if batch.num_rows:
-            self._batches.append(batch)
+        if not batch.num_rows:
+            return
+        self.buffer(batch)
+        self._buffered_rows += batch.num_rows
+        if self._can_flush() and self._buffered_rows >= self.FLUSH_ROWS:
+            out = self._compute()
+            if out.num_rows:
+                self._flushed.append(out)
+            self._buffered_rows = 0
+            self.release_memory()
 
     def finish_input(self) -> None:
         super().finish_input()
-        self._result = self._compute()
-        self._batches = []
+        if self._flushed and not self.buffered_batches():
+            self._emitted = True  # everything left with the flushes
+        else:
+            self._result = self._compute()
+        self.release_memory()
 
     def _empty_result(self, nk: int) -> ColumnBatch:
         if nk:  # grouped agg over empty input -> empty result
             cols = [Column(t, np.empty(0, t.storage_dtype))
                     for t in self.output_types]
             return ColumnBatch(self.output_names, cols)
-        cols = []  # global agg over empty input -> one row of defaults
-        for a, t in zip(self.aggs, self.output_types):
-            if a.fn == "count":
-                cols.append(Column(t, np.zeros(1, np.int64)))
-            else:
-                cols.append(Column(t, np.zeros(1, t.storage_dtype),
-                                   np.zeros(1, bool)))
+        # global agg over empty input -> one row of defaults: counts 0,
+        # other values NULL (a PARTIAL sum of squares 0)
+        layouts = (partial_agg_layout(self.aggs) if self.step == "PARTIAL"
+                   else [[(a.fn, None)] for a in self.aggs])
+        cols = []
+        types = iter(self.output_types)
+        for states in layouts:
+            for j, (name, _) in enumerate(states):
+                t = next(types)
+                if name in ("count", "avg_count", "stat_count",
+                            "stat_sumsq"):
+                    cols.append(Column(t, np.zeros(1, t.storage_dtype)))
+                else:
+                    cols.append(Column(t, np.zeros(1, t.storage_dtype),
+                                       np.zeros(1, bool)))
         return ColumnBatch(self.output_names, cols)
+
+    def _final_specs(self, a: AggCall, inp: ColumnBatch, specs: list,
+                     plan: list) -> bool:
+        """FINAL's merge of avg, variance and count states (True when
+        handled): sums of the state columns.  Other calls merge like
+        SINGLE ones over their state column."""
+        col = inp.columns[a.arg]
+        if a.fn == "avg":
+            cnt = inp.columns[a.arg + 1]
+            plan.append(("avg", len(specs)))
+            specs.append(("sum", col.data, col.valid, np.float64, False))
+            specs.append(("sum", cnt.data, cnt.valid, np.int64, False))
+        elif a.fn in STAT_AGGS:
+            sq, cnt = inp.columns[a.arg + 1], inp.columns[a.arg + 2]
+            plan.append(("stat", len(specs)))
+            specs.append(("sum", col.data, col.valid, np.float64, False))
+            specs.append(("sum", sq.data, sq.valid, np.float64, False))
+            specs.append(("sum", cnt.data, cnt.valid, np.int64, False))
+        elif a.fn == "count":
+            plan.append(("count", len(specs)))
+            specs.append(("sum", col.data, col.valid, np.int64, False))
+        else:
+            return False
+        return True
 
     def _specs(self, inp: ColumnBatch):
         """Kernel specs (fn, data, valid, dtype, distinct[, pre]) and the
@@ -699,6 +890,9 @@ class HashAggregationOperator(Operator):
         specs, plan = [], []
         limbs: dict = {}  # argument channel -> its gathered limb planes
         for a in self.aggs:
+            if self.step == "FINAL" and self._final_specs(a, inp, specs,
+                                                          plan):
+                continue
             if a.fn == "count" and a.arg < 0:
                 plan.append(("count", len(specs)))
                 specs.append(("count_star", None, None, np.int64, False))
@@ -764,7 +958,7 @@ class HashAggregationOperator(Operator):
         arithmetic over per-batch scalars, no concatenation and no
         expansion.  Taken only when every live mask and run mask is on the
         host (counting a device mask would cost a sync)."""
-        if (self.group_keys or not self.aggs
+        if (self.group_keys or not self.aggs or self.step == "FINAL"
                 or any(a.distinct for a in self.aggs)
                 or not all(a.fn in self._RLE_AGG_FNS for a in self.aggs)):
             return None
@@ -798,7 +992,7 @@ class HashAggregationOperator(Operator):
                 m &= c.valid
             if b.live is not None:
                 m &= b.live
-            return int(m.sum())
+            return int(torch.count_nonzero(m))
 
         out_cols: list[Column] = []
         rows_folded = 0
@@ -839,7 +1033,7 @@ class HashAggregationOperator(Operator):
 
     def _compute(self) -> ColumnBatch:
         nk = len(self.group_keys)
-        if not self._batches:
+        if not self.buffered_batches():
             return self._empty_result(nk)
         fast = self._rle_fast_path()
         if fast is not None:
@@ -866,39 +1060,62 @@ class HashAggregationOperator(Operator):
                 return self._empty_result(nk)
             keys_out = K.group_keys_out(perm, gid, num_groups, keys)
             reduced = K.grouped_reduce(perm, gid, num_groups, specs)
-        fplan, arrays = [], []
-        for a, (kind, i), t in zip(self.aggs, plan, self.output_types[nk:]):
+        # finalize: one plan entry per output column after the keys
+        # (PARTIAL emits avg / variance states instead of their values)
+        partial = self.step == "PARTIAL"
+        fplan, arrays, meta = [], [], []  # meta: (type, dictionary) | idx
+        types = iter(self.output_types[nk:])
+        for idx, (a, (kind, i)) in enumerate(zip(self.aggs, plan)):
+            t = next(types)
             if kind.startswith("long_"):
+                meta.append(idx)
                 continue
             d, v = reduced[i]
-            if kind == "avg":
+            dv = [d] + ([v] if v is not None else [])
+            if kind == "avg" and partial:
+                c, _ = reduced[i + 1]
+                fplan += [("copy", np.float64, v is not None),
+                          ("count", None, False)]
+                arrays += dv + [c]
+                meta += [(t, None), (next(types), None)]
+            elif kind == "avg":
                 c, _ = reduced[i + 1]
                 fplan.append(("avg_final", t.storage_dtype, v is not None))
-                arrays += [d] + ([v] if v is not None else []) + [c]
+                arrays += dv + [c]
+                meta.append((t, None))
+            elif kind == "stat" and partial:
+                (q, _), (c, _) = reduced[i + 1], reduced[i + 2]
+                fplan += [("copy", np.float64, v is not None),
+                          ("copy", np.float64, False),
+                          ("count", None, False)]
+                arrays += dv + [q, c]
+                meta += [(t, None), (next(types), None), (next(types), None)]
             elif kind == "stat":
                 (q, _), (c, _) = reduced[i + 1], reduced[i + 2]
                 fplan.append(("stat_final", a.fn, t.storage_dtype,
                               v is not None))
-                arrays += [d] + ([v] if v is not None else []) + [q, c]
+                arrays += dv + [q, c]
+                meta.append((t, None))
             elif kind == "count":
                 fplan.append(("count", None, False))
                 arrays.append(d)
+                meta.append((t, None))
             else:
                 fplan.append(("copy", t.storage_dtype, v is not None))
-                arrays += [d] + ([v] if v is not None else [])
+                arrays += dv
+                meta.append((t, inp.columns[a.arg].dictionary
+                             if kind in ("min", "max", "any_value")
+                             else None))
         outs = iter(K.finalize_groups(fplan, arrays))
         wide = self._long_decimal_columns(inp, plan, reduced)
         out_cols = [Column(c.type, d, v, c.dictionary)
                     for (d, v), c in zip(keys_out, key_cols)]
-        for idx, (a, (kind, _), t) in enumerate(
-                zip(self.aggs, plan, self.output_types[nk:])):
-            if kind.startswith("long_"):
-                out_cols.append(wide[idx])
+        for m in meta:
+            if isinstance(m, int):
+                out_cols.append(wide[m])
                 continue
             d, v = next(outs)
-            dict_ = (inp.columns[a.arg].dictionary
-                     if kind in ("min", "max", "any_value") else None)
-            out_cols.append(Column(t, d, v, dict_))
+            out_cols.append(Column(m[0], d, v, m[1]))
         return ColumnBatch(self.output_names, out_cols, presence)
 
     def _long_decimal_columns(self, inp: ColumnBatch, plan,
@@ -911,8 +1128,10 @@ class HashAggregationOperator(Operator):
                  if kind.startswith("long_")]
         if not picks:
             return {}
-        fetched = torch.stack([reduced[i + k][0] for _, _, i in picks
-                               for k in range(7)]).cpu().numpy()
+        fetched = SG.fetch(torch.stack([reduced[i + k][0]
+                                        for _, _, i in picks
+                                        for k in range(7)]),
+                           "agg.decimal-limbs")
         nk = len(self.group_keys)
         out = {}
         for j, (idx, kind, _) in enumerate(picks):
@@ -920,7 +1139,7 @@ class HashAggregationOperator(Operator):
             counts = planes[6]
             totals = K.combine_limb_sums(planes[:6])
             src_scale = inp.columns[self.aggs[idx].arg].type.scale
-            t = self.output_types[nk + idx]
+            t = self._output_type(idx)
             values: list = []
             with decimal.localcontext() as ctx:
                 ctx.prec = 80
@@ -939,14 +1158,24 @@ class HashAggregationOperator(Operator):
             out[idx] = Column(t, codes, valid, dict_).to(inp.device)
         return out
 
+    def _output_type(self, idx: int) -> Type:
+        """The output type of aggregate ``idx`` (its first state column's
+        under PARTIAL)."""
+        widths = ([len(st) for st in partial_agg_layout(self.aggs)]
+                  if self.step == "PARTIAL" else [1] * len(self.aggs))
+        return self.output_types[len(self.group_keys) + sum(widths[:idx])]
+
     def get_output(self) -> Optional[ColumnBatch]:
+        if self._flushed:
+            return self._flushed.pop(0)
         if self.input_done and self._result is not None and not self._emitted:
             self._emitted = True
             return self._result
         return None
 
     def is_finished(self) -> bool:
-        return (self.input_done and self._emitted) or self._closed
+        return (self.input_done and self._emitted
+                and not self._flushed) or self._closed
 
 
 # ---------------------------------------------------------------------------
@@ -966,7 +1195,7 @@ class JoinBridge:
         return self.batch is not None
 
 
-class JoinBuildSink(Operator):
+class JoinBuildSink(BufferedInputMixin, Operator):
     """Accumulates the build side, then builds the join table
     (operator/join/HashBuilderOperator.java:57)."""
 
@@ -985,11 +1214,11 @@ class JoinBuildSink(Operator):
 
     def add_input(self, batch: ColumnBatch) -> None:
         if batch.num_rows:
-            self._batches.append(batch)
+            self.buffer(batch)
 
     def finish_input(self) -> None:
         super().finish_input()
-        if self._batches:
+        if self.buffered_batches():
             # dead rows are dropped before the build: on the card the
             # compaction costs less than hashing and indexing them
             batch = ColumnBatch.concat(self._batches)
@@ -997,7 +1226,7 @@ class JoinBuildSink(Operator):
             batch = ColumnBatch(self.names, [
                 Column(t, np.empty(0, t.storage_dtype)) for t in self.types])
             batch = batch.to(self.device)
-        self._batches = []
+        self.release_memory()
         keys = [(JX.key_input(batch.columns[ch]), batch.columns[ch].valid)
                 for ch in self.key_channels]
         for (data, valid), ch, holder in zip(keys, self.key_channels,
@@ -1073,34 +1302,68 @@ def _nested_loop_pairs(probe: ColumnBatch, build: ColumnBatch, residual):
     return pi[mask], bi[mask]
 
 
-def _probe_keys(batch: ColumnBatch, channels, bridge: "JoinBridge"):
+class _ProbeKeys:
     """Probe key (data, valid) pairs and the dictionary remaps into the
-    build's code space."""
-    keys = [(JX.key_input(batch.columns[ch]), batch.columns[ch].valid)
-            for ch in channels]
-    remaps = [JX.probe_key_remap(batch.columns[ch].dictionary,
-                                 bridge.key_dicts[k], batch.device)
-              for k, ch in enumerate(channels)]
-    return keys, remaps
+    build's code space, one remap table per key kept while the probe's
+    dictionary object stays the same (batches of one table share it), so a
+    steady-state probe copies no table to the device."""
+
+    def __init__(self, channels: Sequence[int]):
+        self.channels = list(channels)
+        self._remaps: dict = {}  # key index -> (probe dictionary, remap)
+
+    def __call__(self, batch: ColumnBatch, bridge: "JoinBridge"):
+        keys = [(JX.key_input(batch.columns[ch]), batch.columns[ch].valid)
+                for ch in self.channels]
+        remaps = []
+        for k, ch in enumerate(self.channels):
+            pdict = batch.columns[ch].dictionary
+            hit = self._remaps.get(k)
+            if hit is None or hit[0] is not pdict:
+                hit = (pdict, JX.probe_key_remap(pdict, bridge.key_dicts[k],
+                                                 batch.device))
+                self._remaps[k] = hit
+            remaps.append(hit[1])
+        return keys, remaps
 
 
 def _cols(batch: ColumnBatch) -> list:
     return [(c.data, c.valid) for c in batch.columns]
 
 
+def _take_rows(c: Column, idx) -> Column:
+    """``c.take(idx)``, except that a LAZY column stays LAZY: the gather
+    runs when something reads the result (late materialization survives
+    a compacting join)."""
+    if c.encoding != "LAZY":
+        return c.take(idx)
+    n = int(idx.shape[0])
+    return Column.lazy(
+        c.type, n,
+        lambda: (c.data[idx], None if c.valid is None else c.valid[idx]),
+        c.dictionary, device=c.device,
+        nbytes_hint=c.nbytes * n // max(len(c), 1))
+
+
 class LookupJoinOperator(Operator):
     """Probe side of the equi-join (operator/join/LookupJoinOperator.java:37)
     for INNER, CROSS, LEFT, RIGHT, FULL and SINGLE joins, with an optional
-    residual.  A unique build (every FK->PK edge) keeps the probe batch's
-    shape (dense or sorted-hash lookup); a build with duplicate keys
-    expands candidate runs found by the ``hash_probe`` kernel.  LEFT /
-    SINGLE / FULL keep every probe row: an unmatched one is NULL-extended.
-    RIGHT / FULL count, in one device tensor per build row, the pairs that
-    survived the residual, and after the last probe batch emit one more
-    batch: the build rows no pair matched (NULL keys included), with NULL
-    probe-side columns.  A SINGLE join (a scalar subquery) whose build gives
-    a probe row more than one match raises SUBQUERY_MULTIPLE_ROWS.  Keyless
-    joins run as a nested loop, with the same marking."""
+    residual.  The keyed probe makes no host sync in its steady state: a
+    unique build (every FK->PK edge) keeps the probe batch's shape (dense or
+    sorted-hash lookup), or, for a selective INNER / RIGHT probe, compacts
+    its matches to a bucket estimated from earlier batches' match counts;
+    a build with duplicate keys expands the candidate runs the
+    ``hash_probe`` kernel finds into a padded bucket (exec/join_exec.py:
+    :class:`ExpandPlanner` picks it, an estimated one waits in an
+    :class:`OverflowQueue` for its overflow flag).  LEFT / SINGLE / FULL
+    keep every probe row: an unmatched one is NULL-extended.  RIGHT / FULL
+    count, in one device tensor per build row, the pairs that survived the
+    residual, and after the last probe batch emit one more batch: the build
+    rows no pair matched (NULL keys included), with NULL probe-side columns.
+    A SINGLE join (a scalar subquery) whose build gives a probe row more
+    than one match raises SUBQUERY_MULTIPLE_ROWS through the deferred error
+    channel (``pending_errors``, read once at the pipeline's end).  Keyless
+    joins run as a nested loop, with the same marking, and raise at once."""
 
     def __init__(self, bridge: JoinBridge, left_keys: Sequence[int],
                  join_type: str, residual: Optional[RowExpression],
@@ -1111,6 +1374,7 @@ class LookupJoinOperator(Operator):
         self.bridge = bridge
         self.left_keys = list(left_keys)
         self.join_type = join_type
+        self.residual_expr = residual
         self.residual = _Residual(residual) if residual is not None else None
         self.output_names = list(output_names)
         self.output_types = list(output_types)
@@ -1121,6 +1385,17 @@ class LookupJoinOperator(Operator):
         self._probe_dicts: Optional[list] = None
         self._epilogue_done = not self._build_outer
         self.encoding_stats = EncodingStats()
+        self._keys = _ProbeKeys(self.left_keys)
+        # sync-free probe state: bucket planners keyed by the join's shape
+        # (a later run of the same plan starts from this run's totals) and
+        # the deferred commits of estimated buckets
+        ident = (join_type, tuple(self.left_keys), tuple(self.output_names),
+                 residual is not None)
+        self._planner = JX.ExpandPlanner(key=("pairs",) + ident)
+        self._uplanner = JX.ExpandPlanner(key=("unique",) + ident)
+        self._inflight = JX.OverflowQueue()
+        self.pending_errors: list = []  # deferred cardinality violations
+        self.expand_batches = 0  # probe batches through the padded expand
 
     @property
     def _outer(self) -> bool:
@@ -1192,46 +1467,123 @@ class LookupJoinOperator(Operator):
             if self._outer:
                 self._null_extended(probe, probe.live)
             return
-        keys, remaps = _probe_keys(probe, self.left_keys, self.bridge)
+        keys, remaps = self._keys(probe, self.bridge)
         if any(r is not None for r in remaps):
             # dictionary keys probe as remapped int32 codes, never values
             self.encoding_stats.code_join_batches += 1
         residual = (self.residual.bind(probe, build)
                     if self.residual is not None else None)
-        build_cols = _cols(build)
         if table.unique:
-            b_out, ok_live, _, bid = JX.run_unique(
-                table, keys, remaps, build_cols, live=probe.live,
-                residual=residual,
-                probe_cols=_cols(probe) if residual is not None else ())
-            if self._build_outer:
-                self._mark_build(bid, ok_live)
+            self._add_unique(probe, table, keys, remaps, residual)
+        else:
+            self._add_pairs(probe, table, keys, remaps, residual)
+
+    def _add_unique(self, probe: ColumnBatch, table, keys, remaps,
+                    residual) -> None:
+        """One match at most per probe row.  INNER / RIGHT compact the
+        matches when earlier batches' landed match counts say they fill at
+        most a quarter of the lanes (the wide output is the overflow's
+        retry); every other case keeps the probe batch's shape."""
+        build = self.bridge.batch
+        build_cols = _cols(build)
+        # only what the residual reads: a LAZY payload column stays LAZY
+        probe_cols = ([(c.data, c.valid) if i in residual.refs else None
+                       for i, c in enumerate(probe.columns)]
+                      if residual is not None else ())
+
+        def wide():
+            return ("wide",) + JX.unique_output(
+                ok, bid, keys, build_cols, live=probe.live,
+                residual=residual, probe_cols=probe_cols)
+
+        def commit(res) -> None:
+            if res[0] == "wide":
+                _, b_out, ok_live, _ = res
+                if self._build_outer:
+                    self._mark_build(bid, ok_live)
+                left, right_bid = list(probe.columns), None
+                live = probe.live if self._outer else ok_live
+            else:
+                _, lanes, b_out, live, right_bid, _ = res
+                if self._build_outer:
+                    self._mark_build(right_bid, live)
+                left = [_take_rows(c, lanes) for c in probe.columns]
             right = [Column(c.type, d, v, c.dictionary)
                      for c, (d, v) in zip(build.columns, b_out)]
             # LEFT/SINGLE/FULL: unmatched rows stay live, build side NULL
-            self._emit(list(probe.columns) + right,
-                       probe.live if self._outer else ok_live)
-            return
-        lo, counts, total = JX.probe_ranges_device(table, keys, remaps,
-                                                   probe.live)
-        if total == 0:
+            self._emit(left + right, live)
+
+        with SG.hot_region():
+            ok, bid = JX.unique_lookup(table, keys, remaps)
+            if self.join_type not in ("INNER", "RIGHT"):
+                self._inflight.submit(None, wide(), None, commit)
+                return
+            ok_live = ok if probe.live is None else ok & probe.live
+            est = self._uplanner.recent_max()
+            cap = JX.plan_unique_cap(
+                probe.num_rows, None if est is None
+                else est * JX.EST_HEADROOM)
+            self._uplanner.observe_async(
+                SG.async_scalar(ok_live.sum(), "join.unique-count"))
+            if cap is None:
+                self._inflight.submit(None, wide(), None, commit)
+                return
+            res = ("compact",) + JX.unique_compact(
+                ok_live, bid, cap, build_cols, residual, probe_cols)
+            self._inflight.submit(
+                SG.async_scalar(res[5], "join.unique-overflow"), res, wide,
+                commit)
+
+    def _add_pairs(self, probe: ColumnBatch, table, keys, remaps,
+                   residual) -> None:
+        """A build with duplicate keys: candidate runs, then the padded
+        expand at the planner's bucket.  A provable bucket commits at
+        once; an estimated one commits once its overflow flag has landed
+        False, or re-runs at the exact total."""
+        build = self.bridge.batch
+        probe_cols, build_cols = _cols(probe), _cols(build)
+        self.expand_batches += 1
+
+        def commit(res) -> None:
+            pairs, ok, matches, _, build_id, _ = res
+            if self.join_type == "SINGLE":
+                self.pending_errors.append(torch.where(
+                    matches.max() > 1, ERR_MULTIPLE_ROWS, 0).to(torch.int32))
+            if self._build_outer:
+                self._mark_build(build_id, ok)
+            cols = list(probe.columns) + list(build.columns)
+            self._emit([Column(c.type, d, v, c.dictionary)
+                        for c, (d, v) in zip(cols, pairs)], ok)
             if self._outer:
-                self._null_extended(probe, probe.live)
-            return
-        pairs, ok, matches, _, build_id = JX.run_pairs(
-            table, lo, counts, total, keys, remaps, _cols(probe),
-            build_cols, residual=residual, need_matched=self._outer)
-        if self.join_type == "SINGLE" and int(matches.max()) > 1:
-            raise self._too_many_rows()
-        if self._build_outer:
-            self._mark_build(build_id, ok)
-        cols = list(probe.columns) + list(build.columns)
-        self._emit([Column(c.type, d, v, c.dictionary)
-                    for c, (d, v) in zip(cols, pairs)], ok)
-        if self._outer:
-            unmatched = matches == 0
-            self._null_extended(probe, unmatched if probe.live is None
-                                else probe.live & unmatched)
+                unmatched = matches == 0
+                self._null_extended(probe, unmatched if probe.live is None
+                                    else probe.live & unmatched)
+
+        with SG.hot_region():
+            lo, counts, total = JX.probe_ranges_device(table, keys, remaps,
+                                                       probe.live)
+            cap, provable = self._planner.plan(probe.num_rows, table.max_run)
+            self._planner.observe_async(total)
+            res = JX.run_pairs(table, lo, counts, total, keys, remaps,
+                               probe_cols, build_cols, residual=residual,
+                               need_matched=self._outer, cap=cap)
+            if provable:  # cap >= any possible total: no overflow
+                self._inflight.submit(None, res, None, commit)
+                return
+
+            def retry():
+                # rare: the estimated bucket truncated candidates; re-run
+                # at the exact total (landed before its flag did)
+                exact = max(int(total.get()), 1)
+                self._planner.observe(exact)
+                return JX.run_pairs(table, lo, counts, exact, keys, remaps,
+                                    probe_cols, build_cols,
+                                    residual=residual,
+                                    need_matched=self._outer)
+
+            self._inflight.submit(
+                SG.async_scalar(res[5], "join.expand-overflow"), res, retry,
+                commit)
 
     def _unmatched_build(self) -> Optional[ColumnBatch]:
         """The RIGHT / FULL epilogue: every live build row no pair matched,
@@ -1267,6 +1619,13 @@ class LookupJoinOperator(Operator):
                            cols + [c.take(un) for c in build.columns])
 
     def get_output(self) -> Optional[ColumnBatch]:
+        if len(self._inflight):
+            # commit landed estimated buckets; at input end the tail is
+            # waited for (the probe's only blocking poll)
+            self._inflight.drain(block=self.input_done)
+        if self.input_done:
+            self._planner.settle()
+            self._uplanner.settle()
         if self._pending:
             return self._pending.popleft()
         if self.input_done and not self._closed and not self._epilogue_done:
@@ -1276,6 +1635,7 @@ class LookupJoinOperator(Operator):
 
     def is_finished(self) -> bool:
         return self._closed or (self.input_done and not self._pending
+                                and not len(self._inflight)
                                 and self._epilogue_done)
 
 
@@ -1284,9 +1644,10 @@ class SemiJoinOperator(Operator):
     output = source channels + a BOOLEAN match column.  Null-aware IN is
     three-valued: a non-match is NULL when the probe key is NULL or the
     build holds a NULL key, so a downstream ``$not`` yields NULL and the
-    row is filtered (NOT IN); IN over an empty build is FALSE.  A keyless
-    semi-join (EXISTS with only non-equi conjuncts) runs as a nested loop
-    where the residual alone decides the mark."""
+    row is filtered (NOT IN); IN over an empty build is FALSE.  The keyed
+    mark is sync-free as the lookup join's probe is.  A keyless semi-join
+    (EXISTS with only non-equi conjuncts) runs as a nested loop where the
+    residual alone decides the mark."""
 
     def __init__(self, bridge: JoinBridge, source_keys: Sequence[int],
                  null_aware: bool, residual: Optional[RowExpression],
@@ -1294,10 +1655,17 @@ class SemiJoinOperator(Operator):
         self.bridge = bridge
         self.source_keys = list(source_keys)
         self.null_aware = null_aware
+        self.residual_expr = residual
         self.residual = _Residual(residual) if residual is not None else None
         self.output_names = list(output_names)
         self.output_types = list(output_types)
         self._pending: "deque[ColumnBatch]" = deque()
+        self._keys = _ProbeKeys(self.source_keys)
+        self._planner = JX.ExpandPlanner(key=(
+            "semi", tuple(self.source_keys), null_aware,
+            tuple(self.output_names), residual is not None))
+        self._inflight = JX.OverflowQueue()
+        self.expand_batches = 0  # probe batches through the padded expand
 
     def needs_input(self) -> bool:
         return (self.bridge.ready and not self._pending
@@ -1322,37 +1690,64 @@ class SemiJoinOperator(Operator):
             return
         table = self.bridge.table
         build = self.bridge.batch
-        no_match = torch.zeros(batch.num_rows, dtype=torch.bool,
-                               device=batch.device)
+
+        def commit(res) -> None:
+            self._emit(batch, *res[3])
+
         if table.num_rows == 0 or batch.num_rows == 0:
-            self._emit(batch, no_match)  # IN over the empty set is FALSE
+            # IN over the empty set is FALSE
+            self._inflight.submit(None, (None,) * 3 + ((torch.zeros(
+                batch.num_rows, dtype=torch.bool, device=batch.device),
+                None),), None, commit)
             return
-        keys, remaps = _probe_keys(batch, self.source_keys, self.bridge)
+        keys, remaps = self._keys(batch, self.bridge)
         semi = (self.null_aware, table.has_null_key, table.live_rows > 0)
         residual = (self.residual.bind(batch, build)
                     if self.residual is not None else None)
         probe_cols = _cols(batch) if residual is not None else []
         build_cols = _cols(build) if residual is not None else []
-        if table.unique:
-            _, _, mark, _ = JX.run_unique(
-                table, keys, remaps, build_cols, live=batch.live,
-                residual=residual, probe_cols=probe_cols, semi=semi)
-        else:
+        with SG.hot_region():
+            if table.unique:
+                ok, bid = JX.unique_lookup(table, keys, remaps)
+                mark = JX.unique_output(
+                    ok, bid, keys, build_cols, live=batch.live,
+                    residual=residual, probe_cols=probe_cols, semi=semi)[2]
+                self._inflight.submit(None, (None,) * 3 + (mark,), None,
+                                      commit)
+                return
+            self.expand_batches += 1
             lo, counts, total = JX.probe_ranges_device(table, keys, remaps,
                                                        batch.live)
-            if total == 0:
-                mark = JX.semi_mark(no_match, keys, semi)
-            else:
-                mark = JX.run_pairs(
-                    table, lo, counts, total, keys, remaps, probe_cols,
-                    build_cols, residual=residual, semi=semi)[3]
-        self._emit(batch, *mark)
+            cap, provable = self._planner.plan(batch.num_rows, table.max_run)
+            self._planner.observe_async(total)
+            res = JX.run_pairs(table, lo, counts, total, keys, remaps,
+                               probe_cols, build_cols, residual=residual,
+                               semi=semi, cap=cap)
+            if provable:
+                self._inflight.submit(None, res, None, commit)
+                return
+
+            def retry():
+                exact = max(int(total.get()), 1)
+                self._planner.observe(exact)
+                return JX.run_pairs(table, lo, counts, exact, keys, remaps,
+                                    probe_cols, build_cols,
+                                    residual=residual, semi=semi)
+
+            self._inflight.submit(
+                SG.async_scalar(res[5], "join.expand-overflow"), res, retry,
+                commit)
 
     def get_output(self) -> Optional[ColumnBatch]:
+        if len(self._inflight):
+            self._inflight.drain(block=self.input_done)
+        if self.input_done:
+            self._planner.settle()
         return self._pending.popleft() if self._pending else None
 
     def is_finished(self) -> bool:
-        return self._closed or (self.input_done and not self._pending)
+        return self._closed or (self.input_done and not self._pending
+                                and not len(self._inflight))
 
 
 # ---------------------------------------------------------------------------
@@ -1471,7 +1866,8 @@ class UnnestOperator(Operator):
             length = ln if length is None else torch.maximum(length, ln)
         if batch.live is not None:
             length = torch.where(batch.live, length, 0)
-        total = int(length.sum())  # the one host sync: the output size
+        # the one host sync: the output size
+        total = int(SG.fetch(length.sum(), "unnest.output-size"))
         if total == 0:
             return
         rows = torch.repeat_interleave(
@@ -1535,7 +1931,7 @@ class ReplicateOperator(Operator):
 _NEVER_NULL = WK.WINDOW_RANK_FNS | {"count", "count_star"}
 
 
-class WindowOperator(Operator):
+class WindowOperator(BufferedInputMixin, Operator):
     """Window-function evaluation (operator/WindowOperator.java:69):
     blocking -- accumulate, then exec/window_kernels.py sorts once per spec,
     computes every function and gathers the results back to input order on
@@ -1556,18 +1952,18 @@ class WindowOperator(Operator):
 
     def add_input(self, batch: ColumnBatch) -> None:
         if batch.num_rows:
-            self._batches.append(batch)
+            self.buffer(batch)
 
     def finish_input(self) -> None:
         super().finish_input()
-        if not self._batches:
+        if not self.buffered_batches():
             self._result = ColumnBatch(
                 self.output_names,
                 [Column(t, np.empty(0, t.storage_dtype))
                  for t in self.output_types])
             return
         inp = ColumnBatch.concat(self._batches)  # compacts + unifies dicts
-        self._batches = []
+        self.release_memory()
         pkeys = [(inp.columns[c].data, inp.columns[c].valid)
                  for c in self.partition_keys]
         okeys = [(inp.columns[k.channel].data, inp.columns[k.channel].valid,
@@ -1609,7 +2005,7 @@ class WindowOperator(Operator):
 # sort / top-N / limit
 
 
-class SortOperator(Operator):
+class SortOperator(BufferedInputMixin, Operator):
     """Full sort (operator/OrderByOperator.java:44): lexsort + payload
     gather on the device, dead rows last."""
 
@@ -1623,7 +2019,7 @@ class SortOperator(Operator):
 
     def add_input(self, batch: ColumnBatch) -> None:
         if batch.num_rows:
-            self._batches.append(batch)
+            self.buffer(batch)
 
     def _sorted_batch(self, batches: Sequence[ColumnBatch],
                       out_n: Optional[int]) -> ColumnBatch:
@@ -1639,11 +2035,11 @@ class SortOperator(Operator):
 
     def finish_input(self) -> None:
         super().finish_input()
-        if not self._batches:
+        if not self.buffered_batches():
             self._emitted = True
             return
         self._result = self._sorted_batch(self._batches, self.limit)
-        self._batches = []
+        self.release_memory()
 
     def get_output(self):
         if self._result is not None and not self._emitted:
@@ -1669,12 +2065,15 @@ class TopNOperator(SortOperator):
     def add_input(self, batch: ColumnBatch) -> None:
         if not batch.num_rows:
             return
-        self._batches.append(batch)
+        with self._buffer_state():
+            self._batches.append(batch)
         self._buffered_rows += batch.num_rows
         if self._buffered_rows > self._shrink_at:
-            best = self._sorted_batch(self._batches, self.count)
-            self._batches = [best]
+            best = self._sorted_batch(self.buffered_batches(), self.count)
+            with self._buffer_state():
+                self._batches = [best]
             self._buffered_rows = best.num_rows
+        self.account_memory()
 
 
 class LimitOperator(Operator):

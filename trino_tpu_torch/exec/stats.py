@@ -2,14 +2,16 @@
 
 The Driver credits wall time, rows and batches to each operator as it moves
 batches (reference: operator/OperatorStats.java, the port of
-``exec/stats.py`` with its scan-ingest and encoding counters; the sync,
-resilience, fused, resident and adaptive ones are not ported).  Rows are live rows: on the
-card a masked batch's count is a device reduction, so the driver adds
-the counts up as tensors and :meth:`QueryStats.read_counts` reads them
-all once the run has ended.  Device work is asynchronous, so a
-:class:`QueryStats` created with ``sync`` set synchronizes the device
-after every operator call: the times then charge each operator its own
-device work, at the cost of the overlap.
+``exec/stats.py`` with its scan-ingest, encoding and host-sync counters;
+the resilience, fused, resident and adaptive ones are not ported).  Rows
+are live rows: on the card a masked batch's count is a device reduction,
+so the driver adds the counts up as tensors and
+:meth:`QueryStats.read_counts` reads them all once the run has ended.
+Device work is asynchronous, so a :class:`QueryStats` created with
+``per_op_sync`` set synchronizes the device after every operator call: the
+times then charge each operator its own device work, at the cost of the
+overlap.  ``sync`` is the run's exec/syncguard.py delta, and an operator
+that revoked its buffer to host memory reports its ``spill_count``.
 """
 
 from __future__ import annotations
@@ -153,6 +155,8 @@ class OperatorStats:
     input_batches: int = 0
     output_batches: int = 0
     wall_s: float = 0.0
+    spill_count: int = 0  # revocations of the operator's buffer
+    revoked_bytes: int = 0  # bytes those revocations moved to the host
 
 
 @dataclass
@@ -163,9 +167,10 @@ class PipelineStats:
 @dataclass
 class QueryStats:
     pipelines: list[PipelineStats] = field(default_factory=list)
-    sync: bool = False  # synchronize the device after each operator call
+    per_op_sync: bool = False  # synchronize the device after each op call
     scan: Optional[ScanIngestStats] = None  # the run's scans, rolled up
     encoding: Optional[EncodingStats] = None  # compressed execution
+    sync: Optional[object] = None  # the run's syncguard.SyncStats delta
 
     def by_operator(self) -> dict[str, float]:
         """Wall seconds summed per operator class name."""
@@ -178,6 +183,8 @@ class QueryStats:
     def read_counts(self) -> None:
         """Replace row counts held as device tensors by ints: one host
         read per device."""
+        from . import syncguard as SG
+
         slots: dict = {}
         for p in self.pipelines:
             for o in p.operators:
@@ -186,9 +193,24 @@ class QueryStats:
                     if isinstance(v, torch.Tensor):
                         slots.setdefault(v.device, []).append((o, attr, v))
         for items in slots.values():
-            values = torch.stack([v for _, _, v in items]).tolist()
+            values = SG.fetch(torch.stack([v for _, _, v in items]),
+                              "stats.row-counts")
             for (o, attr, _), n in zip(items, values):
                 setattr(o, attr, int(n))
+
+    def collect_spills(self, pipelines) -> None:
+        """Copy each operator's ``spill_count`` and ``revoked_bytes`` into
+        its stats (pipelines in the order of ``self.pipelines``)."""
+        for p, ps in zip(pipelines, self.pipelines):
+            for op, o in zip(p, ps.operators):
+                o.spill_count = getattr(op, "spill_count", 0)
+                o.revoked_bytes = getattr(op, "revoked_bytes", 0)
+
+    def spills(self) -> tuple:
+        """(revocations, bytes revoked) over the run's operators."""
+        ops = [o for p in self.pipelines for o in p.operators]
+        return (sum(o.spill_count for o in ops),
+                sum(o.revoked_bytes for o in ops))
 
     def text(self) -> str:
         """The stats lines of EXPLAIN ANALYZE: the scan and encoding
@@ -196,6 +218,8 @@ class QueryStats:
         lines = []
         if self.scan is not None and self.scan.scan_batches:
             lines.append("  " + self.scan.text())
+        if self.sync is not None and self.sync.host_syncs:
+            lines.append("  " + self.sync.text())
         if self.encoding is not None and self.encoding.any:
             lines.append("  " + self.encoding.text())
         for i, p in enumerate(self.pipelines):
@@ -204,5 +228,8 @@ class QueryStats:
                 lines.append(
                     f"    {op.name}: {op.wall_s * 1e3:.1f} ms, "
                     f"in {op.input_rows} rows/{op.input_batches} batches, "
-                    f"out {op.output_rows} rows/{op.output_batches} batches")
+                    f"out {op.output_rows} rows/{op.output_batches} batches"
+                    + (f", spilled {op.spill_count}x "
+                       f"({op.revoked_bytes} bytes)" if op.spill_count
+                       else ""))
         return "\n".join(lines)

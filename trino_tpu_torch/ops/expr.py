@@ -154,10 +154,18 @@ def reduce_error_lanes(acc, n: int, device):
 
 
 def check_error_scalars(scalars) -> None:
-    """One batched fetch; raises QueryError on the worst code."""
+    """One batched fetch (the worst code per device, counted by
+    exec/syncguard.py); raises QueryError on the worst code."""
     if not scalars:
         return
-    worst = int(torch.stack([s.cpu() for s in scalars]).max())
+    from ..exec import syncguard as SG
+
+    by_device: dict = {}
+    for s in scalars:
+        by_device.setdefault(s.device, []).append(s)
+    worst = max(int(v) for v in SG.fetch(
+        [torch.stack(v).max() for v in by_device.values()],
+        "expr.error-scalars"))
     if worst:
         raise QueryError(worst)
 

@@ -27,7 +27,8 @@ such views.
 Each wrapper launches its kernel for a CUDA tensor and takes the plain torch
 version for a CPU tensor; there is no fallback between the two.  Inputs must
 be contiguous: the wrappers raise rather than copy.  ``LAUNCHES`` counts
-kernel launches per wrapper (plain calls are not counted).
+kernel launches per wrapper (plain calls are not counted), under a lock:
+concurrent drivers launch from several threads.
 """
 
 from __future__ import annotations
@@ -63,9 +64,18 @@ _LIB_LOCK = threading.Lock()
 _INSERT_ROWS_PER_BLOCK = 0  # read from the library when it is loaded
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _launched(kernel: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def _nvcc() -> str:
@@ -341,7 +351,7 @@ def hash_insert(planes, hash32, live: Optional[torch.Tensor], num_slots: int):
         None if live is None else live.data_ptr(), S, buckets.data_ptr(),
         buckets.shape[1], base, base + 4 * S, row_gid.data_ptr(),
         base + 4 * (S + n), _stream(dev)), "hash_insert")
-    LAUNCHES["hash_insert"] += 1
+    _launched("hash_insert")
     count = int(scratch[S + n + nb].item()) if n else 0
     return (row_gid, count, *_views(buckets, P))
 
@@ -371,7 +381,7 @@ def hash_probe(table_planes, slot_gid, planes, hash32,
             slot_gid.data_ptr(), W, S, planes.data_ptr(), P, n,
             hash32.data_ptr(), None if live is None else live.data_ptr(),
             gid.data_ptr(), _stream(dev)), "hash_probe")
-        LAUNCHES["hash_probe"] += 1
+        _launched("hash_probe")
     return gid
 
 
@@ -462,5 +472,5 @@ def masked_segment_sum_f32(values, gid, live: Optional[torch.Tensor],
         values.data_ptr(), gid.data_ptr(),
         None if live is None else live.data_ptr(), n, G, grid, base + 4 * G,
         base, _stream(dev)), "masked_segment_sum_f32")
-    LAUNCHES["masked_segment_sum_f32"] += 1
+    _launched("masked_segment_sum_f32")
     return buf[:G]

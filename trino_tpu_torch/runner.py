@@ -20,10 +20,13 @@ the runner's device through ``hash_insert``; DELETE and a refresh keep a
 device-resident table resident.
 
 The ``Session`` holds what the port acts on: ``default_catalog``,
-``user``, ``splits_per_node``, ``node_count`` and ``dynamic_filtering``,
-read on every statement.  SET SESSION also accepts the reference's other
-properties and stores them unread, except the three the port cannot honour
-yet, which take only their defaults.  The port-only arguments ``ingest`` (an
+``user``, ``splits_per_node``, ``node_count``, ``dynamic_filtering``,
+``hbm_limit_bytes`` (the task's device memory pool: blocking operators
+revoke their buffers to host memory beyond it) and ``task_concurrency``
+(parallel drivers behind local exchanges), read on every statement.  SET
+SESSION also accepts the reference's other properties and stores them
+unread, except ``spill_to_disk_bytes``, which takes only its default (the
+disk tier waits for the wire format).  The port-only arguments ``ingest`` (an
 ``exec.prefetch.IngestConfig``: split prefetch threads, coalescing into
 pinned buffers, side-stream copies to the card), ``encoded_exec`` (RLE and
 LAZY columns), ``optimizer`` and ``device`` are not session properties.
@@ -46,6 +49,7 @@ import torch
 from .caching.plan_cache import scan_tables
 from .connectors.catalog import Catalog, ViewDefinition, default_catalog
 from .exec import kernels as K
+from .exec import syncguard as SG
 from .exec.driver import run_pipelines
 from .exec.local_planner import LocalPlanner
 from .exec.prefetch import IngestConfig
@@ -91,6 +95,7 @@ class QueryResult:
     batch: ColumnBatch
 
     def rows(self) -> list[tuple]:
+        SG.count_sync("runner.result-fetch")
         return self.batch.to_pylist()
 
 
@@ -121,11 +126,9 @@ STORED_SESSION_PROPERTIES = {
 }
 
 # properties the reference's standalone runner acts on that the port cannot
-# honour yet: memory accounting, spill and the local exchange (ROADMAP.md,
-# queue 1 item 2).  Only their defaults are accepted.
-UNSUPPORTED_SESSION_PROPERTIES = {"hbm_limit_bytes": 16 << 30,
-                                  "spill_to_disk_bytes": 0,
-                                  "task_concurrency": 1}
+# honour yet: the disk tier of spill needs the TTP2 / TTS2 wire format
+# (ROADMAP.md, queue 1 item 3).  Only their defaults are accepted.
+UNSUPPORTED_SESSION_PROPERTIES = {"spill_to_disk_bytes": 0}
 
 
 @dataclass
@@ -140,6 +143,10 @@ class Session:
     splits_per_node: int = 4
     node_count: int = 1
     dynamic_filtering: bool = True
+    # the task's device memory pool (exec/revoking.py)
+    hbm_limit_bytes: int = 16 << 30
+    # parallel drivers per task behind local exchanges
+    task_concurrency: int = 1
     # active transaction (execution/transaction.py); None = autocommit
     transaction: object = None
     _transaction_manager: object = None
@@ -159,7 +166,7 @@ _PROPERTY_DEFAULTS = {**STORED_SESSION_PROPERTIES,
 # through SQL (a restricted user must not setattr session.user)
 SETTABLE_SESSION_PROPERTIES = {
     "default_catalog", "splits_per_node", "node_count", "dynamic_filtering",
-    *_PROPERTY_DEFAULTS}
+    "hbm_limit_bytes", "task_concurrency", *_PROPERTY_DEFAULTS}
 
 
 def _literal_value(e):
@@ -194,9 +201,9 @@ def execute_session_stmt(stmt, session: Session) -> Optional[QueryResult]:
     default = UNSUPPORTED_SESSION_PROPERTIES.get(name, value)
     if value != default:
         raise NotImplementedError(
-            f"session property {name} = {value}: the port has no memory "
-            "accounting, spill or local exchange yet (ROADMAP.md queue 1 "
-            f"item 2); only the default {default} runs")
+            f"session property {name} = {value}: the port has no disk "
+            "spill yet, it needs the wire format (ROADMAP.md queue 1 item "
+            f"3); only the default {default} runs")
     if name in _PROPERTY_DEFAULTS:
         session.properties[name] = value
     else:
@@ -282,7 +289,8 @@ def _present_codes(col: Column) -> np.ndarray:
         codes = torch.where(col.valid, codes, n_dict)
     presence = torch.zeros(n_dict + 1, dtype=torch.bool, device=codes.device)
     presence[codes] = True
-    return torch.nonzero(presence[:n_dict]).flatten().cpu().numpy()
+    return SG.fetch(torch.nonzero(presence[:n_dict]).flatten(),
+                    "analyze.present-codes")
 
 
 def _analyze(stmt: ast.Analyze, catalog: Catalog, default_catalog_name: str,
@@ -596,7 +604,10 @@ class StandaloneQueryRunner:
                              node_count=session.node_count,
                              dynamic_filtering=session.dynamic_filtering,
                              ingest=self.ingest,
-                             encoded_exec=self.encoded_exec).plan(plan)
+                             encoded_exec=self.encoded_exec,
+                             hbm_limit_bytes=session.hbm_limit_bytes,
+                             task_concurrency=session.task_concurrency
+                             ).plan(plan)
         run_pipelines(local.pipelines, stats)
         batches = local.collector.batches
         if batches:

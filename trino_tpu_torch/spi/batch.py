@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import datetime
 import decimal
+import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -157,6 +158,9 @@ def _dictionary_nbytes(d) -> int:
     return total
 
 
+_MATERIALIZE_LOCK = threading.RLock()
+
+
 class Column:
     """One column: ``data`` tensor + ``valid`` mask (or None) + dictionary.
 
@@ -265,24 +269,31 @@ class Column:
         return self._device
 
     def _materialize(self) -> None:
-        if self._enc == "RLE":
-            self._data = torch.full((self._length,), self._rle_value.item(),
-                                    dtype=torch_dtype(self._rle_value.dtype),
-                                    device=self._device)
-            return
-        thunk, self._thunk = self._thunk, None
-        data, valid = thunk()
-        data = _to_device(as_tensor(data), self._device)
-        if int(data.shape[0]) != self._length:
-            raise ValueError(f"lazy column thunk gave {data.shape[0]} rows, "
-                             f"expected {self._length}")
-        self._data = data
-        self._valid = _normalized_valid(
-            None if valid is None
-            else _to_device(as_tensor(valid), self._device))
-        self._enc = "FLAT"
-        if self._on_materialize is not None:
-            self._on_materialize(self)
+        # under one lock, ``_data`` set last: the live-mask views of a HASH
+        # local exchange share this column across concurrent drivers, and
+        # a reader that sees ``_data`` must see the mask and encoding too
+        with _MATERIALIZE_LOCK:
+            if self._data is not None:
+                return
+            if self._enc == "RLE":
+                self._data = torch.full(
+                    (self._length,), self._rle_value.item(),
+                    dtype=torch_dtype(self._rle_value.dtype),
+                    device=self._device)
+                return
+            thunk, self._thunk = self._thunk, None
+            data, valid = thunk()
+            data = _to_device(as_tensor(data), self._device)
+            if int(data.shape[0]) != self._length:
+                raise ValueError(f"lazy column thunk gave {data.shape[0]} "
+                                 f"rows, expected {self._length}")
+            self._valid = _normalized_valid(
+                None if valid is None
+                else _to_device(as_tensor(valid), self._device))
+            self._enc = "FLAT"
+            self._data = data
+            if self._on_materialize is not None:
+                self._on_materialize(self)
 
     @property
     def data(self) -> torch.Tensor:
