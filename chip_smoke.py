@@ -129,19 +129,40 @@ default optimizer, the iterative one:
      (EXPLAIN ANALYZE's sync line of Q3 and Q21, syncs now and before the
      sync-free probe, a run under SG.forbidden(cuda_sync_debug=True)) and
      the time-sharing executor (Q1, Q3, Q6 at once on two workers against
-     run_pipelines).  Its launches are ``launches_engine``.
+     run_pipelines).  Its launches are ``launches_engine``;
+ 17. storage: the wire format, the disk tier of spill and the file
+     connector at SF 1.  (a) CTAS of file.customer, file.orders and
+     file.lineitem (all columns) from the tpch catalog: seconds, pages,
+     bytes on disk against the flat column bytes, the sink's host syncs;
+     Q1, Q3, Q12, Q18 and R1 over the file tables cold and warm: rows
+     equal phase 3's and the numpy evaluations (Q1, Q3, Q12, R1), bytes
+     read and inflated, read / inflate / decode ms per query, the host ms
+     of dictionary unification on both paths, the device idle share of
+     Q1's warm run, and hash_insert / hash_probe / masked_segment_sum_f32
+     each launched.  (b) on the tpch path, Q18 and a join + ORDER BY ...
+     LIMIT under spill_to_disk_bytes = 64 MiB with a 256 MiB pool, and Q1
+     under spill_to_disk_bytes = 1 (the aggregation's state spill): rows
+     equal the runs without a budget, pages and bytes spilled (more than
+     none), write and read-back ms, the merges' hash_insert launches, the
+     peak above the start and warm ms against no budget in turns.  The
+     file root is removed at the end.  Its launches are
+     ``launches_storage``.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import decimal
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1971,7 +1992,7 @@ def engine(torch, GK, StandaloneQueryRunner, staged_cat, tpch_runner,
         (want, ms_u), peak_u, above_u = peaks["unlimited"]
         (got, ms_l), peak_l, above_l = peaks["limited"]
         same_rows(got, want, f"{label} {name} at {REVOKE_LIMIT >> 20} MiB")
-        spills, moved = st.spills()
+        spills, moved, _, _ = st.spills()
         revocations += spills
         log(f"{label} (b) {name}: rows equal the unlimited run; "
             f"hbm_limit_bytes={REVOKE_LIMIT >> 20} MiB: {spills} "
@@ -2124,6 +2145,259 @@ def engine(torch, GK, StandaloneQueryRunner, staged_cat, tpch_runner,
     log(f"{label} launches: {launches}")
     log(f"engine: {time.perf_counter() - t_phase:.1f} s for phase 16")
     return launches, runners["4"]
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the wire format, the disk tier of spill and the file connector
+
+
+STORAGE_TABLES = ("customer", "orders", "lineitem")
+STORAGE_QUERIES = ("Q1", "Q3", "Q12", "Q18", "R1")
+STORAGE_REQUIRED = {"Q3": ["hash_insert"], "Q12": ["hash_probe"],
+                    "R1": ["masked_segment_sum_f32"]}
+DISK_LIMIT = 64 << 20  # spill_to_disk_bytes of (b)'s first two queries
+DISK_POOL = 256 << 20  # their hbm_limit_bytes
+# a join whose build (every column of orders: ~100 MB at SF 1) buffers
+# more than DISK_LIMIT, under a TopN; the sort keys make the order total
+JOIN_LIMIT_SQL = (
+    "select o_orderkey, o_custkey, o_orderstatus, o_totalprice, "
+    "o_orderdate, o_orderpriority, o_clerk, o_shippriority, o_comment, "
+    "l_linenumber, l_extendedprice from orders, lineitem "
+    "where o_orderkey = l_orderkey "
+    "order by l_extendedprice desc, o_orderkey, l_linenumber limit 10")
+
+
+def _unify_timer(modules):
+    """Wrap ``unify_dictionaries`` where the port calls it: returns
+    (stats: calls, merges (dictionaries that differed), seconds; restore)."""
+    from trino_tpu_torch.spi import batch as B
+
+    orig = B.unify_dictionaries
+    stats = {"calls": 0, "merges": 0, "s": 0.0}
+
+    def timed(columns):
+        t0 = time.perf_counter()
+        out = orig(columns)
+        stats["s"] += time.perf_counter() - t0
+        stats["calls"] += 1
+        stats["merges"] += any(o is not c for o, c in zip(out, columns))
+        return out
+
+    for m in modules:
+        m.unify_dictionaries = timed
+    return stats, lambda: [setattr(m, "unify_dictionaries", orig)
+                           for m in modules]
+
+
+def storage(torch, GK, StandaloneQueryRunner, default_catalog, tpch_runner,
+            sqls: dict, path_rows: dict, numpy_rows: dict, smi: str) -> dict:
+    """Phase 17 (see the module docstring) over a file root under build/,
+    removed at the end whatever happens; returns the phase's launches."""
+    t_phase = time.perf_counter()
+    GK.reset_launch_counts()
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip-smoke-files-", dir="build")
+    try:
+        launches = _storage(torch, GK, StandaloneQueryRunner,
+                            default_catalog, tpch_runner, sqls, path_rows,
+                            numpy_rows, smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"storage: file root {root} removed; "
+        f"{time.perf_counter() - t_phase:.1f} s for phase 17")
+    return launches
+
+
+def _storage(torch, GK, StandaloneQueryRunner, default_catalog, tpch_runner,
+             sqls, path_rows, numpy_rows, smi, root) -> dict:
+    from trino_tpu_torch import native
+    from trino_tpu_torch.connectors.file import page_frames
+    from trino_tpu_torch.exec import operators as OPS
+    from trino_tpu_torch.exec import prefetch as PF
+    from trino_tpu_torch.exec import syncguard as SG
+    from trino_tpu_torch.exec.stats import QueryStats
+    from trino_tpu_torch.runner import Session
+    from trino_tpu_torch.spi import batch as B
+    from trino_tpu_torch.tools.window_profile import trace
+
+    label = f"storage SF{PATH_SF:g}"
+    tpch = tpch_runner.catalog.connector("tpch")
+    cat = default_catalog(PATH_SF, file_root=root)
+    cat.register("tpch", tpch)  # phase 3's generator, dictionaries built
+    files = cat.connector("file")
+    runner = StandaloneQueryRunner(cat, device="cuda",
+                                   default_catalog_name="file")
+
+    def run(r, sql, stats=None):
+        t0 = time.perf_counter()
+        rows = r.execute(sql, stats=stats).rows()
+        torch.cuda.synchronize()
+        return rows, (time.perf_counter() - t0) * 1e3
+
+    # (a) file tables: CTAS, then the queries over them
+    t0 = time.perf_counter()
+    native.load()
+    log(f"{label} (a) native library {native.lib_path()} ready in "
+        f"{time.perf_counter() - t0:.2f} s (c++ -O3 -lz)")
+    for t in STORAGE_TABLES:
+        sync0 = SG.snapshot()
+        _, ms = run(runner, f"create table {t} as select * from tpch.{t}")
+        sync = SG.take_delta(sync0)
+        schema = files.get_table_schema(t)
+        rows = files.row_count(t)
+        flat = rows * sum(
+            np.dtype(np.int32 if c.type.is_dictionary_encoded
+                     else c.type.storage_dtype).itemsize
+            for c in schema.columns)
+        paths = [s.info for s in files.get_splits(t, 1, 1)]
+        pages = sum(len(page_frames(p)) for p in paths)
+        on_disk = sum(os.path.getsize(p) for p in paths)
+        if rows != tpch.row_count(t) or not pages:
+            raise AssertionError(f"{label} (a) CTAS {t}: {rows} rows in "
+                                 f"{pages} pages")
+        log(f"{label} (a) CTAS file.{t}: {rows} rows in {ms / 1e3:.2f} s, "
+            f"{len(paths)} page files, {pages} pages, {on_disk} bytes on "
+            f"disk against {flat} flat column bytes "
+            f"({on_disk / flat:.3f}x; dictionaries are stored per page); "
+            f"sink host syncs {sync.host_syncs} (serde.column "
+            f"{sync.by_tag.get('serde.column', 0)}, serde.compact "
+            f"{sync.by_tag.get('serde.compact', 0)}) [{smi}]")
+
+    unify, restore = _unify_timer((B, PF, OPS))
+    per_query, rows_of, walls = {}, {}, {}
+    try:
+        for name in STORAGE_QUERIES:
+            before = dict(GK.LAUNCHES)
+            st0 = dataclasses.replace(files.read_stats)
+            _, cold = run(runner, sqls[name])
+            st = files.read_stats
+            read = {k: getattr(st, k) - getattr(st0, k)
+                    for k in ("frames", "bytes_read", "bytes_inflated",
+                              "read_s", "inflate_s", "decode_s")}
+            u0 = dict(unify)
+            rows_of[name], warm = run(runner, sqls[name])
+            u_file = {k: unify[k] - u0[k] for k in unify}
+            u0 = dict(unify)
+            run(tpch_runner, sqls[name])
+            u_tpch = {k: unify[k] - u0[k] for k in unify}
+            walls[name] = warm
+            per_query[name] = {k: GK.LAUNCHES[k] - before[k]
+                               for k in GK.LAUNCHES}
+            real = name in REAL_QUERIES
+            worst = same_rows(rows_of[name], path_rows[name],
+                              f"{label} (a) {name} vs the tpch path",
+                              REAL_PARITY_RTOL if real else DOUBLE_RTOL)
+            msg = ""
+            if name in numpy_rows:
+                same_rows(rows_of[name], numpy_rows[name],
+                          f"{label} (a) {name} vs numpy",
+                          KERNEL_VS_F64_RTOL if real else DOUBLE_RTOL)
+                msg = " and the numpy evaluation"
+            log(f"{label} (a) {name} over file tables: {len(rows_of[name])} "
+                f"rows equal the tpch path's{msg} (largest float rel diff "
+                f"{worst:.3g}); cold {cold:.1f} ms, warm {warm:.1f} ms; cold "
+                f"run read {read['frames']} pages, {read['bytes_read']} "
+                f"bytes, inflated to {read['bytes_inflated']}; read "
+                f"{read['read_s'] * 1e3:.1f} ms, inflate "
+                f"{read['inflate_s'] * 1e3:.1f} ms, decode "
+                f"{read['decode_s'] * 1e3:.1f} ms (summed over the prefetch "
+                f"threads); warm dictionary unification: file path "
+                f"{u_file['calls']} calls, {u_file['merges']} merges, "
+                f"{u_file['s'] * 1e3:.1f} ms, tpch path {u_tpch['calls']} "
+                f"calls, {u_tpch['merges']} merges, {u_tpch['s'] * 1e3:.1f} "
+                f"ms; launches {per_query[name]} [{smi}]")
+    finally:
+        restore()
+    for name, kernels in STORAGE_REQUIRED.items():
+        for k in kernels:
+            if per_query[name][k] <= 0:
+                raise AssertionError(f"{label} (a) {name} launched no {k}")
+    traced, busy, ops, _ = trace(runner, sqls["Q1"])
+    if busy <= 0:
+        raise AssertionError(f"{label} (a) Q1: no device time traced")
+    log(f"{label} (a) Q1 over file tables: device busy {busy:.2f} ms of "
+        f"{walls['Q1']:.2f} ms warm wall (traced {traced:.2f} ms): idle "
+        f"{1 - busy / walls['Q1']:.1%}; most device time: " + "; ".join(
+            f"{key} {ms:.3f} ms x{calls}" for key, ms, calls in ops[:5]))
+    for t in STORAGE_TABLES:
+        runner.execute(f"drop table {t}")
+    del runner, cat, files
+
+    # (b) the disk tier on the tpch path
+    tcat = tpch_runner.catalog
+    budgets = {
+        "Q18": Session(spill_to_disk_bytes=DISK_LIMIT,
+                       hbm_limit_bytes=DISK_POOL),
+        "J1": Session(spill_to_disk_bytes=DISK_LIMIT,
+                      hbm_limit_bytes=DISK_POOL),
+        "Q1": Session(spill_to_disk_bytes=1)}
+    texts = {"Q18": sqls["Q18"], "J1": JOIN_LIMIT_SQL, "Q1": sqls["Q1"]}
+    merges = {"insert": 0}
+    orig_merge = OPS.HashAggregationOperator._merge_spilled
+
+    def counted_merge(self):
+        before = GK.LAUNCHES["hash_insert"]
+        out = orig_merge(self)
+        merges["insert"] += GK.LAUNCHES["hash_insert"] - before
+        return out
+
+    OPS.HashAggregationOperator._merge_spilled = counted_merge
+    try:
+        for name, session in budgets.items():
+            spill = StandaloneQueryRunner(tcat, device="cuda",
+                                          session=session)
+            peaks = {}
+            for key, r in (("none", tpch_runner), ("budget", spill)):
+                st = QueryStats()
+                merges["insert"] = 0
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                rows, ms = run(r, texts[name], st)
+                peaks[key] = (rows, ms, st, merges["insert"],
+                              (torch.cuda.max_memory_allocated() - base)
+                              / 2**20)
+            want, _, _, _, above_none = peaks["none"]
+            got, cold, st, merge_inserts, above = peaks["budget"]
+            worst = same_rows(got, want, f"{label} (b) {name} vs no budget")
+            revocations, revoked, pages, nbytes = st.spills()
+            if pages <= 0 or nbytes <= 0:
+                raise AssertionError(f"{label} (b) {name}: nothing spilled "
+                                     "to disk")
+            ops_ = [o for p in st.pipelines for o in p.operators
+                    if o.disk_pages]
+            write_ms = sum(o.disk_write_s for o in ops_) * 1e3
+            read_ms = sum(o.disk_read_s for o in ops_) * 1e3
+            warm = {"none": [], "budget": []}
+            for key in ("none", "budget", "budget", "none"):
+                warm[key].append(run(tpch_runner if key == "none"
+                                     else spill, texts[name])[1])
+            spill_syncs = {k: v for k, v in st.sync.by_tag.items()
+                           if k.startswith(("serde.", "agg.spill"))}
+            log(f"{label} (b) {name} (spill_to_disk_bytes="
+                f"{session.spill_to_disk_bytes}, hbm_limit_bytes="
+                f"{session.hbm_limit_bytes}): {len(got)} rows equal the run "
+                f"with no budget (largest float rel diff {worst:.3g}); "
+                f"{pages} pages, {nbytes} bytes to disk by "
+                f"{', '.join(sorted({o.name for o in ops_}))}; write "
+                f"{write_ms:.1f} ms, read back {read_ms:.1f} ms (pinned "
+                f"copies back); host syncs {st.sync.host_syncs}, of them "
+                f"spilling {spill_syncs}; "
+                f"{revocations} revocations ({revoked} bytes); merge "
+                f"hash_insert launches {merge_inserts}; peak above the "
+                f"start {above:.1f} MiB against {above_none:.1f}; cold "
+                f"{cold:.1f} ms; warm ms in turns none, budget, budget, "
+                f"none: {warm['none'][0]:.1f}, {warm['budget'][0]:.1f}, "
+                f"{warm['budget'][1]:.1f}, {warm['none'][1]:.1f} [{smi}]")
+    finally:
+        OPS.HashAggregationOperator._merge_spilled = orig_merge
+    launches = dict(GK.LAUNCHES)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{label}: no launch of {missing}")
+    torch.cuda.empty_cache()
+    log(f"{label} launches: {launches}")
+    return launches
 
 
 def kernel_cases(torch, GK, captured) -> list:
@@ -2334,6 +2608,11 @@ def main() -> int:
                                        staged_cat, runner, sqls, numpy_rows,
                                        smi)
 
+    # -- 17. the wire format, the disk tier of spill, the file connector ---
+    storage_launches = storage(torch, GK, StandaloneQueryRunner,
+                               default_catalog, runner, sqls, path_rows,
+                               numpy_rows, smi)
+
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
     # kept apart from the path runs so the held tensors do not inflate
@@ -2397,6 +2676,7 @@ def main() -> int:
             "launches_nested": nested_launches[kernel],
             "launches_statements": statement_launches[kernel],
             "launches_engine": engine_launches[kernel],
+            "launches_storage": storage_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],

@@ -710,3 +710,77 @@ def test_probe_steady_state_makes_no_sync_on_card(cuda):
         if (o := op.get_output()) is not None:
             out.append(o)
     assert sum(int(o.live.sum()) for o in out) > 0
+
+
+@pytest.mark.gpu
+def test_serde_of_a_cuda_batch_equals_its_cpu_copy(cuda):
+    """Compacted on the card, copied column by column: the same bytes as
+    the batch's CPU copy, v1 and v2, with masks, RLE and LAZY columns."""
+    from trino_tpu_torch.execution import serde as S
+    from trino_tpu_torch.spi.batch import Column, ColumnBatch
+    from trino_tpu_torch.spi.types import BIGINT, DOUBLE, VARCHAR
+
+    rng = np.random.default_rng(9)
+    n = 5000
+    d = np.array(["a", "bb", "ccc"], dtype=object)
+    host_lazy = rng.integers(0, 99, n)
+
+    def batch(device):
+        return ColumnBatch(["k", "x", "s", "run", "lazy"], [
+            Column(BIGINT, torch.from_numpy(rng.integers(0, 9, n)).to(device),
+                   torch.from_numpy(rng.random(n) < 0.8).to(device)),
+            Column(DOUBLE, torch.from_numpy(rng.normal(0, 1, n)).to(device),
+                   torch.ones(n, dtype=torch.bool, device=device)),
+            Column(VARCHAR, torch.from_numpy(rng.integers(0, 3, n).astype(
+                np.int32)).to(device), None, d),
+            Column.rle(BIGINT, 7, n, device=device),
+            Column.lazy(BIGINT, n, lambda: (host_lazy, None),
+                        device=device)],
+            torch.from_numpy(rng.random(n) < 0.5).to(device))
+
+    state = rng.bit_generator.state
+    on_card = batch("cuda")
+    rng.bit_generator.state = state
+    on_cpu = batch("cpu")
+    assert S.serialize_batch(on_card) == S.serialize_batch(on_cpu)
+    a, b = S.PageStreamEncoder(), S.PageStreamEncoder()
+    b.token = a.token
+    assert S.serialize_batch(on_card, ctx=a) == S.serialize_batch(on_cpu,
+                                                                  ctx=b)
+
+
+@pytest.mark.gpu
+def test_file_table_scan_on_card_equals_cpu(cuda, tmp_path):
+    from trino_tpu_torch.runner import Session
+
+    cat = default_catalog(0.1, file_root=str(tmp_path))
+    session = Session(default_catalog="file")
+    gpu = StandaloneQueryRunner(cat, device="cuda", session=session)
+    cpu = StandaloneQueryRunner(cat, device="cpu",
+                                session=Session(default_catalog="file"))
+    for t in ("customer", "orders", "lineitem"):
+        gpu.execute(f"create table {t} as select * from tpch.{t}")
+    for q in (1, 3, 12, 18):
+        a, b = gpu.execute(QUERIES[q]).rows(), cpu.execute(QUERIES[q]).rows()
+        assert len(a) == len(b) > 0
+        for x, y in zip(a, b):
+            for u, v in zip(x, y):
+                if isinstance(u, float):
+                    assert abs(u - v) <= 1e-9 * abs(u), (x, y)
+                else:
+                    assert u == v, (x, y)
+
+
+@pytest.mark.gpu
+def test_q18_under_a_disk_budget_on_card(cuda):
+    from trino_tpu_torch.exec.stats import QueryStats
+    from trino_tpu_torch.runner import Session
+
+    cat = default_catalog(0.1)
+    want = StandaloneQueryRunner(cat, device="cuda").execute(
+        QUERIES[18]).rows()
+    st = QueryStats()
+    got = StandaloneQueryRunner(cat, device="cuda", session=Session(
+        spill_to_disk_bytes=1 << 20)).execute(QUERIES[18], stats=st).rows()
+    assert got == want and len(got) > 0
+    assert st.spills()[2] > 0  # pages went to disk

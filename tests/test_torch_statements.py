@@ -12,8 +12,8 @@ counts against numpy (signed zeros, NaN, dictionaries split across
 batches, RLE / LAZY / long-decimal / array columns) and through the
 ``hash_insert`` route, residency after DELETE, REFRESH and ROLLBACK, the
 22 plans after ANALYZE of staged tables, and the engine's session
-properties (``task_concurrency`` and ``hbm_limit_bytes`` run, the disk
-tier's ``spill_to_disk_bytes`` raises).
+properties (``task_concurrency``, ``hbm_limit_bytes`` and the disk tier's
+``spill_to_disk_bytes`` run as in the reference).
 """
 
 from types import SimpleNamespace
@@ -580,7 +580,7 @@ def test_plans_after_analyze_match_reference(analyzed, q):
 
 
 # ---------------------------------------------------------------------------
-# the session properties of the engine: two run, the disk tier raises
+# the session properties of the engine
 
 ENGINE_SQL = ("select l_orderkey, count(*), sum(l_quantity) from lineitem, "
               "orders where l_orderkey = o_orderkey and o_orderdate < "
@@ -590,27 +590,17 @@ ENGINE_SQL = ("select l_orderkey, count(*), sum(l_quantity) from lineitem, "
 
 @pytest.mark.parametrize("name,value", [
     ("task_concurrency", 4), ("hbm_limit_bytes", 1 << 20),
-    ("spill_to_disk_bytes", 1 << 20)])
-def test_unsupported_session_properties_raise(name, value):
-    """``task_concurrency`` and ``hbm_limit_bytes`` are set as in the
-    reference and the query after them gives its rows (parallel drivers
-    over eight splits; a 1 MiB pool); only ``spill_to_disk_bytes`` still
-    raises, naming the queue item it waits for, and keeps its default."""
+    ("spill_to_disk_bytes", 64 << 10)])
+def test_engine_session_properties_run(name, value):
+    """Each is set as in the reference and the query after it gives its
+    rows (parallel drivers over eight splits; a 1 MiB pool; a 64 KiB disk
+    budget, under which the buffers go to spill files)."""
     ref, port = _runners()
-    if name != "spill_to_disk_bytes":
-        for sql in ("set session splits_per_node = 8",
-                    f"set session {name} = {value}", ENGINE_SQL):
-            _same(ref, port, sql)
-        assert port.session.get(name) == getattr(Session(**{name: value}),
-                                                 name) == value
-        return
-    default = port.session.get(name)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        port.execute(f"set session {name} = {value}")
-    assert port.session.get(name) == default  # not stored
-    port.execute(f"set session {name} = {default}")  # the default runs
-    with pytest.raises(TypeError):  # no field takes it unchecked
-        Session(**{name: value})
+    for sql in ("set session splits_per_node = 8",
+                f"set session {name} = {value}", ENGINE_SQL):
+        _same(ref, port, sql)
+    assert port.session.get(name) == getattr(Session(**{name: value}),
+                                             name) == value
 
 
 def test_reference_only_properties_are_stored():

@@ -129,10 +129,13 @@ class Catalog:
         return cat, table, schema
 
 
-def default_catalog(scale_factor: float = 0.01) -> Catalog:
-    """Catalog with the tpch, memory and blackhole connectors registered
-    (the reference's ``file`` and ``system`` connectors are not ported
-    yet)."""
+def default_catalog(scale_factor: float = 0.01,
+                    file_root: Optional[str] = None) -> Catalog:
+    """Catalog with the tpch, memory, blackhole and file connectors
+    registered (the reference's ``system`` connector is not ported yet).
+    ``file_root`` anchors the file connector's tables; by default it is a
+    temp directory of its own, made at first use."""
+    from .file import FileConnector
     from .memory import BlackholeConnector, MemoryConnector
     from .tpch import TpchConnector
 
@@ -140,4 +143,5 @@ def default_catalog(scale_factor: float = 0.01) -> Catalog:
     cat.register("tpch", TpchConnector(scale_factor))
     cat.register("memory", MemoryConnector())
     cat.register("blackhole", BlackholeConnector())
+    cat.register("file", FileConnector(file_root))
     return cat

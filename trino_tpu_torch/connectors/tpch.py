@@ -137,28 +137,6 @@ def _phones(nationkeys: np.ndarray, keys: np.ndarray) -> np.ndarray:
     )
 
 
-def _comments(keys: np.ndarray, stream: int, phrase: Optional[str] = None,
-              phrase_ppm: int = 0) -> np.ndarray:
-    """Template comments from a small vocabulary (bounded dictionary); the
-    given phrase is injected at ~phrase_ppm parts-per-million rows."""
-    w = len(_COMMENT_WORDS)
-    i1 = _h64(keys, stream * 7 + 1) % _U(w)
-    i2 = _h64(keys, stream * 7 + 2) % _U(w)
-    i3 = _h64(keys, stream * 7 + 3) % _U(w)
-    out = np.array(
-        [f"{_COMMENT_WORDS[a]} {_COMMENT_WORDS[b]} {_COMMENT_WORDS[c]}"
-         for a, b, c in zip(i1, i2, i3)],
-        dtype=object,
-    )
-    if phrase and phrase_ppm:
-        hit = (_h64(keys, stream * 7 + 4) % _U(1_000_000)) < _U(phrase_ppm)
-        if hit.any():
-            mid = np.array([f"{_COMMENT_WORDS[a]} {phrase}" for a in i1[hit]],
-                           dtype=object)
-            out[hit] = mid
-    return out
-
-
 def _retail_price_cents(pk):
     """Official spec formula (4.2.3): (90000 + pk/10 % 20001 + 100*(pk%1000)),
     on int64 partkeys (a numpy array or a torch tensor)."""
@@ -392,8 +370,9 @@ class TpchConnector(Connector):
 
     # ---- generation -----------------------------------------------------
     def _string_values(self, table: str, column: str) -> np.ndarray:
-        """All raw (unsorted) values for a string column — used to build the
-        global dictionary.  Bounded vocabularies return the vocab directly."""
+        """The distinct values of a string column (unsorted) — used to
+        build the global dictionary.  Bounded vocabularies return the vocab
+        directly."""
         fixed = {
             ("region", "r_name"): np.array(_REGIONS, object),
             ("nation", "n_name"): np.array([n for n, _ in _NATIONS], object),
@@ -419,9 +398,10 @@ class TpchConnector(Connector):
         n = self.row_count(table)
         keys = np.arange(1, n + 1, dtype=np.uint64)
         batch = self._generate(table, [column], 0, n)
-        # _generate returns dictionary-coded columns; decode via its dict
+        # _generate returns dictionary-coded columns: the entries of its
+        # dictionary that occur (no string per row)
         col = batch.column(column)
-        return col.dictionary[np.asarray(col.data)]
+        return col.dictionary[np.unique(col.data.numpy())]
 
     def _dict_column(self, table: str, column: str, values: np.ndarray) -> Column:
         if (table, column) in self._building:
@@ -464,9 +444,6 @@ class TpchConnector(Connector):
         index arithmetic as _device_comment_codes, mapped through the cached
         code table over _comment_vocab (pure ufunc work — releases the GIL,
         so prefetch threads genuinely parallelize the decode)."""
-        if (table, column) in self._building:
-            return self._dict_column(
-                table, column, _comments(keys, stream, phrase, phrase_ppm))
         w = len(_COMMENT_WORDS)
         keys = keys.astype(np.uint64)
         i1 = (_h64(keys, stream * 7 + 1) % _U(w)).astype(np.int64)
@@ -476,6 +453,14 @@ class TpchConnector(Connector):
         if phrase and phrase_ppm:
             hit = (_h64(keys, stream * 7 + 4) % _U(1_000_000)) < _U(phrase_ppm)
             idx = np.where(hit, w * w * w + i1, idx)
+        if (table, column) in self._building:
+            # the global dictionary under construction: a local one over
+            # the vocabulary entries that occur, found on their indices
+            # (no string per row)
+            uniq, inv = np.unique(idx, return_inverse=True)
+            d, codes = np.unique(_comment_vocab(phrase)[uniq],
+                                 return_inverse=True)
+            return Column(VARCHAR, codes.astype(np.int32)[inv], None, d)
         tab, d = self._code_table(table, column, _comment_vocab(phrase))
         return Column(VARCHAR, tab[idx], None, d)
 

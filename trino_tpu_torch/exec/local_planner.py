@@ -19,8 +19,10 @@ through.  ``dynamic_filtering``, ``ingest`` and ``encoded_exec`` are the
 reference's ``Session.dynamic_filtering``, ``TRINO_TPU_PREFETCH*`` and
 ``TRINO_TPU_ENCODED_EXEC`` as arguments, with their defaults.
 
-Each plan gets one ``TaskMemoryContext(hbm_limit_bytes)`` (exec/
-revoking.py) that every blocking operator reserves its buffer in.  With
+Each plan gets one ``TaskMemoryContext(hbm_limit_bytes,
+spill_to_disk_bytes)`` (exec/revoking.py) that every blocking operator
+reserves its buffer in, and whose disk threshold sends a buffer past it
+to a spill file (exec/spill.py).  With
 ``task_concurrency`` > 1, a pipeline whose source is a multi-split scan
 forks into parallel driver chains behind local exchanges
 (:meth:`LocalPlanner._parallelize`).  DistinctLimit raises (not ported).
@@ -90,7 +92,8 @@ class LocalPlanner:
                  ingest: Optional[IngestConfig] = None,
                  encoded_exec: bool = True,
                  hbm_limit_bytes: int = 16 << 30,
-                 task_concurrency: int = 1):
+                 task_concurrency: int = 1,
+                 spill_to_disk_bytes: int = 0):
         self.catalog = catalog
         self.device = device
         self.splits_per_node = splits_per_node
@@ -101,7 +104,8 @@ class LocalPlanner:
         self.task_concurrency = task_concurrency
         # the task's device pool: blocking operators reserve their buffered
         # bytes as revocable memory (exec/revoking.py)
-        self.memory = TaskMemoryContext(hbm_limit_bytes)
+        self.memory = TaskMemoryContext(hbm_limit_bytes,
+                                        spill_to_disk_bytes)
         self.pipelines: list[list[Operator]] = []
 
     def plan(self, root: P.PlanNode) -> LocalExecutionPlan:

@@ -59,7 +59,8 @@ from . import window_kernels as WK
 from .prefetch import (BatchCoalescer, DeviceStager, IngestConfig,
                        PrefetchingPageSource, encode_scan_batch)
 from .revoking import (batch_device_nbytes, batch_device_residual,
-                       to_device, to_host)
+                       restore_to_device, to_device, to_host)
+from .spill import Spiller
 from .stats import EncodingStats, ScanIngestStats
 
 __all__ = [
@@ -668,19 +669,29 @@ class BufferedInputMixin:
     as revocable memory, and a revocation moves them to ``_revoked`` in host
     memory (pinned on the card) until :meth:`buffered_batches` brings them
     back at finish.  ``spill_count`` counts the revocations that moved
-    bytes, ``revoked_bytes`` the bytes they moved.  Batches are appended
-    and taken under ``_buf_lock``, never held while the memory context is
-    called, because a concurrent driver's reservation may revoke this
-    operator's buffer."""
+    bytes, ``revoked_bytes`` the bytes they moved.
+
+    Below that tier is the disk (exec/spill.py): when the bytes buffered in
+    both lists exceed the context's ``spill_to_disk_bytes``, all of them
+    move, in arrival order, to the operator's spill file as v1 pages, and
+    come back first at finish.  :meth:`disk_stats` sums the pages, bytes
+    and seconds of every spill file the operator used.
+
+    Batches are appended and taken under ``_buf_lock``, never held while
+    the memory context is called, because a concurrent driver's
+    reservation may revoke this operator's buffer."""
 
     _mem = None  # TaskMemoryContext, set by attach_memory
     spill_count = 0
     revoked_bytes = 0
+    _spiller = None  # the raw-page spill file, while it holds pages
+    _spillers = ()  # every spill file the operator used (for the stats)
 
     def _buffer_state(self):
         if "_buf_lock" not in self.__dict__:
             self._buf_lock = threading.RLock()
             self._revoked = []  # [(host batch, its device)]
+            self._spilled_devices = []  # the device of each spilled page
         return self._buf_lock
 
     def attach_memory(self, mem) -> None:
@@ -697,6 +708,8 @@ class BufferedInputMixin:
     def account_memory(self) -> None:
         if self._mem is not None:
             self._mem.update(self, batch_device_residual(self))
+            if self._mem.spill_to_disk_bytes:
+                self._maybe_spill_to_disk()
 
     def revoke_memory(self) -> int:
         freed = 0
@@ -717,19 +730,79 @@ class BufferedInputMixin:
         with self._buffer_state():
             self._batches = []
             self._revoked = []
+            if self._spiller is not None:
+                self._spiller.close()
+                self._spiller = None
+                self._spilled_devices = []
         if self._mem is not None:
             self._mem.update(self, 0)
 
-    def buffered_batches(self) -> list:
-        """The operator's whole input in arrival order: revoked batches
-        copied back to their device first (every revocation takes all that
-        was buffered), then the ones still there."""
+    def _new_spiller(self):
+        sp = Spiller()
+        self._spillers = (*self._spillers, sp)
+        return sp
+
+    def _maybe_spill_to_disk(self) -> None:
+        """The disk tier: past the context's ``spill_to_disk_bytes``,
+        everything buffered (revoked batches first, then the ones on the
+        device, which is arrival order) goes to the spill file."""
+        limit = self._mem.spill_to_disk_bytes
         with self._buffer_state():
+            held = [b for b, _ in self._revoked] + self._batches
+            if (not held or any(not b.columns for b in held)
+                    or sum(b.nbytes for b in held) <= limit):
+                return
+            devices = [d for _, d in self._revoked] + [
+                b.device for b in self._batches]
+            if self._spiller is None:
+                self._spiller = self._new_spiller()
+            for b in held:
+                self._spiller.spill(b)
+            self._spilled_devices += devices
+            self._revoked, self._batches = [], []
+        self._mem.update(self, batch_device_residual(self))
+
+    def buffered_batches(self) -> list:
+        """The operator's whole input in arrival order, each batch back on
+        its device: the spilled pages first (every disk spill takes all
+        that was buffered), then the revoked batches (every revocation
+        takes all that was on the device), then the ones still there."""
+        with self._buffer_state():
+            restored = []
+            if self._spiller is not None:
+                restored = [restore_to_device(b, dev) for b, dev in zip(
+                    self._spiller.read_back(), self._spilled_devices)]
+                self._spiller.close()
+                self._spiller = None
+                self._spilled_devices = []
             if self._revoked:
-                self._batches = [to_device(b, dev) for b, dev
-                                 in self._revoked] + self._batches
+                restored += [to_device(b, dev) for b, dev in self._revoked]
                 self._revoked = []
+            if restored:
+                self._batches = restored + self._batches
             return self._batches
+
+    def disk_stats(self) -> tuple:
+        """(pages, bytes, write seconds, read-back seconds) over every
+        spill file of the operator."""
+        sps = self._spillers
+        return (sum(s.pages_spilled for s in sps),
+                sum(s.bytes_spilled for s in sps),
+                sum(s.write_s for s in sps), sum(s.read_s for s in sps))
+
+
+def _host_copy(batch: ColumnBatch, tag: str) -> ColumnBatch:
+    """A compact batch's columns in host memory: one counted read of all
+    of them (the batch itself on the CPU)."""
+    if batch.device.type == "cpu":
+        return batch
+    flat = [c.data for c in batch.columns] + [
+        c.valid for c in batch.columns if c.valid is not None]
+    got = iter(SG.fetch(flat, tag))
+    data = [next(got) for _ in batch.columns]
+    return ColumnBatch(batch.names, [
+        Column(c.type, d, None if c.valid is None else next(got),
+               c.dictionary) for c, d in zip(batch.columns, data)])
 
 
 def partial_agg_layout(aggs: Sequence[AggCall]) -> list:
@@ -793,9 +866,21 @@ class HashAggregationOperator(BufferedInputMixin, Operator):
     ``FLUSH_ROWS`` input rows are buffered it emits their states at once,
     so its buffer stays bounded by the flush window (the
     InMemoryHashAggregationBuilder partial flush).  DISTINCT aggregates and
-    long-decimal averages run SINGLE only."""
+    long-decimal averages run SINGLE only.
+
+    Under a disk budget a SINGLE or FINAL step without DISTINCT or a
+    long-decimal average spills STATES, not raw pages (the reference's
+    SpillableHashAggregationBuilder): past the budget it pre-aggregates
+    its buffer into PARTIAL states, splits them into ``SPILL_PARTITIONS``
+    hash partitions of the group keys on the device
+    (``local_exchange.hash_partitions``; a group's rows share a partition)
+    and appends each to a spill file of its own.  At finish it merges one
+    partition at a time through a FINAL step back on the device, so the
+    memory held is one partition's states.  The others take the raw-page
+    tier of :class:`BufferedInputMixin`."""
 
     FLUSH_ROWS = 1 << 20
+    SPILL_PARTITIONS = 16
 
     def __init__(self, group_keys: Sequence[int], aggs: Sequence[AggCall],
                  output_names: Sequence[str], output_types: Sequence[Type],
@@ -813,6 +898,124 @@ class HashAggregationOperator(BufferedInputMixin, Operator):
         self._result: Optional[ColumnBatch] = None
         self._emitted = False
         self.encoding_stats = EncodingStats()
+        # the partitioned state spill: one spill file per hash partition
+        self._state_spillers: Optional[list] = None
+        self._state_device = None  # where the merges run
+
+    # -- partitioned state spill ----------------------------------------------
+
+    def _state_spill_eligible(self) -> bool:
+        return self.step in ("SINGLE", "FINAL") and not any(
+            a.distinct or (a.fn == "avg" and isinstance(a.type, DecimalType))
+            for a in self.aggs)
+
+    def _maybe_spill_to_disk(self) -> None:
+        """Spill states when the revoked bytes exceed the budget or the
+        device rows would (8 bytes a row); raw pages when not eligible."""
+        if not self._state_spill_eligible():
+            super()._maybe_spill_to_disk()
+            return
+        limit = self._mem.spill_to_disk_bytes
+        with self._buffer_state():
+            host_bytes = sum(b.nbytes for b, _ in self._revoked)
+            device_rows = sum(b.num_rows for b in self._batches)
+        if host_bytes > limit or device_rows * 8 > limit:
+            self._spill_states()
+            self._mem.update(self, batch_device_residual(self))
+
+    def _final_calls(self) -> list:
+        """The FINAL step's calls over the spilled state rows."""
+        if self.step == "FINAL":
+            return list(self.aggs)
+        calls, ch = [], len(self.group_keys)
+        for a, states in zip(self.aggs, partial_agg_layout(self.aggs)):
+            calls.append(AggCall(a.fn, ch, a.type, False))
+            ch += len(states)
+        return calls
+
+    def _partial_states(self, batches: list) -> ColumnBatch:
+        """The buffer as mergeable state rows (a FINAL step's input is
+        state rows already), on its device, compacted."""
+        if self.step == "FINAL":
+            state = ColumnBatch.concat(batches, keep_live=True)
+        else:
+            nk = len(self.group_keys)
+            names, types = [f"k{i}" for i in range(nk)], [
+                batches[0].columns[c].type for c in self.group_keys]
+            for i, states in enumerate(partial_agg_layout(self.aggs)):
+                for j, (_, t) in enumerate(states):
+                    names.append(f"s{i}_{j}")
+                    types.append(t)
+            tmp = HashAggregationOperator(self.group_keys, self.aggs, names,
+                                          types, "PARTIAL")
+            tmp._batches = batches
+            state = tmp._compute()
+        if state.live is not None:
+            if state.live.device.type != "cpu":
+                SG.count_sync("agg.spill-compact")
+            state = state.compact()
+        return state
+
+    def _spill_states(self) -> None:
+        """Pre-aggregate everything buffered, partition the states on the
+        device and append each partition to its spill file: one counted
+        read of the partition sizes, one of the sorted states."""
+        from .local_exchange import hash_partitions
+
+        with self._buffer_state():
+            batches = self.buffered_batches()
+            if not batches:
+                return
+            state = self._partial_states(batches)
+            self._batches = []
+            m = self.SPILL_PARTITIONS
+            if self._state_spillers is None:
+                self._state_spillers = [self._new_spiller()
+                                        for _ in range(m)]
+                self._state_device = state.device
+            if not state.num_rows:
+                return
+            nk = len(self.group_keys)
+            if nk:
+                parts = hash_partitions(state, range(nk), m)
+                order = torch.argsort(parts, stable=True)
+                counts = SG.fetch(torch.bincount(parts, minlength=m),
+                                  "agg.spill-partitions")
+                state = ColumnBatch(state.names,
+                                    [c.take(order) for c in state.columns])
+            else:  # a global aggregation: one partition
+                counts = np.zeros(m, np.int64)
+                counts[0] = state.num_rows
+            host = _host_copy(state, "agg.spill-states")
+            start = 0
+            for p in range(m):
+                n = int(counts[p])
+                if n:
+                    self._state_spillers[p].spill(host.slice(start,
+                                                             start + n))
+                start += n
+        self._buffered_rows = 0
+
+    def _merge_spilled(self) -> list:
+        """Merge-on-unspill: one FINAL step per partition, on the device
+        the states came from."""
+        nk, calls = len(self.group_keys), self._final_calls()
+        outs = []
+        for sp in self._state_spillers:
+            batches = [restore_to_device(b, self._state_device)
+                       for b in sp.read_back()]
+            sp.close()
+            if not batches:
+                continue
+            merger = HashAggregationOperator(list(range(nk)), calls,
+                                             self.output_names,
+                                             self.output_types, "FINAL")
+            merger._batches = batches
+            out = merger._compute()
+            if out.num_rows:
+                outs.append(out)
+        self._state_spillers = None
+        return outs
 
     def _can_flush(self) -> bool:
         # PARTIAL states merge downstream; SINGLE / FINAL see all input
@@ -832,6 +1035,13 @@ class HashAggregationOperator(BufferedInputMixin, Operator):
 
     def finish_input(self) -> None:
         super().finish_input()
+        if self._state_spillers is not None:
+            # spill the tail, then merge partition by partition
+            self._spill_states()
+            self._flushed.extend(self._merge_spilled())
+            self._emitted = True
+            self.release_memory()
+            return
         if self._flushed and not self.buffered_batches():
             self._emitted = True  # everything left with the flushes
         else:

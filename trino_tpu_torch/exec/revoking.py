@@ -11,7 +11,9 @@ come back with a non-blocking copy when the operator finishes.  This is the
 first spill tier of the reference's
 ``execution/MemoryRevokingScheduler.java:47`` +
 ``operator/aggregation/builder/SpillableHashAggregationBuilder.java``
-design: device -> host RAM (the disk tier is not ported).
+design: device -> host RAM.  The second, host -> disk, is exec/spill.py:
+the context carries the session's ``spill_to_disk_bytes``, the buffered
+bytes past which an operator writes its buffer to a spill file.
 
 The reference counts a jax array as device bytes on every backend and a
 host numpy array as none.  In the port every column is a tensor with a
@@ -36,7 +38,8 @@ from ..spi.memory import (AggregatedMemoryContext, ExceededMemoryLimitError,
                           MemoryPool)
 
 __all__ = ["TaskMemoryContext", "tensor_nbytes", "batch_device_nbytes",
-           "batch_device_residual", "to_host", "to_device"]
+           "batch_device_residual", "to_host", "to_device",
+           "restore_to_device"]
 
 
 def tensor_nbytes(t) -> int:
@@ -106,6 +109,26 @@ def to_device(batch, device):
     return ColumnBatch(batch.names, cols, back(batch.live))
 
 
+def restore_to_device(batch, device):
+    """A host batch read back from a spill file, on ``device``: on the card
+    its pageable columns are first copied into pinned buffers (a host
+    memcpy, no device sync), so the copies to the card are non-blocking
+    like a revoked batch's."""
+    if batch.device == device:
+        return batch
+    if device.type == "cuda":
+        from ..spi.batch import Column, ColumnBatch
+
+        def pin(t):
+            return None if t is None else t.pin_memory()
+
+        batch = ColumnBatch(batch.names, [
+            c if c.encoding == "RLE" else
+            Column(c.type, pin(c.data), pin(c.valid), c.dictionary)
+            for c in batch.columns], pin(batch.live))
+    return to_device(batch, device)
+
+
 class Revocable(Protocol):
     def revoke_memory(self) -> int:
         """Move buffered device state to the host; return bytes freed."""
@@ -124,8 +147,11 @@ class TaskMemoryContext:
     device buffers (a join's build, an aggregation's result) alive past
     the query until the cyclic collector runs."""
 
-    def __init__(self, hbm_limit_bytes: int):
+    def __init__(self, hbm_limit_bytes: int, spill_to_disk_bytes: int = 0):
         self.pool = MemoryPool("hbm", hbm_limit_bytes)
+        # an operator's buffered bytes past which it spills to disk
+        # (0 = no disk tier; exec/spill.py)
+        self.spill_to_disk_bytes = spill_to_disk_bytes
         self.root = AggregatedMemoryContext(pool=self.pool, revocable=True)
         self._locals: dict[int, object] = {}
         self._ops: dict[int, "weakref.ref[Revocable]"] = {}

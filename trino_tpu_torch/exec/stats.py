@@ -11,7 +11,9 @@ Device work is asynchronous, so a :class:`QueryStats` created with
 ``per_op_sync`` set synchronizes the device after every operator call: the
 times then charge each operator its own device work, at the cost of the
 overlap.  ``sync`` is the run's exec/syncguard.py delta, and an operator
-that revoked its buffer to host memory reports its ``spill_count``.
+that revoked its buffer to host memory reports its ``spill_count``; one
+that spilled to disk (exec/spill.py) its pages, bytes and the seconds of
+writing and reading them back.
 """
 
 from __future__ import annotations
@@ -157,6 +159,10 @@ class OperatorStats:
     wall_s: float = 0.0
     spill_count: int = 0  # revocations of the operator's buffer
     revoked_bytes: int = 0  # bytes those revocations moved to the host
+    disk_pages: int = 0  # pages written to its spill files
+    disk_bytes: int = 0  # bytes of those pages
+    disk_write_s: float = 0.0  # serializing and writing them
+    disk_read_s: float = 0.0  # reading them back and deserializing
 
 
 @dataclass
@@ -199,18 +205,24 @@ class QueryStats:
                 setattr(o, attr, int(n))
 
     def collect_spills(self, pipelines) -> None:
-        """Copy each operator's ``spill_count`` and ``revoked_bytes`` into
-        its stats (pipelines in the order of ``self.pipelines``)."""
+        """Copy each operator's revocations and disk spills into its stats
+        (pipelines in the order of ``self.pipelines``)."""
         for p, ps in zip(pipelines, self.pipelines):
             for op, o in zip(p, ps.operators):
                 o.spill_count = getattr(op, "spill_count", 0)
                 o.revoked_bytes = getattr(op, "revoked_bytes", 0)
+                if hasattr(op, "disk_stats"):
+                    (o.disk_pages, o.disk_bytes, o.disk_write_s,
+                     o.disk_read_s) = op.disk_stats()
 
     def spills(self) -> tuple:
-        """(revocations, bytes revoked) over the run's operators."""
+        """Both tiers over the run's operators: (revocations, bytes
+        revoked, pages spilled to disk, bytes spilled to disk)."""
         ops = [o for p in self.pipelines for o in p.operators]
         return (sum(o.spill_count for o in ops),
-                sum(o.revoked_bytes for o in ops))
+                sum(o.revoked_bytes for o in ops),
+                sum(o.disk_pages for o in ops),
+                sum(o.disk_bytes for o in ops))
 
     def text(self) -> str:
         """The stats lines of EXPLAIN ANALYZE: the scan and encoding
@@ -231,5 +243,8 @@ class QueryStats:
                     f"out {op.output_rows} rows/{op.output_batches} batches"
                     + (f", spilled {op.spill_count}x "
                        f"({op.revoked_bytes} bytes)" if op.spill_count
+                       else "")
+                    + (f", to disk {op.disk_pages} pages "
+                       f"({op.disk_bytes} bytes)" if op.disk_pages
                        else ""))
         return "\n".join(lines)

@@ -22,11 +22,12 @@ device-resident table resident.
 The ``Session`` holds what the port acts on: ``default_catalog``,
 ``user``, ``splits_per_node``, ``node_count``, ``dynamic_filtering``,
 ``hbm_limit_bytes`` (the task's device memory pool: blocking operators
-revoke their buffers to host memory beyond it) and ``task_concurrency``
-(parallel drivers behind local exchanges), read on every statement.  SET
-SESSION also accepts the reference's other properties and stores them
-unread, except ``spill_to_disk_bytes``, which takes only its default (the
-disk tier waits for the wire format).  The port-only arguments ``ingest`` (an
+revoke their buffers to host memory beyond it), ``spill_to_disk_bytes``
+(an operator's buffered bytes past which it spills them to disk,
+exec/spill.py; 0 = never) and ``task_concurrency`` (parallel drivers
+behind local exchanges), read on every statement.  SET SESSION also
+accepts the reference's other properties and stores them unread.  The
+port-only arguments ``ingest`` (an
 ``exec.prefetch.IngestConfig``: split prefetch threads, coalescing into
 pinned buffers, side-stream copies to the card), ``encoded_exec`` (RLE and
 LAZY columns), ``optimizer`` and ``device`` are not session properties.
@@ -125,11 +126,6 @@ STORED_SESSION_PROPERTIES = {
     "scale_writers": False, "writer_task_limit": 4,
 }
 
-# properties the reference's standalone runner acts on that the port cannot
-# honour yet: the disk tier of spill needs the TTP2 / TTS2 wire format
-# (ROADMAP.md, queue 1 item 3).  Only their defaults are accepted.
-UNSUPPORTED_SESSION_PROPERTIES = {"spill_to_disk_bytes": 0}
-
 
 @dataclass
 class Session:
@@ -145,12 +141,15 @@ class Session:
     dynamic_filtering: bool = True
     # the task's device memory pool (exec/revoking.py)
     hbm_limit_bytes: int = 16 << 30
+    # an operator's buffered bytes before the disk spill tier engages
+    # (0 = disabled; exec/spill.py)
+    spill_to_disk_bytes: int = 0
     # parallel drivers per task behind local exchanges
     task_concurrency: int = 1
     # active transaction (execution/transaction.py); None = autocommit
     transaction: object = None
     _transaction_manager: object = None
-    # SET SESSION values of STORED_ / UNSUPPORTED_SESSION_PROPERTIES
+    # SET SESSION values of STORED_SESSION_PROPERTIES
     properties: dict = field(default_factory=dict)
 
     def get(self, name: str):
@@ -159,14 +158,14 @@ class Session:
         return getattr(self, name)
 
 
-_PROPERTY_DEFAULTS = {**STORED_SESSION_PROPERTIES,
-                      **UNSUPPORTED_SESSION_PROPERTIES}
+_PROPERTY_DEFAULTS = dict(STORED_SESSION_PROPERTIES)
 
 # knobs SET SESSION may touch; identity/transaction state is NOT settable
 # through SQL (a restricted user must not setattr session.user)
 SETTABLE_SESSION_PROPERTIES = {
     "default_catalog", "splits_per_node", "node_count", "dynamic_filtering",
-    "hbm_limit_bytes", "task_concurrency", *_PROPERTY_DEFAULTS}
+    "hbm_limit_bytes", "spill_to_disk_bytes", "task_concurrency",
+    *_PROPERTY_DEFAULTS}
 
 
 def _literal_value(e):
@@ -184,8 +183,7 @@ def _literal_value(e):
 def execute_session_stmt(stmt, session: Session) -> Optional[QueryResult]:
     """SET SESSION (reference: execution/SetSessionTask.java): mutate a
     public Session knob with loose literal typing; None for any other
-    statement.  A value the port cannot honour raises before it is
-    stored."""
+    statement."""
     if not isinstance(stmt, ast.SetSession):
         return None
     name = stmt.name.lower()
@@ -198,12 +196,6 @@ def execute_session_stmt(stmt, session: Session) -> Optional[QueryResult]:
     elif isinstance(current, int) and not isinstance(value, bool) \
             and value is not None:
         value = int(value)
-    default = UNSUPPORTED_SESSION_PROPERTIES.get(name, value)
-    if value != default:
-        raise NotImplementedError(
-            f"session property {name} = {value}: the port has no disk "
-            "spill yet, it needs the wire format (ROADMAP.md queue 1 item "
-            f"3); only the default {default} runs")
     if name in _PROPERTY_DEFAULTS:
         session.properties[name] = value
     else:
@@ -606,7 +598,8 @@ class StandaloneQueryRunner:
                              ingest=self.ingest,
                              encoded_exec=self.encoded_exec,
                              hbm_limit_bytes=session.hbm_limit_bytes,
-                             task_concurrency=session.task_concurrency
+                             task_concurrency=session.task_concurrency,
+                             spill_to_disk_bytes=session.spill_to_disk_bytes
                              ).plan(plan)
         run_pipelines(local.pipelines, stats)
         batches = local.collector.batches
