@@ -153,6 +153,7 @@ It prints the card line and one JSON line of kernels, and ends with
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import decimal
@@ -713,13 +714,15 @@ SF10_TABLES = ("customer", "orders", "lineitem")
 
 def run_path(torch, GK, runner, sqls: dict, label: str,
              required: dict = REQUIRED, exact: bool = False,
-             scans: dict = None) -> tuple:
+             scans: dict = None, warm_launches: dict = None) -> tuple:
     """Every query cold then warm: rows, (cold ms, warm ms, peak MiB) and
     kernel launches per query; fails if a query misses a kernel that
     ``required`` names for it (on the main path, REQUIRED names every
     kernel), and with ``exact`` also if it launches one not named.  With
     ``scans`` (a dict) the cold run collects QueryStats and ``scans[name]``
-    gets its scan roll-up (rows pruned, bytes copied to the card)."""
+    gets its scan roll-up (rows pruned, bytes copied to the card); with
+    ``warm_launches`` (a dict) ``warm_launches[name]`` gets the warm run's
+    launches."""
     from trino_tpu_torch.exec.stats import QueryStats
 
     rows, timings, per_query = {}, {}, {}
@@ -735,10 +738,14 @@ def run_path(torch, GK, runner, sqls: dict, label: str,
         if st is not None:
             scans[name] = st.scan
         cold = (time.perf_counter() - t0) * 1e3
+        mid = dict(GK.LAUNCHES)
         t0 = time.perf_counter()
         res = runner.execute(sql)
         torch.cuda.synchronize()
         warm = (time.perf_counter() - t0) * 1e3
+        if warm_launches is not None:
+            warm_launches[name] = {k: GK.LAUNCHES[k] - mid[k]
+                                   for k in GK.LAUNCHES}
         peak = torch.cuda.max_memory_allocated() / 2**20
         rows[name] = res.rows()
         timings[name] = (cold, warm, peak)
@@ -2400,6 +2407,481 @@ def _storage(torch, GK, StandaloneQueryRunner, default_catalog, tpch_runner,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the telemetry plane, the plan and result caches, the system
+# connector
+
+
+# the staged queries that scan nation: an INSERT into it must re-execute
+# exactly these
+NATION_QUERIES = ("Q2", "Q5", "Q7", "Q8", "Q9", "Q10", "Q11", "Q20", "Q21")
+# a nation no supplier or customer references: no query's rows change
+NATION_ROW = (99, "ATLANTIS", 0, "unreferenced")
+TELEMETRY_PROFILED = ("Q3", "Q21")
+TELEMETRY_TURNS = 3  # A B B A rounds of the warm-ms comparisons
+CLONE_REPS = 21
+SYNC_ROUNDS = 3  # rounds of off default default off for the sync counts
+# the tags of exec/'s AsyncScalar reads: each counts a sync only when its
+# copy has not landed by the time the value is needed
+ASYNC_WAIT_TAGS = ("join.expand-overflow", "join.pair-total",
+                   "join.unique-count", "join.unique-overflow")
+
+
+def _tier(rows: list, tier: str) -> dict:
+    return next(r for r in rows if r["tier"] == tier)
+
+
+def _timed_run(torch, runner, sql: str, query_id: str):
+    t0 = time.perf_counter()
+    res = runner.execute(sql, query_id=query_id)
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def _in_turns(torch, runner, sql: str, a, b, rounds: int) -> tuple:
+    """Warm ms of ``sql`` under the settings ``a`` and ``b`` (context
+    factories), in turns a b b a per round; (mean a, mean b)."""
+    ms = {"a": [], "b": []}
+    for _ in range(rounds):
+        for k in ("a", "b", "b", "a"):
+            with (a if k == "a" else b)():
+                ms[k].append(_timed_run(torch, runner, sql, "")[1])
+    return sum(ms["a"]) / len(ms["a"]), sum(ms["b"]) / len(ms["b"])
+
+
+def telemetry(torch, GK, StandaloneQueryRunner, staged_cat, tpch_cat,
+              sqls: dict, staged_rows: dict, staged_launches: dict,
+              smi: str) -> dict:
+    """Phase 18 (see the module docstring), with the caches on and the
+    profiler at its default level, over phase 8's staged tables (left as
+    found: the row it inserts is deleted and nation pinned again) and the
+    tpch catalog; the phase's journal lives in a directory under build/,
+    removed at the end.  Returns the phase's launches."""
+    from trino_tpu_torch.telemetry import journal
+
+    t_phase = time.perf_counter()
+    GK.reset_launch_counts()
+    os.makedirs("build", exist_ok=True)
+    jdir = tempfile.mkdtemp(prefix="chip-smoke-journal-", dir="build")
+    old_dir = os.environ.get("TRINO_TPU_JOURNAL_DIR")
+    os.environ["TRINO_TPU_JOURNAL_DIR"] = jdir
+    journal.reset_for_test()
+    try:
+        _telemetry(torch, GK, StandaloneQueryRunner, staged_cat, tpch_cat,
+                   sqls, staged_rows, staged_launches, smi, jdir)
+    finally:
+        if old_dir is None:
+            del os.environ["TRINO_TPU_JOURNAL_DIR"]
+        else:
+            os.environ["TRINO_TPU_JOURNAL_DIR"] = old_dir
+        journal.reset_for_test()
+        shutil.rmtree(jdir, ignore_errors=True)
+    launches = dict(GK.LAUNCHES)
+    log(f"telemetry: journal directory {jdir} removed; launches {launches}; "
+        f"{time.perf_counter() - t_phase:.1f} s for phase 18")
+    return launches
+
+
+def _telemetry(torch, GK, StandaloneQueryRunner, staged_cat, tpch_cat,
+               sqls, staged_rows, staged_launches, smi, jdir) -> None:
+    import contextlib
+
+    from trino_tpu_torch.caching import cache_rows, plan_cache, result_cache
+    from trino_tpu_torch.exec import syncguard as SG
+    from trino_tpu_torch.exec.prefetch import IngestConfig
+    from trino_tpu_torch.exec.stats import QueryStats
+    from trino_tpu_torch.telemetry import journal, profiler
+    from trino_tpu_torch.telemetry.runtime import fingerprint
+
+    label = f"telemetry SF{PATH_SF:g}"
+    if not result_cache.enabled() or not plan_cache.enabled():
+        raise AssertionError(f"{label}: the caches must be on")
+    prev_level = profiler.set_level(1)
+    plan_cache.invalidate_all()  # phases 1-17 planned these texts too
+    runner = StandaloneQueryRunner(staged_cat, device="cuda",
+                                   default_catalog_name="memory",
+                                   splits_per_node=1)
+
+    def tiers() -> tuple:
+        rows = cache_rows()
+        return _tier(rows, "plan"), _tier(rows, "result")
+
+    def counted(q: str) -> tuple:
+        """(rows, ms, launches) of one run of staged query q."""
+        before = dict(GK.LAUNCHES)
+        res, ms = _timed_run(torch, runner, sqls[q], f"p18a_{q}_{tag[0]}")
+        expected.append((res.rows(), sqls[q], f"p18a_{q}_{tag[0]}"))
+        return (expected[-1][0], ms,
+                {k: GK.LAUNCHES[k] - before[k] for k in GK.LAUNCHES})
+
+    def rtol(q: str) -> float:
+        return KERNEL_VS_F64_RTOL if q in REAL_QUERIES else DOUBLE_RTOL
+
+    # (a) dashboard traffic: the 24 queries three times on one runner
+    scans_nation = {q for q in sqls if ("memory", "nation") in
+                    plan_cache.scan_tables(runner.create_plan(sqls[q]))}
+    if scans_nation != set(NATION_QUERIES):
+        raise AssertionError(f"{label}: the queries that scan nation are "
+                             f"{sorted(scans_nation)}")
+    counters_before = _counters(runner)
+    expected: list = []  # (rows, sql, query id) of every phase-(a) statement
+    p0, r0 = tiers()
+    tag = ["1"]
+    first_launches = {}
+    for q in sqls:
+        rows, ms, lq = counted(q)
+        same_rows(rows, staged_rows[q], f"{label} (a) pass 1 {q}", rtol(q))
+        want = staged_launches[q]
+        if lq != want:
+            raise AssertionError(f"{label} (a) pass 1 {q}: launches {lq}, "
+                                 f"phase 8's warm run {want}")
+        first_launches[q] = lq
+    p1, r1 = tiers()
+    if (p1["misses"] - p0["misses"], p1["hits"] - p0["hits"],
+            r1["hits"] - r0["hits"]) != (len(sqls), 0, 0) or \
+            r1["entries"] != len(sqls):
+        raise AssertionError(f"{label} (a) pass 1: plan {p1}, result {r1}")
+    log(f"{label} (a) pass 1: {len(sqls)} plan misses, {r1['entries']} "
+        f"results stored ({r1['bytes']} bytes on the card), rows and "
+        f"launches equal phase 8's")
+    tag[0] = "2"
+    hit_ms = {}
+    for q in sqls:
+        rows, ms, lq = counted(q)
+        same_rows(rows, staged_rows[q], f"{label} (a) pass 2 {q}", rtol(q))
+        if any(lq.values()):
+            raise AssertionError(f"{label} (a) pass 2 {q}: launches {lq}")
+        hit_ms[q] = ms
+    p2, r2 = tiers()
+    if (p2["hits"] - p1["hits"], r2["hits"] - r1["hits"],
+            r2["misses"] - r1["misses"]) != (len(sqls), len(sqls), 0):
+        raise AssertionError(f"{label} (a) pass 2: plan {p2}, result {r2}")
+    log(f"{label} (a) pass 2: {len(sqls)} plan hits and {len(sqls)} result "
+        f"hits, no launch; hit ms " + ", ".join(
+            f"{q} {hit_ms[q]:.3f}" for q in sqls)
+        + f" (median {sorted(hit_ms.values())[len(hit_ms) // 2]:.3f}) "
+        f"[{smi}]")
+    ins = "insert into nation values (%d, '%s', %d, '%s')" % NATION_ROW
+    res, _ = _timed_run(torch, runner, ins, "p18a_insert")
+    expected.append((res.rows(), ins, "p18a_insert"))
+    p3, r3 = tiers()
+    if r3["invalidations"] - r2["invalidations"] != len(NATION_QUERIES):
+        raise AssertionError(f"{label} (a) INSERT: result {r3}")
+    tag[0] = "3"
+    for q in sqls:
+        rows, ms, lq = counted(q)
+        same_rows(rows, staged_rows[q], f"{label} (a) pass 3 {q}", rtol(q))
+        want = first_launches[q] if q in NATION_QUERIES else \
+            {k: 0 for k in GK.LAUNCHES}
+        if lq != want:
+            raise AssertionError(f"{label} (a) pass 3 {q}: launches {lq}, "
+                                 f"expected {want}")
+    p4, r4 = tiers()
+    n_other = len(sqls) - len(NATION_QUERIES)
+    if (r4["misses"] - r3["misses"], r4["hits"] - r3["hits"],
+            p4["hits"] - p3["hits"]) != (len(NATION_QUERIES), n_other,
+                                         len(sqls)):
+        raise AssertionError(f"{label} (a) pass 3: plan {p4}, result {r4}")
+    log(f"{label} (a) INSERT into nation: {len(NATION_QUERIES)} results "
+        f"invalidated; {' '.join(NATION_QUERIES)} re-executed with pass 1's "
+        f"rows and launches, the other {n_other} hit")
+    counters_after = _counters(runner)
+    _hit_profile(runner, sqls["Q1"], label)
+
+    # (b) the system tables over (a)
+    n_stmt = len(expected)
+    out_rows = sum(len(rows) for rows, _s, _q in expected)
+    (count, outs, ins_rows, min_peak), = runner.execute(
+        "select count(*), sum(output_rows), sum(input_rows), "
+        "min(peak_memory_bytes) from system.runtime.queries "
+        "where state = 'FINISHED' and query_id like 'p18a_%'").rows()
+    if (count, outs) != (n_stmt, out_rows):
+        raise AssertionError(f"{label} (b) runtime.queries: {count} rows, "
+                             f"{outs} output rows; (a) ran {n_stmt}, "
+                             f"{out_rows}")
+    # the allocator's peak, read at each query's end (the staged tables
+    # alone hold device memory)
+    if not min_peak or min_peak <= 0:
+        raise AssertionError(f"{label} (b) runtime.queries: peak memory "
+                             f"{min_peak}")
+    delta = {k: counters_after[0][k] - counters_before[0][k]
+             for k in counters_after[0]}
+    scanned = delta["trino_scan_rows_total"] - counters_before[1]
+    want = {"trino_queries_started_total": n_stmt + 1,
+            "trino_queries_finished_total": n_stmt + 1,
+            "trino_queries_failed_total": 0}
+    if any(delta[k] != v for k, v in want.items()) or scanned != ins_rows:
+        raise AssertionError(f"{label} (b) metrics.counters deltas {delta} "
+                             f"(before-read scanned {counters_before[1]}); "
+                             f"expected {want}, scan rows {ins_rows}")
+    hit_inputs = runner.execute(
+        "select count(*) from system.runtime.queries where query_id like "
+        "'p18a_%_2' and input_rows > 0").rows()[0][0]
+    if hit_inputs:
+        raise AssertionError(f"{label} (b) {hit_inputs} pass-2 hits scanned")
+    log(f"{label} (b) runtime.queries: {count} FINISHED rows for (a), "
+        f"{outs} output rows, {ins_rows} input rows, least peak memory "
+        f"{min_peak} bytes; metrics.counters "
+        f"deltas over (a): {delta} (each read counts itself once: one "
+        f"start, one finish, the before-read's {counters_before[1]} scanned "
+        f"rows)")
+    sql_rows = runner.execute(
+        "select tier, name, entries, bytes, hits, misses, evictions, "
+        "invalidations from system.runtime.caches").rows()
+    now = cache_rows(per_exec_cache=True)
+    keys = ("entries", "bytes", "hits", "misses", "evictions",
+            "invalidations")
+    for tier in ("plan", "result"):
+        got = next(r for r in sql_rows if r[0] == tier)[2:]
+        if got != tuple(_tier(now, tier)[k] for k in keys):
+            raise AssertionError(f"{label} (b) runtime.caches {tier}: {got},"
+                                 f" the tier's stats {_tier(now, tier)}")
+    exec_rows = {r[1]: r for r in sql_rows if r[0] == "exec"}
+    if set(exec_rows) != {r["name"] for r in now if r["tier"] == "exec"}:
+        raise AssertionError(f"{label} (b) runtime.caches exec rows "
+                             f"{sorted(exec_rows)}")
+    log(f"{label} (b) runtime.caches: " + "; ".join(
+        f"{r[0]}/{r[1]} entries {r[2]} bytes {r[3]} hits {r[4]} misses "
+        f"{r[5]} evictions {r[6]} invalidations {r[7]}" for r in sql_rows))
+    before = GK.LAUNCHES["hash_insert"]
+    grouped = runner.execute(
+        "select output_rows, count(*) from system.runtime.queries "
+        "where query_id like 'p18a_%' group by output_rows").rows()
+    n_insert = GK.LAUNCHES["hash_insert"] - before
+    if n_insert < 1 or sum(c for _o, c in grouped) != n_stmt:
+        raise AssertionError(f"{label} (b) GROUP BY output_rows: "
+                             f"{n_insert} hash_insert launches, {grouped}")
+    log(f"{label} (b) GROUP BY output_rows over runtime.queries: "
+        f"{len(grouped)} groups, hash_insert launched {n_insert} time(s) on "
+        f"the card")
+
+    # (a, cont.) undo the INSERT; nation is pinned again, as phase 7 left it
+    runner.execute(f"delete from nation where n_nationkey = {NATION_ROW[0]}")
+    runner.execute("call memory.pin_table('nation')")
+    mem = staged_cat.connector("memory")
+    if mem.row_count("nation") != 25 or not mem.is_resident("nation"):
+        raise AssertionError(f"{label}: nation not restored")
+    # the planning a plan hit saves: warm ms with the result tier off, plan
+    # tier on against both off, in turns
+    plan_off = _env_scope("TRINO_TPU_PLAN_CACHE", "0")
+    saved = {}
+    with result_cache.disabled():
+        for q in sqls:
+            runner.execute(sqls[q])  # the plan tier re-learns the text
+            on, off = _in_turns(torch, runner, sqls[q], contextlib.nullcontext,
+                                plan_off, TELEMETRY_TURNS)
+            saved[q] = (on, off)
+    log(f"{label} (a) warm ms, result tier off, plan tier on / both off "
+        f"({TELEMETRY_TURNS} rounds a b b a): " + ", ".join(
+            f"{q} {on:.2f}/{off:.2f}" for q, (on, off) in saved.items())
+        + "; planning saved per plan hit: " + ", ".join(
+            f"{q} {off - on:.2f}" for q, (on, off) in saved.items())
+        + f" ms [{smi}]")
+
+    # the cost of a plan hit's private copy (host only)
+    clones = {}
+    for q in TELEMETRY_PROFILED:
+        plan = runner.create_plan(sqls[q])
+        times = []
+        for _ in range(CLONE_REPS):
+            t0 = time.perf_counter()
+            plan_cache.clone(plan)
+            times.append((time.perf_counter() - t0) * 1e6)
+        clones[q] = sorted(times)[len(times) // 2]
+    log(f"{label} (a) one plan clone (median of {CLONE_REPS}): " + ", ".join(
+        f"{q} {us:.1f} us" for q, us in clones.items()))
+
+    # (c) the profiler: staged Q3 and Q21 at default and full, the host
+    # syncs of off and default compared over runs in turns after a warm-up
+    # (_same_syncs)
+    with result_cache.disabled():
+        for q in TELEMETRY_PROFILED:
+            runner.execute(sqls[q], stats=QueryStats())  # warm-up
+            syncs = _syncs_in_turns(runner, sqls[q], profiler, QueryStats,
+                                    f"p18c_{q}", contextlib.nullcontext)
+            off, dflt = syncs["off"], syncs["default"]
+            steady = _same_syncs(off, dflt, f"{label} (c) {q}")
+            profiler.set_level(2)
+            st = QueryStats()
+            runner.execute(sqls[q], stats=st, query_id=f"p18c_{q}_full")
+            torch.cuda.synchronize()
+            profiler.set_level(1)
+            full = st.sync
+            added = full.by_tag.get("profiler.full", 0)
+            counts = [s.host_syncs for s in off]
+            # every sync full adds is tagged profiler.full
+            if _steady_syncs(full) - added != steady or not added \
+                    or full.hot_loop_syncs:
+                raise AssertionError(f"{label} (c) {q}: full "
+                                     f"{full.text()}; off {counts}")
+            if runner.profile(f"p18c_{q}_off_0") is not None:
+                raise AssertionError(f"{label} (c) {q}: a trace with the "
+                                     "profiler off")
+            for name, qid in (("default", f"p18c_{q}_default_0"),
+                              ("full", f"p18c_{q}_full")):
+                evs = [e for e in runner.profile(qid)["traceEvents"]
+                       if e["ph"] == "X"]
+                kinds: dict = {}
+                for e in evs:
+                    kinds[e["cat"]] = kinds.get(e["cat"], 0) + 1
+                ops = sorted({e["name"] for e in evs
+                              if e["cat"] == "operator"
+                              and not e["name"].endswith(".finish")})
+                log(f"{label} (c) {q} at {name}: {len(evs)} events by kind "
+                    f"{kinds}; operators {', '.join(ops)}")
+            log(f"{label} (c) {q}: host syncs a run, off "
+                f"{counts}, default {[s.host_syncs for s in dflt]} (in "
+                f"turns; {steady} a run apart from async waits), full "
+                f"{full.host_syncs} ({added} tagged profiler.full; hot-loop "
+                f"syncs {full.hot_loop_syncs})")
+            rec_off, rec_on = _in_turns(
+                torch, runner, sqls[q], _level_scope(profiler, 0),
+                _level_scope(profiler, 1), TELEMETRY_TURNS)
+            log(f"{label} (c) {q}: warm ms profile off {rec_off:.2f}, "
+                f"default {rec_on:.2f} ({TELEMETRY_TURNS} rounds a b b a; "
+                f"the cost of recording {rec_on - rec_off:+.2f} ms) [{smi}]")
+        # Q21 under forbidden(cuda_sync_debug=True), synchronous scan, on
+        # the tpch path as phase 16 (d): the default level adds no sync
+        sync_runner = StandaloneQueryRunner(tpch_cat, device="cuda",
+                                            ingest=IngestConfig(enabled=False))
+        sync_runner.execute(sqls["Q21"], stats=QueryStats())  # warm-up
+        syncs = _syncs_in_turns(
+            sync_runner, sqls["Q21"], profiler, QueryStats, "p18c_sync_Q21",
+            lambda: SG.forbidden(cuda_sync_debug=True))
+        steady = _same_syncs(syncs["off"], syncs["default"],
+                             f"{label} (c) Q21 forbidden")
+        log(f"{label} (c) Q21 under SG.forbidden(cuda_sync_debug=True), "
+            f"synchronous scan: host syncs a run with the profile off "
+            f"{[s.host_syncs for s in syncs['off']]}, at default "
+            f"{[s.host_syncs for s in syncs['default']]} (in turns; "
+            f"{steady} a run apart from async waits), none in a hot loop")
+
+    # (d) the journal, read back by a new runner after a simulated restart
+    journal.reset_for_test()
+    reader = StandaloneQueryRunner(staged_cat, device="cuda",
+                                   default_catalog_name="memory",
+                                   splits_per_node=1)
+    history = {r[0]: r[1:] for r in reader.execute(
+        "select query_id, fingerprint, output_rows, state "
+        "from system.runtime.query_history").rows()}
+    for rows, sql, qid in expected:
+        got = history.get(qid)
+        if got != (fingerprint(sql), len(rows), "FINISHED"):
+            raise AssertionError(f"{label} (d) query_history {qid}: {got}")
+    files = [os.path.join(jdir, f) for f in sorted(os.listdir(jdir))]
+    nbytes = sum(os.path.getsize(f) for f in files)
+    log(f"{label} (d) query_history after a restart: {len(history)} "
+        f"queries, the phase's {len(expected)} (a) statements with their "
+        f"fingerprints and output rows; journal {nbytes} bytes in "
+        f"{len(files)} files ({', '.join(os.path.basename(f) for f in files)})")
+    profiler.set_level(prev_level)
+
+
+def _hit_profile(runner, sql: str, label: str, reps: int = 20) -> None:
+    """Where a result-cache hit's host time goes: ``reps`` hits of ``sql``
+    under cProfile, the functions with the most own time (cProfile's own
+    cost inflates the total; the shares are what it shows)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        runner.execute(sql)
+    prof.disable()
+    st = pstats.Stats(prof)
+    total = st.total_tt
+    top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:8]
+    log(f"{label} (a) {reps} hits under cProfile, {total * 1e3 / reps:.3f} "
+        f"ms a hit; most own time: " + "; ".join(
+            f"{fn[2]} ({os.path.basename(fn[0])}:{fn[1]}) "
+            f"{tt * 1e3 / reps:.3f} ms" for fn, (_cc, _nc, tt, _ct, _c)
+            in top))
+
+
+def _syncs_in_turns(runner, sql: str, profiler, QueryStats, prefix: str,
+                    scope) -> dict:
+    """Each run's SyncStats with the profiler off and at default, in turns
+    off default default off, SYNC_ROUNDS times, each run inside
+    ``scope()``; the runs are named ``<prefix>_<level>_<n>``."""
+    out: dict = {"off": [], "default": []}
+    for _ in range(SYNC_ROUNDS):
+        for name in ("off", "default", "default", "off"):
+            profiler.set_level(0 if name == "off" else 1)
+            st = QueryStats()
+            with scope():
+                runner.execute(sql, stats=st,
+                               query_id=f"{prefix}_{name}_{len(out[name])}")
+            out[name].append(st.sync)
+    profiler.set_level(1)
+    return out
+
+
+def _steady_syncs(st) -> int:
+    """A run's host syncs less its waits on async copies: an AsyncScalar
+    read counts a sync only when its copy has not landed yet, so those
+    vary with timing from run to run; the rest are the same every run."""
+    return st.host_syncs - sum(st.by_tag.get(t, 0) for t in ASYNC_WAIT_TAGS)
+
+
+def _same_syncs(off: list, dflt: list, what: str) -> int:
+    """The default level adds no host sync: every run, off and at default,
+    makes the same syncs apart from async waits, none carries a tag the
+    runs off lack (async waits aside) or a profiler tag, and none is in a
+    hot loop.  Returns the steady count."""
+    steady = {_steady_syncs(s) for s in off + dflt}
+    known = {t for s in off for t in s.by_tag} | set(ASYNC_WAIT_TAGS)
+    tags = {t for s in dflt for t in s.by_tag}
+    if len(steady) != 1 or tags - known or \
+            any(t.startswith("profiler") for t in tags) or \
+            any(s.hot_loop_syncs for s in off + dflt):
+        raise AssertionError(
+            f"{what}: off {[s.text() for s in off]}; default "
+            f"{[s.text() for s in dflt]}")
+    return steady.pop()
+
+
+def _counters(runner) -> tuple:
+    """(the trino_queries_* and trino_scan_rows_total values, the rows the
+    read itself scanned) from system.metrics.counters."""
+    rows = runner.execute(
+        "select name, value from system.metrics.counters").rows()
+    names = ("trino_queries_started_total", "trino_queries_finished_total",
+             "trino_queries_failed_total", "trino_scan_rows_total")
+    by = dict(rows)
+    return {n: int(by[n]) for n in names}, len(rows)
+
+
+def _env_scope(name: str, value: str):
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        old = os.environ.get(name)
+        os.environ[name] = value
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = old
+    return scope
+
+
+def _level_scope(profiler, level: int):
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        prev = profiler.set_level(level)
+        try:
+            yield
+        finally:
+            profiler.set_level(prev)
+    return scope
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -2483,15 +2965,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from trino_tpu_torch.connectors.catalog import default_catalog
-    from trino_tpu_torch.connectors.staging import stage_memory_tables
-    from trino_tpu_torch.connectors.surface_queries import SURFACE_QUERIES
+    from trino_tpu_torch.caching import result_cache
     from trino_tpu_torch.connectors.tpch_queries import QUERIES
-    from trino_tpu_torch.connectors.nested_queries import NESTED_QUERIES
-    from trino_tpu_torch.connectors.window_queries import WINDOW_QUERIES
-    from trino_tpu_torch.exec.stats import QueryStats
     from trino_tpu_torch.ops import gpu_kernels as GK
-    from trino_tpu_torch.runner import StandaloneQueryRunner
 
     sqls = {f"Q{q}": QUERIES[q] for q in sorted(QUERIES)}
     sqls.update(REAL_QUERIES)
@@ -2501,6 +2977,32 @@ def main() -> int:
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+
+    # every statement's journal records go to a directory under build/,
+    # removed at the end; phases 1-17, 6 and 9 time execution, so the
+    # result tier is off for them (phase 18 turns it on)
+    os.makedirs("build", exist_ok=True)
+    journal_dir = tempfile.mkdtemp(prefix="chip-smoke-journal-", dir="build")
+    os.environ["TRINO_TPU_JOURNAL_DIR"] = journal_dir
+    executing = contextlib.ExitStack()
+    executing.enter_context(result_cache.disabled())
+    try:
+        return _main(torch, GK, result_cache, executing, smi, kind, sqls,
+                     t_start)
+    finally:
+        executing.close()
+        shutil.rmtree(journal_dir, ignore_errors=True)
+
+
+def _main(torch, GK, result_cache, executing, smi, kind, sqls,
+          t_start) -> int:
+    from trino_tpu_torch.connectors.catalog import default_catalog
+    from trino_tpu_torch.connectors.staging import stage_memory_tables
+    from trino_tpu_torch.connectors.surface_queries import SURFACE_QUERIES
+    from trino_tpu_torch.connectors.nested_queries import NESTED_QUERIES
+    from trino_tpu_torch.connectors.window_queries import WINDOW_QUERIES
+    from trino_tpu_torch.exec.stats import QueryStats
+    from trino_tpu_torch.runner import StandaloneQueryRunner
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2558,8 +3060,10 @@ def main() -> int:
     staged = StandaloneQueryRunner(staged_cat, device="cuda",
                                    default_catalog_name="memory",
                                    splits_per_node=1)
+    staged_warm: dict = {}
     staged_rows, staged_times, _ = run_path(torch, GK, staged, sqls,
-                                            f"staged SF{PATH_SF:g}")
+                                            f"staged SF{PATH_SF:g}",
+                                            warm_launches=staged_warm)
     for name in sqls:
         if name in REAL_QUERIES:  # float32 sums over one whole-table batch
             want, rtol, what = (numpy_rows[name], KERNEL_VS_F64_RTOL,
@@ -2612,6 +3116,19 @@ def main() -> int:
     storage_launches = storage(torch, GK, StandaloneQueryRunner,
                                default_catalog, runner, sqls, path_rows,
                                numpy_rows, smi)
+
+    # -- 18. the telemetry plane, the plan and result caches, the system
+    # connector: the caches on
+    executing.close()
+    served = result_cache.stats()
+    if not result_cache.enabled() or served["hits"] or served["entries"]:
+        raise AssertionError(f"phases 1-17 must execute every statement "
+                             f"and phase 18 needs the result tier: {served}")
+    log(f"result tier over phases 1-17: {served}")
+    telemetry_launches = telemetry(torch, GK, StandaloneQueryRunner,
+                                   staged_cat, runner.catalog, sqls,
+                                   staged_rows, staged_warm, smi)
+    executing.enter_context(result_cache.disabled())
 
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
@@ -2677,6 +3194,7 @@ def main() -> int:
             "launches_statements": statement_launches[kernel],
             "launches_engine": engine_launches[kernel],
             "launches_storage": storage_launches[kernel],
+            "launches_telemetry": telemetry_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],

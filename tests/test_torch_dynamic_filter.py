@@ -35,8 +35,17 @@ from trino_tpu_torch.exec.local_planner import LocalPlanner
 from trino_tpu_torch.exec.stats import QueryStats
 from trino_tpu_torch.exec.prefetch import IngestConfig, default_threads
 from trino_tpu_torch.runner import StandaloneQueryRunner
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 def _pin(monkeypatch):

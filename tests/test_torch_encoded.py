@@ -35,12 +35,21 @@ from trino_tpu_torch.runner import StandaloneQueryRunner
 from trino_tpu_torch.spi.batch import Column, ColumnBatch, maybe_rle
 from trino_tpu_torch.spi.types import BIGINT, BOOLEAN, DOUBLE, VARCHAR
 from trino_tpu_torch.sql.ir import Call, InputRef, Literal
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
 
 
 # ---------------------------------------------------------------------------
 # encodings and their propagation
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
+
 
 def test_rle_detection_and_propagation():
     const = np.full(128, 7, np.int64)

@@ -16,6 +16,15 @@ from trino_tpu_torch.connectors.tpch_queries import QUERIES
 from trino_tpu_torch.exec import kernels as K
 from trino_tpu_torch.ops import gpu_kernels as GK
 from trino_tpu_torch.runner import StandaloneQueryRunner
+from trino_tpu_torch.caching import result_cache
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture
@@ -313,7 +322,7 @@ def test_cuda_segment_sum_first_call_captured(cuda):
     n, G = 100_003, 5
     v, g, lv = (torch.from_numpy(x).cuda()
                 for x in _segment_inputs(n, G, 6))
-    assert (v.get_device(), G) not in GK._SEGMENT_GRID
+    assert GK._segment_grid.cache.peek((v.get_device(), G)) is None
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = GK.masked_segment_sum_f32(v, g, lv, G)
@@ -784,3 +793,103 @@ def test_q18_under_a_disk_budget_on_card(cuda):
         spill_to_disk_bytes=1 << 20)).execute(QUERIES[18], stats=st).rows()
     assert got == want and len(got) > 0
     assert st.spills()[2] > 0  # pages went to disk
+
+
+# ---------------------------------------------------------------------------
+# the cache plane and the profiler on the card (chip_smoke phase 18 at SF 0.1)
+
+DASHBOARD = {3: "no nation", 5: "nation", 12: "no nation", 21: "nation"}
+# the tags of exec/'s AsyncScalar reads (counted only when not yet landed)
+ASYNC_WAIT_TAGS = ("join.expand-overflow", "join.pair-total",
+                   "join.unique-count", "join.unique-overflow")
+
+
+def _launched(fn):
+    before = dict(GK.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: GK.LAUNCHES[k] - before[k] for k in GK.LAUNCHES}
+
+
+@pytest.mark.gpu
+def test_dashboard_passes_hit_both_tiers_on_card(cuda, monkeypatch,
+                                                 tmp_path):
+    from trino_tpu_torch import caching
+    from trino_tpu_torch.connectors.staging import stage_memory_tables
+
+    monkeypatch.setenv("TRINO_TPU_RESULT_CACHE", "1")
+    monkeypatch.setenv("TRINO_TPU_JOURNAL_DIR", str(tmp_path))
+    caching.reset_for_test()
+    cat = default_catalog(0.1)
+    stage_memory_tables(cat, ("region", "nation", "supplier", "customer",
+                              "part", "partsupp", "orders", "lineitem"),
+                        "cuda")
+    r = StandaloneQueryRunner(cat, device="cuda",
+                              default_catalog_name="memory",
+                              splits_per_node=1)
+    first = {q: _launched(lambda: r.execute(QUERIES[q]).rows())
+             for q in DASHBOARD}
+    assert all(sum(lq.values()) for _rows, lq in first.values())
+    for q in DASHBOARD:  # pass 2: hits, no launch
+        rows, lq = _launched(lambda: r.execute(QUERIES[q]).rows())
+        assert rows == first[q][0] and not any(lq.values())
+    stats = caching.result_cache.stats()
+    assert stats["hits"] == len(DASHBOARD) and stats["bytes"] > 0
+    r.execute("insert into nation values (99, 'ATLANTIS', 0, 'x')")
+    for q, scans in DASHBOARD.items():  # only nation's readers re-execute
+        rows, lq = _launched(lambda: r.execute(QUERIES[q]).rows())
+        assert rows == first[q][0]
+        assert lq == (first[q][1] if scans == "nation"
+                      else {k: 0 for k in GK.LAUNCHES})
+    r.execute("delete from nation where n_nationkey = 99")
+    caching.reset_for_test()
+
+
+@pytest.mark.gpu
+def test_default_profile_level_adds_no_sync_on_card(cuda):
+    from trino_tpu_torch.exec import syncguard as SG
+    from trino_tpu_torch.exec.prefetch import IngestConfig
+    from trino_tpu_torch.exec.stats import QueryStats
+    from trino_tpu_torch.telemetry import profiler
+
+    r = StandaloneQueryRunner(default_catalog(0.1), device="cuda",
+                              ingest=IngestConfig(enabled=False))
+    r.execute(QUERIES[21])
+    syncs = {0: [], 1: [], 2: []}
+    prev = profiler.level()
+    try:
+        # in turns: an async copy's read counts a sync only when the copy
+        # has not landed, so those waits are set apart
+        for level in (0, 1, 1, 0, 0, 1, 1, 0, 2):
+            profiler.set_level(level)
+            st = QueryStats()
+            with SG.forbidden(cuda_sync_debug=level < 2):
+                r.execute(QUERIES[21], stats=st)
+            syncs[level].append(st.sync)
+    finally:
+        profiler.set_level(prev)
+
+    def steady(s):
+        return s.host_syncs - sum(n for t, n in s.by_tag.items()
+                                  if t in ASYNC_WAIT_TAGS)
+
+    assert len({steady(s) for s in syncs[0] + syncs[1]}) == 1
+    assert not ({t for s in syncs[1] for t in s.by_tag}
+                - {t for s in syncs[0] for t in s.by_tag}
+                - set(ASYNC_WAIT_TAGS))
+    full = syncs[2][0]
+    added = full.by_tag["profiler.full"]
+    assert added > 0 and steady(full) - added == steady(syncs[0][0])
+    assert full.hot_loop_syncs == 0
+
+
+@pytest.mark.gpu
+def test_device_memory_watermark_reads_the_allocator(cuda):
+    from trino_tpu_torch.telemetry import metrics
+
+    dev = torch.device("cuda")
+    x = torch.empty(1 << 20, dtype=torch.uint8, device=dev)
+    peak = metrics.update_device_memory_watermark(dev)
+    assert peak >= x.numel()
+    assert metrics.DEVICE_MEMORY_PEAK.value() == peak
+    assert metrics.DEVICE_MEMORY_IN_USE.value() >= x.numel()

@@ -26,10 +26,19 @@ from trino_tpu_torch.exec.operators import GroupIdOperator
 from trino_tpu_torch.runner import StandaloneQueryRunner
 from trino_tpu_torch.spi.batch import Column, ColumnBatch
 from trino_tpu_torch.spi.types import BIGINT, VARCHAR
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
 GS_ROWS = ("insert into gs values ('a','x',1),('a','y',2),('b','x',3),"
            "('b','y',4),('a','x',5),('a',null,6)")
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from trino_tpu_torch.ops.json_fns import (eval_json_path, json_scalar_text,
                                           parse_json_path)
 from trino_tpu_torch.runner import StandaloneQueryRunner
 from trino_tpu_torch.spi.table_function import builtin_table_functions
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
 
@@ -32,6 +33,14 @@ DOCS = [
     "not json",
     None,
 ]
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from trino_tpu_torch.exec.row_pattern import (PatternMatcher,
                                               PatternSyntaxError,
                                               parse_pattern)
 from trino_tpu_torch.runner import StandaloneQueryRunner
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
 
@@ -39,6 +40,14 @@ TICKER = [
     "('a',6,11),('a',7,11),"
     "('b',1,5),('b',2,6),('b',3,4),('b',4,7)",
 ]
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture(scope="module")

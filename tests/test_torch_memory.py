@@ -43,6 +43,7 @@ from trino_tpu_torch.spi import batch as port_batch
 from trino_tpu_torch.spi import connector as port_conn
 from trino_tpu_torch.spi import predicate as port_pred
 from trino_tpu_torch.spi import types as port_types
+from trino_tpu_torch.caching import result_cache
 
 TPCH_TABLES = ("region", "nation", "supplier", "customer", "part",
                "partsupp", "orders", "lineitem")
@@ -53,6 +54,14 @@ R2 = ("select l_quantity, sum(cast(l_extendedprice as real)) from lineitem "
       "group by l_quantity order by l_quantity")
 SQLS = {**{f"Q{q}": QUERIES[q] for q in sorted(QUERIES)}, "R1": R1,
         "R2": R2}
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 def _pin_reference(monkeypatch):

@@ -37,6 +37,7 @@ from trino_tpu_torch.spi.batch import Column, ColumnBatch, unify_dictionaries
 from trino_tpu_torch.spi.types import (BIGINT, VARCHAR, ArrayType,
                                        DecimalType, RowType, parse_type)
 from trino_tpu_torch.sql.ir import Call, InputRef, Literal
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
 
@@ -50,6 +51,14 @@ SETUP = [
     "array[1,2])), (2, row(20, 'b'), map(array['p'], array[7])), "
     "(3, null, null)",
 ]
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,7 @@ from trino_tpu_torch.runner import Session, StandaloneQueryRunner
 from trino_tpu_torch.spi.batch import Column, ColumnBatch
 from trino_tpu_torch.spi.errors import TrinoError
 from trino_tpu_torch.spi.types import BIGINT, VARCHAR
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
 SETTINGS = {"concurrency": {"task_concurrency": 4, "splits_per_node": 8},
@@ -50,6 +51,14 @@ SETTINGS = {"concurrency": {"task_concurrency": 4, "splits_per_node": 8},
                            "splits_per_node": 8}}
 CASES = [(f"Q{q}", QUERIES[q]) for q in sorted(QUERIES)] + [("R1", R1),
                                                               ("R2", R2)]
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture(autouse=True)

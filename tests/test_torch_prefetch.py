@@ -42,8 +42,17 @@ from trino_tpu_torch.spi.batch import Column, ColumnBatch
 from trino_tpu_torch.spi.connector import (Connector, ConnectorPageSource,
                                            Split)
 from trino_tpu_torch.spi.types import BIGINT, VARCHAR
+from trino_tpu_torch.caching import result_cache
 
 THREADS = max(1, default_threads())
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 def _bigint_batch(values, pkg="port"):

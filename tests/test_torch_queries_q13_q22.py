@@ -15,12 +15,21 @@ from test_torch_queries import (  # noqa: F401 — fixtures
     _count_plain_calls, _same_rows, check_query, port, reference)
 from trino_tpu.spi.errors import TrinoError as RefTrinoError
 from trino_tpu_torch.spi.errors import TrinoError
+from trino_tpu_torch.caching import result_cache
 
 R1 = ("select l_linenumber, sum(cast(l_quantity as real)), "
       "sum(cast(l_extendedprice as real)) from lineitem "
       "group by l_linenumber order by l_linenumber")
 R2 = ("select l_quantity, sum(cast(l_extendedprice as real)) from lineitem "
       "group by l_quantity order by l_quantity")
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 # Q18 groups lineitem by l_orderkey (a hash_insert over every row); Q21

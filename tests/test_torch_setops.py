@@ -22,8 +22,17 @@ from trino_tpu.runner import StandaloneQueryRunner as RefRunner
 from trino_tpu_torch.connectors.catalog import default_catalog
 from trino_tpu_torch.connectors.surface_queries import SURFACE_QUERIES
 from trino_tpu_torch.runner import StandaloneQueryRunner
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 def _row_key(row):

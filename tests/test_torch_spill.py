@@ -30,6 +30,15 @@ from trino_tpu_torch.exec.stats import QueryStats
 from trino_tpu_torch.runner import Session, StandaloneQueryRunner
 from trino_tpu_torch.spi.batch import Column, ColumnBatch
 from trino_tpu_torch.spi.types import BIGINT
+from trino_tpu_torch.caching import result_cache
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture(autouse=True)

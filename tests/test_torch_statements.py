@@ -39,10 +39,19 @@ from trino_tpu_torch.runner import Session, StandaloneQueryRunner
 from trino_tpu_torch.spi.batch import Column, ColumnBatch
 from trino_tpu_torch.spi.connector import ColumnSchema, TableSchema
 from trino_tpu_torch.spi.types import BIGINT, DOUBLE, VARCHAR
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
 TPCH_TABLES = ("region", "nation", "supplier", "customer", "part",
                "partsupp", "orders", "lineitem")
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture(autouse=True)

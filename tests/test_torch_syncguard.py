@@ -34,8 +34,17 @@ from trino_tpu_torch.runner import StandaloneQueryRunner
 from trino_tpu_torch.spi.batch import Column, ColumnBatch
 from trino_tpu_torch.spi.types import BIGINT, BOOLEAN
 from trino_tpu_torch.tools import lint_host_sync
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture(autouse=True)

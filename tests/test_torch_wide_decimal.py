@@ -31,6 +31,7 @@ from trino_tpu_torch.exec.kernels import (combine_limb_sums,
 from trino_tpu_torch.runner import StandaloneQueryRunner
 from trino_tpu_torch.spi.batch import _object_array
 from trino_tpu_torch.spi.types import DecimalType, MapType, RowType, parse_type
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
 
@@ -42,6 +43,14 @@ BIG = [
     None,
     "12345678901234567890123456789012.345678",  # duplicate on purpose
 ]
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -22,8 +22,17 @@ from trino_tpu_torch.connectors.catalog import default_catalog
 from trino_tpu_torch.connectors.window_queries import (KERNELS,
                                                        WINDOW_QUERIES)
 from trino_tpu_torch.runner import StandaloneQueryRunner
+from trino_tpu_torch.caching import result_cache
 
 SF = 0.01
+
+
+@pytest.fixture(autouse=True)
+def _execution_not_cached():
+    """Every statement here executes: a result-cache hit would skip the
+    launches, syncs and revocations these tests count."""
+    with result_cache.disabled():
+        yield
 
 
 @pytest.fixture(scope="module", autouse=True)

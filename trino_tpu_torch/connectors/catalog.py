@@ -131,12 +131,13 @@ class Catalog:
 
 def default_catalog(scale_factor: float = 0.01,
                     file_root: Optional[str] = None) -> Catalog:
-    """Catalog with the tpch, memory, blackhole and file connectors
-    registered (the reference's ``system`` connector is not ported yet).
-    ``file_root`` anchors the file connector's tables; by default it is a
-    temp directory of its own, made at first use."""
+    """Catalog with the tpch, memory, blackhole, file and system
+    connectors registered, as the reference's.  ``file_root`` anchors the
+    file connector's tables; by default it is a temp directory of its own,
+    made at first use."""
     from .file import FileConnector
     from .memory import BlackholeConnector, MemoryConnector
+    from .system import SystemConnector
     from .tpch import TpchConnector
 
     cat = Catalog()
@@ -144,4 +145,5 @@ def default_catalog(scale_factor: float = 0.01,
     cat.register("memory", MemoryConnector())
     cat.register("blackhole", BlackholeConnector())
     cat.register("file", FileConnector(file_root))
+    cat.register("system", SystemConnector())
     return cat

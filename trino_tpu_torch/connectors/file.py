@@ -33,6 +33,7 @@ from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
 from .. import native
+from ..caching import result_cache
 from ..execution.serde import (decode_page, inflate_page, serialize_batch,
                                write_frame)
 from ..spi.batch import ColumnBatch
@@ -216,10 +217,17 @@ class FileConnector(Connector):
                 "rows": 0,
                 "pages": [],
             }, f)
+        self._invalidate(schema.name)
 
     def drop_table(self, table: str) -> None:
         shutil.rmtree(self._dir(table), ignore_errors=True)
         getattr(self, "_analyzed_stats", {}).pop(table, None)
+        self._invalidate(table)
+
+    def _invalidate(self, table: str) -> None:
+        """Drop the result cache's entries that read ``table`` (its
+        content signature changed, so they could never be served)."""
+        result_cache.invalidate_table(self.name, table)
 
     # ---- scan -----------------------------------------------------------
     def get_splits(self, table: str, splits_per_node: int,
@@ -257,3 +265,4 @@ class FileConnector(Connector):
                 meta["rows"] += rows
             with open(self._meta_path(table), "w") as f:
                 json.dump(meta, f)
+        self._invalidate(table)

@@ -21,6 +21,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from ..caching import result_cache
 from ..spi.batch import ColumnBatch
 from ..spi.connector import (
     Connector,
@@ -121,9 +122,12 @@ class MemoryConnector(Connector):
         self._next_version = 0
 
     def _bump_version(self, table: str) -> None:
-        # callers hold self._lock
+        # callers hold self._lock; the result cache drops what read the
+        # table now, freeing its bytes (the new token alone already keeps
+        # them from being served)
         self._next_version += 1
         self._versions[table] = self._next_version
+        result_cache.invalidate_table(self.name, table)
 
     def data_version(self, table: str):
         with self._lock:
@@ -161,6 +165,7 @@ class MemoryConnector(Connector):
     def drop_table(self, table: str) -> None:
         with self._lock:
             self._forget(table)
+            result_cache.invalidate_table(self.name, table)
 
     def _forget(self, table: str) -> None:
         # callers hold self._lock

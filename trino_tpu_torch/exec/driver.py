@@ -32,6 +32,8 @@ import torch
 
 from ..ops.expr import check_error_scalars
 from ..spi.errors import GENERIC_INTERNAL_ERROR, TrinoError
+from ..telemetry import profiler
+from ..telemetry import runtime as rt
 from . import syncguard as SG
 from .operators import Operator, ScanOperator
 from .stats import (EncodingStats, OperatorStats, PipelineStats, QueryStats,
@@ -81,6 +83,7 @@ class Driver:
                  stats: Optional[PipelineStats] = None, sync: bool = False):
         assert operators, "empty pipeline"
         self.operators = list(operators)
+        self._names = [type(op).__name__ for op in self.operators]
         self.stats = stats
         self.sync = sync and torch.cuda.is_available()
         if stats is not None:
@@ -121,9 +124,19 @@ class Driver:
         time.perf_counter() timestamp), the driver finishes, or no operator
         can make progress.  Returns 'finished' | 'progressed' | 'blocked'
         (blocked = alive but waiting on an external input: an exchange or a
-        join bridge) — operator/Driver.processFor's contract."""
+        join bridge) — operator/Driver.processFor's contract.
+
+        With the profiler on (telemetry/profiler.py), each page move
+        records one operator event for the producer and one for the
+        consumer, and each finish one ``<operator>.finish`` event: a clock
+        read and a tuple store, no device sync.  At the ``full`` level the
+        produced page's stream is synchronized first, so the producer's
+        event spans its device time."""
         ops = self.operators
         n = len(ops)
+        prof = profiler.enabled()
+        prof_full = prof and profiler.is_full()
+        names = self._names
         any_progress = False
         while not ops[-1].is_finished():
             progressed = False
@@ -135,11 +148,21 @@ class Driver:
                     progressed = True
                     continue
                 if not cur.is_finished() and nxt.needs_input():
+                    p0 = time.time() if prof else 0.0
                     page = self._timed(i, cur.get_output)
                     if page is not None:
+                        if prof:
+                            if prof_full:
+                                profiler.sync_batch(page)
+                            profiler.event(profiler.OPERATOR, names[i], p0,
+                                           rows=page.num_rows)
                         if self.stats is not None:
                             self._emit(i, page)
+                        p0 = time.time() if prof else 0.0
                         self._timed(i + 1, nxt.add_input, page)
+                        if prof:
+                            profiler.event(profiler.OPERATOR, names[i + 1],
+                                           p0, rows=page.num_rows)
                         progressed = True
                 if cur.is_finished() and not nxt.input_done:
                     if i + 2 == n:
@@ -149,7 +172,13 @@ class Driver:
                         check_error_scalars([
                             e for op in ops
                             for e in getattr(op, "pending_errors", ())])
+                    p0 = time.time() if prof else 0.0
                     self._timed(i + 1, nxt.finish_input)
+                    if prof:
+                        # finish is where blocking operators (aggregation
+                        # flush, sort, join build) do their heavy lifting
+                        profiler.event(profiler.OPERATOR,
+                                       names[i + 1] + ".finish", p0)
                     progressed = True
             if ops[-1].is_finished():
                 break
@@ -181,9 +210,16 @@ def _run_group(drivers: Sequence[Driver]) -> None:
     running after GROUP_TIMEOUT_S fails the query."""
     errors: list = []
     stop = threading.Event()
+    # the group's threads work for the spawning thread's query: they adopt
+    # its profiler context and query record, so their events and scans are
+    # the query's
+    prof_ctx = profiler.capture_context()
+    record = rt.current_record()
 
     def body(d: Driver) -> None:
         try:
+            profiler.apply_context(prof_ctx)
+            rt.adopt_record(record)
             _run_parked(d, stop)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)

@@ -26,6 +26,8 @@ import time
 from typing import Optional, Sequence
 
 from ..ops.expr import check_error_scalars
+from ..telemetry import profiler
+from ..telemetry import runtime as rt
 from .driver import Driver
 from .operators import ScanOperator
 from .stats import PipelineStats, QueryStats
@@ -75,6 +77,10 @@ class TaskHandle:
         self.blocked_streak = 0
         self.error: Optional[BaseException] = None
         self.done = threading.Event()
+        # the submitter's query: a worker runs each quantum in its
+        # profiler context and with its query record
+        self.prof_ctx = profiler.capture_context()
+        self.record = rt.current_record()
 
     def process_quantum(self) -> str:
         """-> 'finished' | 'progressed' | 'blocked'."""
@@ -153,6 +159,8 @@ class TimeSharingTaskExecutor:
                 if self._shutdown:
                     return
                 _, _, handle = heapq.heappop(self._heap)
+            profiler.apply_context(handle.prof_ctx)
+            rt.adopt_record(handle.record)
             status = handle.process_quantum()
             if status == "finished":
                 continue

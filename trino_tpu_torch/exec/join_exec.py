@@ -45,6 +45,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..caching.executable_cache import bounded
 from . import kernels as K
 from . import syncguard as SG
 from ..ops import gpu_kernels as GK
@@ -292,14 +293,12 @@ EST_WINDOW = 8            # totals remembered for the estimate
 # shape, so a fresh operator of the same shape starts from the last run's
 # total instead of the probe width.  Correctness never depends on a seed:
 # the overflow flag guards every estimated cap.
-_EST_SEEDS: dict = {}
-_EST_SEEDS_CAP = 4096
-_EST_SEEDS_LOCK = threading.Lock()
+_EST_SEEDS = bounded("join_exec.estimate_seeds", 4096)
+_EST_SEEDS_LOCK = threading.Lock()  # serializes the seeds' max-update
 
 
 def reset_estimate_seeds() -> None:
-    with _EST_SEEDS_LOCK:
-        _EST_SEEDS.clear()
+    _EST_SEEDS.clear()
 
 
 class ExpandPlanner:
@@ -324,8 +323,7 @@ class ExpandPlanner:
         self._key = key
         self._seed = 0
         if key is not None:
-            with _EST_SEEDS_LOCK:
-                self._seed = _EST_SEEDS.get(key, 0)
+            self._seed = _EST_SEEDS.get(key, 0)
         self._totals: list[int] = []
         self._pending: list[SG.AsyncScalar] = []
 
@@ -373,11 +371,8 @@ class ExpandPlanner:
         del self._totals[:-EST_WINDOW]
         if self._key is not None:
             with _EST_SEEDS_LOCK:
-                if total > _EST_SEEDS.get(self._key, 0):
-                    if (self._key not in _EST_SEEDS
-                            and len(_EST_SEEDS) >= _EST_SEEDS_CAP):
-                        _EST_SEEDS.clear()  # coarse bound; seeds re-learn
-                    _EST_SEEDS[self._key] = total
+                if total > _EST_SEEDS.peek(self._key, 0):
+                    _EST_SEEDS.put(self._key, total)
 
     def _drain(self) -> None:
         still = []

@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..caching.executable_cache import memo
 from ..spi.batch import ColumnBatch
 from . import kernels as K
 from .operators import Operator
@@ -44,25 +45,14 @@ ROUND_ROBIN = "ROUND_ROBIN"
 HASH = "HASH"
 
 
-_ENTRY_HASHES: dict = {}  # id(dictionary) -> (dictionary, {device: hashes})
-
-
+@memo("local_exchange.entry_hashes", maxsize=256, weak=True)
 def _entry_hashes(dictionary, device) -> torch.Tensor:
     """A stable int64 hash of every dictionary entry's value, on
     ``device``, kept per dictionary object: codes are per-batch
     namespaces, values are not."""
-    hit = _ENTRY_HASHES.get(id(dictionary))
-    if hit is None or hit[0] is not dictionary:
-        if len(_ENTRY_HASHES) > 256:
-            _ENTRY_HASHES.clear()
-        hit = (dictionary, {})
-        _ENTRY_HASHES[id(dictionary)] = hit
-    t = hit[1].get(device)
-    if t is None:
-        h = np.fromiter((zlib.crc32(str(v).encode()) for v in dictionary),
-                        dtype=np.int64, count=len(dictionary))
-        t = hit[1][device] = torch.from_numpy(h).to(device)
-    return t
+    h = np.fromiter((zlib.crc32(str(v).encode()) for v in dictionary),
+                    dtype=np.int64, count=len(dictionary))
+    return torch.from_numpy(h).to(device)
 
 
 def hash_partitions(batch: ColumnBatch, key_channels: Sequence[int],

@@ -40,6 +40,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..telemetry import profiler
 from ..ops.expr import SUBQUERY_MULTIPLE_ROWS as ERR_MULTIPLE_ROWS
 from ..ops.expr import (compile_expression, expr_condition_mask,
                         expr_error_scope, reduce_error_lanes)
@@ -279,7 +280,15 @@ class ScanOperator(Operator):
 
     def _flush(self) -> Optional[tuple]:
         flushed = self._coalescer.flush()
-        return None if flushed is None else self._stager.stage(*flushed)
+        if flushed is None:
+            return None
+        if not profiler.enabled():
+            return self._stager.stage(*flushed)
+        t0 = profiler.now()
+        staged = self._stager.stage(*flushed)
+        profiler.event(profiler.STAGE, "scan.stage", t0,
+                       rows=flushed[0].num_rows, bytes=flushed[0].nbytes)
+        return staged
 
     def _produce_next(self) -> Optional[tuple]:
         """One coalesced, staged (batch, event), or None at the end.  The

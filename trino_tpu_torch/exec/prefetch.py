@@ -42,6 +42,9 @@ import torch
 
 from ..spi.batch import Column, ColumnBatch, maybe_rle, unify_dictionaries
 from ..spi.errors import GENERIC_INTERNAL_ERROR, TrinoError
+from ..telemetry import metrics as tm
+from ..telemetry import profiler
+from ..telemetry import runtime as rt
 from .stats import EncodingStats, ScanIngestStats
 
 __all__ = [
@@ -118,8 +121,12 @@ class PrefetchingPageSource:
         self._error: Optional[BaseException] = None
         self._closed = False
         n = min(config.threads, max(1, len(self.splits)))
+        # the threads work for the consumer's query: they carry its
+        # profiler context and query record
+        self._prof_ctx = profiler.capture_context()
+        self._record = rt.current_record()
         self._threads = [
-            threading.Thread(target=self._work, daemon=True,
+            threading.Thread(target=self._work_for_query, daemon=True,
                              name=f"scan-prefetch-{i}")
             for i in range(n)]
         for t in self._threads:
@@ -155,6 +162,11 @@ class PrefetchingPageSource:
             self._inflight += 1
             self.stats.splits_opened += 1
             return idx
+
+    def _work_for_query(self) -> None:
+        profiler.apply_context(self._prof_ctx)
+        rt.adopt_record(self._record)
+        self._work()
 
     def _work(self) -> None:
         try:
@@ -426,6 +438,8 @@ def _on_materialize(stats: Optional[ScanIngestStats],
     def done(col: Column) -> None:
         if enc_stats is not None:
             enc_stats.lazy_materialized += 1
+        tm.ENCODING_LAZY_MATERIALIZED.inc()
+        tm.ENCODING_LAZY_MATERIALIZED_BYTES.inc(_array_bytes(col))
         if col.device.type != "cuda":
             return
         if stats is not None:

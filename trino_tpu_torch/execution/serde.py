@@ -25,9 +25,10 @@ are CPU tensors of the dtype the page names.
 
 The consumer's sidecar registry is this package's own (a page stream
 written by the reference defines its dictionaries in the reader's
-registry all the same).  The reference counts sidecars in its metrics
-registry; here the encoder keeps the counts (``dict_sent``,
-``dict_reused``, ``code_pages``).
+registry all the same).  Sidecars are counted as in the reference, in the
+``trino_encoding_dict_sidecar_*`` and ``trino_encoding_exchange_code_pages``
+metrics (telemetry/metrics.py), and per stream by the encoder
+(``dict_sent``, ``dict_reused``, ``code_pages``).
 """
 
 from __future__ import annotations
@@ -42,11 +43,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..caching.executable_cache import memo
 from ..exec import syncguard as SG
 from ..spi.batch import Column, ColumnBatch
 from ..spi.errors import PAGE_TRANSPORT_ERROR, TrinoError
 from ..spi.types import ArrayType, DecimalType, MapType, RowType, Type, \
     parse_type
+from ..telemetry import metrics as tm
 
 __all__ = ["serialize_batch", "deserialize_batch", "inflate_page",
            "decode_page", "write_frame",
@@ -233,25 +236,20 @@ class _Reader:
         return self.blob().decode("utf-8")
 
 
-# packed dictionary values by dictionary object: the batches of one scan
-# share their dictionaries, so each is packed once, not once a page
-_PACKED_DICTS: dict = {}  # id(dictionary) -> (dictionary, packed bytes)
-_PACKED_DICTS_MAX = 64
-
-
 def _pack_dict_values(parts: list, dictionary) -> None:
-    hit = _PACKED_DICTS.get(id(dictionary))
-    if hit is None or hit[0] is not dictionary:
-        out = [struct.pack("<I", len(dictionary))]
-        for v in dictionary:
-            # tuples (array / row / map) and python ints (long decimals)
-            # round-trip through repr; strings stay plain
-            _pack_str(out, repr(v) if isinstance(v, (tuple, int))
-                      else str(v))
-        if len(_PACKED_DICTS) >= _PACKED_DICTS_MAX:
-            _PACKED_DICTS.clear()
-        hit = _PACKED_DICTS[id(dictionary)] = (dictionary, b"".join(out))
-    parts.append(hit[1])
+    parts.append(_packed_dict(dictionary))
+
+
+# the batches of one scan share their dictionaries, so each is packed once
+# per dictionary object, not once a page
+@memo("serde.packed_dicts", maxsize=64, weak=True)
+def _packed_dict(dictionary) -> bytes:
+    out = [struct.pack("<I", len(dictionary))]
+    for v in dictionary:
+        # tuples (array / row / map) and python ints (long decimals)
+        # round-trip through repr; strings stay plain
+        _pack_str(out, repr(v) if isinstance(v, (tuple, int)) else str(v))
+    return b"".join(out)
 
 
 def _unpack_dict_values(r: _Reader, type_: Type) -> np.ndarray:
@@ -398,11 +396,15 @@ def _serialize_batch_v2(batch: ColumnBatch, codec: int,
             parts.append(struct.pack("<BQI", _DICT_DEF, ctx.token, did))
             _pack_dict_values(parts, col.dictionary)
             ctx.dict_sent += 1
+            tm.ENCODING_DICT_SIDECAR_SENT.inc()
         else:
             parts.append(struct.pack("<BQI", _DICT_REF, ctx.token, did))
             ctx.dict_reused += 1
+            tm.ENCODING_DICT_SIDECAR_REUSED.inc()
         code_page = True
-    ctx.code_pages += code_page
+    if code_page:
+        ctx.code_pages += 1
+        tm.ENCODING_EXCHANGE_CODE_PAGES.inc()
     return _finish_page(_MAGIC2, parts, codec)
 
 

@@ -42,6 +42,8 @@ from typing import Optional
 
 import torch
 
+from ..caching.executable_cache import memo
+
 __all__ = ["hash_insert", "hash_probe", "hash_insert_plain",
            "hash_probe_plain", "masked_segment_sum_f32",
            "masked_segment_sum_f32_plain", "build_library", "LAUNCHES",
@@ -404,23 +406,17 @@ def masked_segment_sum_f32_plain(values, gid, live, num_groups: int):
     return out.index_add_(0, torch.where(ok, g, G), x)[:G]
 
 
-# (device, G) -> the segment sum's grid (resident blocks), set up at the
-# first call for the pair and then only read.
-_SEGMENT_GRID: dict = {}
-
-
+@memo("gpu_kernels.segment_grid", maxsize=256)
 def _segment_grid(dev: int, G: int) -> int:
-    """The segment sum's grid for G on the current CUDA device ``dev``.  The
-    first call for (dev, G) raises the kernel's shared-memory limit and
-    reads its occupancy (no work on any stream, so it may run inside a CUDA
-    graph capture)."""
-    grid = _SEGMENT_GRID.get((dev, G))
-    if grid is None:
-        blocks = ctypes.c_int(0)
-        _check(_lib().segment_sum_setup(G, ctypes.byref(blocks)),
-               "masked_segment_sum_f32 setup")
-        grid = _SEGMENT_GRID[(dev, G)] = blocks.value
-    return grid
+    """The segment sum's grid (resident blocks) for G on the current CUDA
+    device ``dev``, set up at the first call for the pair and then only
+    read from the registry.  The setup raises the kernel's shared-memory
+    limit and reads its occupancy (no work on any stream, so it may run
+    inside a CUDA graph capture)."""
+    blocks = ctypes.c_int(0)
+    _check(_lib().segment_sum_setup(G, ctypes.byref(blocks)),
+           "masked_segment_sum_f32 setup")
+    return blocks.value
 
 
 def _check_segment_args(values, gid, live, G: int) -> int:

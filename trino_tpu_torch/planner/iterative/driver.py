@@ -21,6 +21,7 @@ import threading
 import time
 from typing import Optional
 
+from ...telemetry import metrics as tm
 from ..plan import CorrelatedJoin, PlanNode
 from .memo import Memo
 from .rule import Context, Trace
@@ -160,4 +161,7 @@ def optimize_iterative(root: PlanNode, catalog) -> PlanNode:
     out = opt.final_passes(out, catalog)
     ctx.trace.planning_ms = (time.perf_counter() - t0) * 1000.0
     _LAST.trace = ctx.trace
+    tm.OPTIMIZER_RUNS.inc()
+    tm.OPTIMIZER_RULE_FIRINGS.inc(len(ctx.trace.fires))
+    tm.OPTIMIZER_PLANNING_MS.inc(ctx.trace.planning_ms)
     return out

@@ -8,6 +8,20 @@ default, as in the reference) or ``"legacy"`` (the reference's
 the iterative optimizer's rule firings and, under ANALYZE, the run's scan
 and encoding roll-ups and per-operator times and rows.
 
+Every statement goes through :func:`run_with_query_events`, as in the
+reference: created / completed events to the runner's listeners (the
+query journal, telemetry/journal.py, among them), a root tracing span, a
+``system.runtime.queries`` record, the query metrics and the profiler's
+context (``runner.profile(query_id)`` is the query's Chrome trace).  A
+query first tries the cache plane (caching/): a plan-cache hit (Tier A)
+skips parsing and planning, then a result-cache hit (Tier C) skips
+execution; a miss plans, stores the plan and executes, capturing the
+scanned tables' version vector before it runs.  ``execute(sql,
+stats=...)`` bypasses both tiers: a caller who asks for operator stats
+gets an execution.  The tiers' switches are the reference's
+``TRINO_TPU_{PLAN,RESULT}_CACHE``; ``result_cache.disabled()`` turns the
+result tier off for a harness that times execution.
+
 Besides queries, CREATE TABLE AS and INSERT (a TableWriter plan), the
 runner takes the statements a session sends, as the reference does:
 START TRANSACTION / COMMIT / ROLLBACK (``execution/transaction.py``), SET
@@ -15,9 +29,9 @@ SESSION, SHOW TABLES / COLUMNS, CREATE / DROP TABLE, CREATE / DROP
 FUNCTION, CREATE [OR REPLACE] / DROP VIEW, CREATE / REFRESH / DROP
 MATERIALIZED VIEW, CALL of a connector procedure, ANALYZE and DELETE.
 Access control (``spi/security.py``) checks writes before a statement runs
-and the scanned columns of every plan.  ANALYZE counts distinct values on
-the runner's device through ``hash_insert``; DELETE and a refresh keep a
-device-resident table resident.
+and the scanned columns of every plan (on a plan-cache hit too).  ANALYZE
+counts distinct values on the runner's device through ``hash_insert``;
+DELETE and a refresh keep a device-resident table resident.
 
 The ``Session`` holds what the port acts on: ``default_catalog``,
 ``user``, ``splits_per_node``, ``node_count``, ``dynamic_filtering``,
@@ -30,8 +44,9 @@ accepts the reference's other properties and stores them unread.  The
 port-only arguments ``ingest`` (an
 ``exec.prefetch.IngestConfig``: split prefetch threads, coalescing into
 pinned buffers, side-stream copies to the card), ``encoded_exec`` (RLE and
-LAZY columns), ``optimizer`` and ``device`` are not session properties.
-No plan or result cache and no query events (not ported yet).
+LAZY columns), ``optimizer`` and ``device`` are not session properties;
+together they are the runner's :attr:`execution_key`, part of every cache
+key.
 
 The runner runs on the card unless the caller asks for the CPU:
 ``device="cuda"`` (the default) raises when CUDA is not available.
@@ -39,7 +54,9 @@ The runner runs on the card unless the caller asks for the CPU:
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
+import itertools
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -47,14 +64,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .caching import plan_cache, result_cache
 from .caching.plan_cache import scan_tables
 from .connectors.catalog import Catalog, ViewDefinition, default_catalog
 from .exec import kernels as K
 from .exec import syncguard as SG
-from .exec.driver import run_pipelines
+from .exec.driver import (collect_encoding_stats, collect_scan_stats,
+                          run_pipelines)
 from .exec.local_planner import LocalPlanner
 from .exec.prefetch import IngestConfig
 from .exec.stats import QueryStats
+from .execution.tracing import Tracer, annotate_scan_span, annotate_sync_span
 from .execution.transaction import handle_transaction_stmt
 from .planner.iterative import last_report
 from .planner.logical import LogicalPlanner
@@ -63,14 +83,21 @@ from .planner.plan import PlanNode, TableScan, plan_text
 from .spi.batch import Column, ColumnBatch
 from .spi.connector import (ColumnSchema, Connector, TableSchema,
                             TableStatistics)
+from .spi.errors import classify
+from .spi.eventlistener import (EventListenerManager, QueryCompletedEvent,
+                                QueryCreatedEvent)
 from .spi.security import AccessControlManager
 from .spi.types import BIGINT, VARCHAR, parse_type
 from .sql import ast
 from .sql.analyzer import is_builtin_function
 from .sql.parser import parse_statement
+from .telemetry import journal, profiler
+from .telemetry import metrics as tm
+from .telemetry import runtime as rt
 
 __all__ = ["QueryResult", "Session", "StandaloneQueryRunner", "execute_ddl",
-           "execute_session_stmt", "SETTABLE_SESSION_PROPERTIES"]
+           "execute_session_stmt", "run_with_query_events",
+           "SETTABLE_SESSION_PROPERTIES"]
 
 
 def text_result(name: str, lines: list[str]) -> "QueryResult":
@@ -94,6 +121,10 @@ def _split_name(name: str, default: str) -> tuple[str, str]:
 class QueryResult:
     names: list[str]
     batch: ColumnBatch
+    # the row count the query lifecycle reads once (run_with_query_events):
+    # a result served again from the result cache carries it
+    output_rows: Optional[int] = field(default=None, compare=False,
+                                       repr=False)
 
     def rows(self) -> list[tuple]:
         SG.count_sync("runner.result-fetch")
@@ -488,6 +519,80 @@ def _execute_ddl(stmt, catalog: Catalog, default_catalog_name: str,
 
 
 # ---------------------------------------------------------------------------
+# the query lifecycle
+
+
+def _output_rows(result: QueryResult) -> int:
+    """The result's row count, kept on the result: a result with a live
+    mask costs one counted device read the first time, and none when the
+    result cache serves it again."""
+    if result.output_rows is None:
+        batch = result.batch
+        if not batch.columns:
+            result.output_rows = 0
+        elif batch.live is None:  # a shape: no device read
+            result.output_rows = batch.num_rows
+        else:
+            result.output_rows = int(
+                SG.fetch(batch.live.sum(), "runner.output-rows"))
+    return result.output_rows
+
+
+def run_with_query_events(qid: str, sql: str, user: str,
+                          listeners: EventListenerManager, tracer: Tracer,
+                          thunk, device=None) -> QueryResult:
+    """The query lifecycle around ``thunk`` (reference:
+    runner.run_with_query_events, QueryMonitor's role): the created event,
+    the ``system.runtime.queries`` record, the query metrics, the
+    profiler's context, the root ``trino.query`` span; then, in this
+    order, the wall and CPU times, the device memory watermark of
+    ``device``, the finished record, the harvest of the query's profiler
+    events and the completed event.  ``cpu_ms`` is process CPU over the
+    query window.  The one device read is the output row count of a
+    result with a live mask (:func:`_output_rows`), counted by
+    exec/syncguard.py under ``runner.output-rows`` after the query's own
+    sync window; a result-cache hit reuses the count and reads nothing.
+    The reference's warm-key flush has no counterpart (the port keeps no
+    warm journal: caching/executable_cache.py)."""
+    listeners.query_created(QueryCreatedEvent(qid, sql, user))
+    rec = rt.query_started(qid, sql, user)
+    tm.QUERIES_STARTED.inc()
+    prof_ctx = profiler.set_context(qid)
+    t0 = time.perf_counter()
+    cpu0 = time.process_time()
+
+    def finish(state: str, rows: int, error, error_code=None) -> None:
+        wall = (time.perf_counter() - t0) * 1e3
+        cpu = (time.process_time() - cpu0) * 1e3
+        tm.QUERY_WALL_SECONDS.record(wall / 1e3)
+        (tm.QUERIES_FINISHED if state == "FINISHED"
+         else tm.QUERIES_FAILED).inc()
+        peak = tm.update_device_memory_watermark(device) or 0
+        rt.query_finished(rec, state, wall, cpu, rows, error,
+                          peak_memory_bytes=peak)
+        # the rings' events move into the bounded per-query profile store
+        # before the rings can wrap
+        profiler.harvest(qid)
+        profiler.apply_context(prof_ctx)
+        listeners.query_completed(QueryCompletedEvent(
+            qid, sql, state, user, wall, rows, error,
+            cpu_ms=cpu, peak_memory_bytes=peak,
+            input_rows=rec.input_rows, input_bytes=rec.input_bytes,
+            retry_count=rec.retry_count, queued_time_ms=rec.queued_ms,
+            resource_group=rec.resource_group,
+            speculative_wins=rec.speculative_wins, error_code=error_code))
+
+    try:
+        with tracer.span("trino.query", query_id=qid):
+            result = thunk()
+    except BaseException as e:
+        finish("FAILED", -1, str(e), error_code=classify(e).code.name)
+        raise
+    finish("FINISHED", _output_rows(result), None)
+    return result
+
+
+# ---------------------------------------------------------------------------
 # the runner
 
 
@@ -523,25 +628,62 @@ class StandaloneQueryRunner:
         self.optimizer = optimizer
         self.ingest = ingest if ingest is not None else IngestConfig()
         self.encoded_exec = encoded_exec
+        # what selects how a plan executes: part of every cache key, so a
+        # CPU runner's plans and results never reach a CUDA runner
+        self.execution_key = (optimizer, encoded_exec,
+                              dataclasses.astuple(self.ingest),
+                              str(self.device))
+        self.tracer = Tracer()
+        self.event_listeners = EventListenerManager()
+        self._qids = itertools.count(1)
+        sysconn = self.catalog._connectors.get("system")
+        if sysconn is not None and hasattr(sysconn, "attach"):
+            sysconn.attach(self)
+        j = journal.get_journal()
+        if j is not None:
+            self.event_listeners.add(j)
 
     def create_plan(self, sql: str) -> PlanNode:
         return self._plan(parse_statement(sql))
 
     def _plan(self, stmt) -> PlanNode:
-        plan = LogicalPlanner(self.catalog, self.session.default_catalog,
-                              self.optimizer).plan(stmt)
-        plan = optimize(plan, self.catalog, self.optimizer)
+        with self.tracer.span("trino.planner"):
+            plan = LogicalPlanner(self.catalog, self.session.default_catalog,
+                                  self.optimizer).plan(stmt)
+            plan = optimize(plan, self.catalog, self.optimizer)
         check_select_access(plan, self.access_control, self.session.user)
         return plan
 
     def explain(self, sql: str) -> str:
         return plan_text(self.create_plan(sql))
 
-    def execute(self, sql: str,
-                stats: Optional[QueryStats] = None) -> QueryResult:
+    def execute(self, sql: str, stats: Optional[QueryStats] = None,
+                query_id: Optional[str] = None) -> QueryResult:
         """Run one statement; ``stats`` (optional) collects per-operator
         times, rows and batches of a query, and its scan and encoding
-        roll-ups."""
+        roll-ups, and bypasses the plan and result caches.  An explicit
+        ``query_id`` names the query in the registries, the journal and
+        the profile."""
+        return run_with_query_events(
+            query_id or f"sq_{next(self._qids)}", sql, self.session.user,
+            self.event_listeners, self.tracer,
+            lambda: self._execute(sql, stats), device=self.device)
+
+    def profile(self, query_id: str) -> Optional[dict]:
+        """Chrome trace_event JSON of a profiled query
+        (telemetry/profiler.py), or None when unknown."""
+        return profiler.chrome_trace(query_id)
+
+    def _execute(self, sql: str,
+                 stats: Optional[QueryStats]) -> QueryResult:
+        # Tier A: a cached plan skips parse -> plan -> optimize (only
+        # statements that were planned are stored, so DDL, session and
+        # transaction texts always miss)
+        if stats is None:
+            entry = plan_cache.lookup(sql, self.session, self.catalog,
+                                      self.execution_key)
+            if entry is not None:
+                return self._execute_cached_plan(entry)
         stmt = parse_statement(sql)
         session = self.session
         if handle_transaction_stmt(stmt, session, self.catalog):
@@ -567,7 +709,34 @@ class StandaloneQueryRunner:
                           self.device)
         if out is not None:
             return out
-        return self._run(self._plan(stmt), stats)
+        plan = self._plan(stmt)
+        if stats is not None:
+            return self._run(plan, stats)
+        entry = plan_cache.store(sql, session, self.catalog, plan,
+                                 self.execution_key)
+        # Tier C: the version vector is captured BEFORE executing, so a
+        # write racing the read strands the entry under a stale key
+        # instead of publishing stale data as fresh
+        key = result_cache.result_key(
+            entry, result_cache.version_vector(entry.tables, self.catalog))
+        result = self._run(plan, None)
+        result_cache.store(key, result, entry.tables)
+        return result
+
+    def _execute_cached_plan(self, entry) -> QueryResult:
+        """Run from a Tier-A hit: re-check access (the key holds session
+        knobs, not identity), try Tier C, else execute a private clone of
+        the cached tree and publish its result."""
+        check_select_access(entry.plan, self.access_control,
+                            self.session.user)
+        key = result_cache.result_key(
+            entry, result_cache.version_vector(entry.tables, self.catalog))
+        cached = result_cache.lookup(key)
+        if cached is not None:
+            return cached
+        result = self._run(plan_cache.clone(entry.plan), None)
+        result_cache.store(key, result, entry.tables)
+        return result
 
     def _execute_explain(self, stmt: ast.Explain) -> QueryResult:
         """EXPLAIN -> the plan text and the iterative optimizer's rule
@@ -601,7 +770,19 @@ class StandaloneQueryRunner:
                              task_concurrency=session.task_concurrency,
                              spill_to_disk_bytes=session.spill_to_disk_bytes
                              ).plan(plan)
-        run_pipelines(local.pipelines, stats)
+        sync_before = SG.snapshot()
+        with self.tracer.span("trino.execution") as span:
+            run_pipelines(local.pipelines, stats)
+            ingest = collect_scan_stats(local.pipelines)
+            sync = SG.take_delta(sync_before)
+            annotate_scan_span(span, ingest)
+            annotate_sync_span(span, sync)
+        tm.observe_scan(ingest)
+        tm.observe_sync(sync)
+        tm.observe_encoding(collect_encoding_stats(local.pipelines))
+        if ingest is not None:
+            rt.add_input(rt.current_record(), ingest.scan_rows,
+                         ingest.scan_bytes)
         batches = local.collector.batches
         if batches:
             batch = ColumnBatch.concat(batches)

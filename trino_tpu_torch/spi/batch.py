@@ -36,6 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..caching.executable_cache import memo
 from .types import (BOOLEAN, DATE, DOUBLE, TIMESTAMP, ArrayType, DecimalType,
                     MapType, RowType, Type, days_to_date, is_string)
 
@@ -137,25 +138,21 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
                 and device.type == "cuda" and t.is_pinned())
 
 
-# dictionary byte accounting: object dictionaries (strings, tuples) report
-# pointer bytes through .nbytes, so the payload is summed once and memoized
-# by (id, len); accounting, not an allocator figure
-_DICT_NBYTES_CACHE: dict = {}
-
-
 def _dictionary_nbytes(d) -> int:
+    """Payload bytes of a dictionary: an object dictionary (strings,
+    tuples) reports pointer bytes through .nbytes, so its payload is
+    summed once per dictionary object (accounting, not an allocator
+    figure)."""
     if d is None:
         return 0
     if d.dtype != object:
         return int(d.nbytes)
-    hit = _DICT_NBYTES_CACHE.get(id(d))
-    if hit is not None and hit[0] == len(d):
-        return hit[1]
-    total = sum(len(str(v).encode("utf-8", "replace")) for v in d)
-    if len(_DICT_NBYTES_CACHE) > 4096:
-        _DICT_NBYTES_CACHE.clear()
-    _DICT_NBYTES_CACHE[id(d)] = (len(d), total)
-    return total
+    return _object_payload_nbytes(d)
+
+
+@memo("batch.dictionary_nbytes", maxsize=4096, weak=True)
+def _object_payload_nbytes(d) -> int:
+    return sum(len(str(v).encode("utf-8", "replace")) for v in d)
 
 
 _MATERIALIZE_LOCK = threading.RLock()
@@ -315,9 +312,9 @@ class Column:
                 f"len={self._length})")
 
     @property
-    def nbytes(self) -> int:
-        """Bytes held: the run's one value for RLE, the hint while LAZY,
-        plus the mask and the dictionary's payload."""
+    def tensor_nbytes(self) -> int:
+        """Bytes of the column's tensors: the run's one value for RLE, the
+        hint while LAZY, the data otherwise, plus the mask."""
         if self._enc == "RLE":
             n = int(self._rle_value.nbytes)
         elif self._data is None:
@@ -326,7 +323,13 @@ class Column:
             n = self._data.numel() * self._data.element_size()
         if self._valid is not None:
             n += self._valid.numel()
-        return n + _dictionary_nbytes(self.dictionary)
+        return n
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes held: :attr:`tensor_nbytes` plus the dictionary's
+        payload."""
+        return self.tensor_nbytes + _dictionary_nbytes(self.dictionary)
 
     @property
     def flat_nbytes(self) -> int:
