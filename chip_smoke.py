@@ -4,8 +4,9 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10-16, 6, 9, so the kernel phase holds
-the staged, surface, window, nested and parallel paths' calls too).  The tpch path
+the order 1-5, 7, 8, 10-19, 6, 9, so the kernel phase holds the staged,
+surface, window, nested, parallel and distributed paths' calls too).  The
+tpch path
 runs the runner's default scan: dynamic filters, split prefetch threads,
 coalescing into pinned buffers with side-stream copies, RLE / LAZY
 columns.  Every runner but phase 10's legacy one plans with the port's
@@ -91,9 +92,9 @@ default optimizer, the iterative one:
      N5 and N9 against a plain numpy / python-int evaluation of the
      arrays the table is built from (exact); per-operator times of N2, N3 and N5 (the
      Unnest and HashAggregation shares); device busy time of one traced
-     run of each (torch.profiler) against its unprofiled warm wall: the
-     idle, host share; and N1-N11 at SF 0.1 on cuda and on cpu, rows
-     equal;
+     run of N2, N3, N4 and N5 (torch.profiler) against its unprofiled warm
+     wall: the idle, host share; and N1-N11 at SF 0.1 on cuda and on cpu,
+     rows equal;
  14. ingest: the rows dynamic filters pruned and the bytes copied to the
      card by each of the 24 tpch-path queries (phase 3's cold runs); warm
      ms of Q1, Q3, Q5, Q12, Q17, Q18 and Q21 under the default,
@@ -146,7 +147,21 @@ default optimizer, the iterative one:
      none), write and read-back ms, the merges' hash_insert launches, the
      peak above the start and warm ms against no budget in turns.  The
      file root is removed at the end.  Its launches are
-     ``launches_storage``.
+     ``launches_storage``;
+ 18. telemetry: the staged queries three times with both cache tiers on,
+     an INSERT into nation between passes, the system tables, profiles
+     and the journal (``telemetry()``).  Its launches are
+     ``launches_telemetry``;
+ 19. distributed: the distributed runner at SF 1 over the tpch
+     connector, four tasks per stage sharing the one card
+     (``distributed()``): the 24 queries cold and warm with rows equal
+     phase 3's, per query the stages, collective and host edges,
+     launches, host syncs by tag and device-to-host bytes; Q1, Q3, Q18,
+     Q21 with collectives on / off in turns; wire-format pages, the MERGE
+     exchange, a DistinctLimit plan; the fused Q1 program (q1_step,
+     q1_spmd over a 4-shard mesh) against q1_numpy.  Phase 6 adds a
+     task's largest insert and q1_step's insert as "distributed" cases.
+     Its launches are ``launches_distributed``.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -795,9 +810,9 @@ def capture_calls(GK, runs) -> dict:
     orig = {k: getattr(GK, k) for k in SOURCES}
 
     def spy(kernel):
-        def call(*args):
+        def call(*args, **kw):  # keywords (count_on_device) not recorded
             captured.setdefault((current["q"], kernel), []).append(args)
-            return orig[kernel](*args)
+            return orig[kernel](*args, **kw)
         return call
 
     for k in SOURCES:
@@ -810,6 +825,16 @@ def capture_calls(GK, runs) -> dict:
         for k, fn in orig.items():
             setattr(GK, k, fn)
     return captured
+
+
+class _Program:
+    """A callable in capture_calls' runner slot: ``execute`` calls it."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def execute(self, _sql):
+        return self.fn()
 
 
 def _same_generated(torch, dev_col, host_col, what: str) -> None:
@@ -1351,7 +1376,9 @@ def nested_plain(parts: dict, name: str) -> list:
 
 NESTED_NUMPY = ("N1", "N2", "N5", "N9")
 NESTED_OPERATORS = ("N2", "N3", "N5")
-NESTED_PROFILE = ("N2", "N3", "N4", "N5")  # with the top device operations
+# traced, with the top device operations (a subset, so the whole script
+# stays in its time limit)
+NESTED_PROFILE = ("N2", "N3", "N4", "N5")
 NESTED_CAPTURE = ("N3", "N4", "N6", "N9", "N10")  # phase 6's nested insert
 NESTED_TABLES = ("orders", "lineitem", "customer", "part")
 
@@ -1401,14 +1428,13 @@ def nested(torch, GK, QueryStats, StandaloneQueryRunner, default_catalog,
         log(f"{label} {name}: {shares} of {total:.1f} ms synchronized")
 
     t0 = time.perf_counter()
-    for name, sql in NESTED_QUERIES.items():
-        wall, traced, busy, ops = profile(staged, sql)
+    for name in NESTED_PROFILE:
+        wall, traced, busy, ops = profile(staged, NESTED_QUERIES[name])
         log(f"{label} {name}: device busy {busy:.2f} ms of {wall:.2f} ms "
             f"warm wall (median of {WALL_RUNS} unprofiled runs; traced "
             f"{traced:.2f} ms): idle, the host's share, {1 - busy / wall:.1%}")
-        if name in NESTED_PROFILE:
-            log(f"{label} {name} most device time: " + "; ".join(
-                f"{key} {ms:.3f} ms x{calls}" for key, ms, calls in ops[:6]))
+        log(f"{label} {name} most device time: " + "; ".join(
+            f"{key} {ms:.3f} ms x{calls}" for key, ms, calls in ops[:6]))
     log(f"{label} device profiles: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2418,9 +2444,9 @@ NATION_QUERIES = ("Q2", "Q5", "Q7", "Q8", "Q9", "Q10", "Q11", "Q20", "Q21")
 # a nation no supplier or customer references: no query's rows change
 NATION_ROW = (99, "ATLANTIS", 0, "unreferenced")
 TELEMETRY_PROFILED = ("Q3", "Q21")
-TELEMETRY_TURNS = 3  # A B B A rounds of the warm-ms comparisons
+TELEMETRY_TURNS = 2  # A B B A rounds of the warm-ms comparisons
 CLONE_REPS = 21
-SYNC_ROUNDS = 3  # rounds of off default default off for the sync counts
+SYNC_ROUNDS = 2  # rounds of off default default off for the sync counts
 # the tags of exec/'s AsyncScalar reads: each counts a sync only when its
 # copy has not landed by the time the value is needed
 ASYNC_WAIT_TAGS = ("join.expand-overflow", "join.pair-total",
@@ -2882,6 +2908,292 @@ def _level_scope(profiler, level: int):
     return scope
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the distributed runner, the collective exchange and the fused
+# Q1 program
+
+
+DIST_WORKERS = 4
+DIST_TURNS = ("Q1", "Q3", "Q18", "Q21")  # collectives on / off in turns
+DIST_SERDE = ("Q3", "Q18")
+# through the MERGE exchange: a small result (the producers' streams merged
+# on the host) and one past MergeSourceOperator.MERGE_ROW_LIMIT (sorted
+# again on the card)
+DIST_MERGE = {
+    "merge nation": ("select n_regionkey, n_name from nation "
+                     "order by n_regionkey desc, n_name"),
+    "merge orders": ("select o_orderkey, o_orderdate, o_totalprice "
+                     "from orders where o_orderdate < date '1993-01-01' "
+                     "order by o_orderdate, o_totalprice desc, o_orderkey"),
+}
+DIST_DISTINCT = ("select o_orderpriority, o_orderstatus from orders", 4)
+Q1_MESH = 4
+DIST_CAPTURE = ("Q9", "Q18", "Q21")  # phase 6's largest insert of a task
+
+
+def _ordered(sql: str) -> bool:
+    return "order by" in sql.lower()
+
+
+def _same_dist(got: list, want: list, sql: str, what: str,
+               rel_tol: float) -> float:
+    """Rows equal in order where the query orders, as sets otherwise."""
+    if not _ordered(sql):
+        got, want = sorted(got, key=repr), sorted(want, key=repr)
+    return same_rows(got, want, what, rel_tol)
+
+
+def _stages_line(runner, frags: list) -> str:
+    counts, _ = runner.stage_task_counts(frags)
+    return ", ".join(f"f{f.id} {f.partitioning} x{counts[f.id]} -> "
+                     f"{f.output_kind}" for f in frags)
+
+
+def _edges(runner, frags: list) -> tuple:
+    """(collective fragment ids, host edges as "fN KIND") of the runner's
+    last query, whose fragments are ``frags``."""
+    coll = sorted(runner._collective_edges)
+    host = [f"f{f.id} {f.output_kind}" for f in frags
+            if f.output_kind != "OUTPUT" and f.id not in coll]
+    return coll, host
+
+
+def _timed(torch, runner, sql: str) -> tuple:
+    t0 = time.perf_counter()
+    res = runner.execute(sql)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, res
+
+
+def _distinct_limit(runner, sql: str, count: int):
+    """``sql``'s plan under a DistinctLimit node (no SQL text plans one:
+    only planner/add_exchanges places it, over a DistinctLimit it is
+    given), run through the distributed runner: a partial
+    DistinctLimitOperator per task, a GATHER, the final one."""
+    from trino_tpu_torch.execution.fragmenter import fragment_plan
+    from trino_tpu_torch.planner.add_exchanges import add_exchanges
+    from trino_tpu_torch.planner.logical import LogicalPlanner
+    from trino_tpu_torch.planner.optimizer import optimize
+    from trino_tpu_torch.planner.plan import DistinctLimit, Output
+    from trino_tpu_torch.sql.parser import parse_statement
+
+    plan = optimize(LogicalPlanner(runner.catalog, "tpch").plan(
+        parse_statement(sql)), runner.catalog)
+    src = plan.source
+    plan = dataclasses.replace(plan, source=DistinctLimit(
+        src.output_names, src.output_types, src, count))
+    sub = fragment_plan(add_exchanges(plan))
+    return sub, runner._execute_subplan(sub, None)
+
+
+def _q1_rows(keys, values, used) -> dict:
+    """fused key rf * 1000 + ls -> (5 sums, count) of the used slots."""
+    used = used.cpu().numpy()
+    k = [x.cpu().numpy() for x in keys]
+    v = [x.cpu().numpy() for x in values]
+    out = {}
+    for i in np.nonzero(used)[0]:
+        out[int(k[0][i]) * 1000 + int(k[1][i])] = (
+            tuple(float(x[i]) for x in v[:5]), int(v[5][i]))
+    return out
+
+
+def _same_q1(got: dict, want, what: str) -> float:
+    uniq, cols = want
+    if sorted(got) != [int(u) for u in uniq]:
+        raise AssertionError(f"{what}: groups {sorted(got)} != {uniq}")
+    worst = 0.0
+    names = ("qty", "price", "disc_price", "charge", "disc")
+    for i, u in enumerate(uniq):
+        sums, count = got[int(u)]
+        if count != int(cols["count"][i]):
+            raise AssertionError(f"{what}: count of {u} {count} != "
+                                 f"{cols['count'][i]}")
+        for name, s in zip(names, sums):
+            w = float(cols[name][i])
+            if not math.isclose(s, w, rel_tol=DOUBLE_RTOL):
+                raise AssertionError(f"{what}: {name} of {u} {s} != {w}")
+            worst = max(worst, abs(s - w) / abs(w) if w else 0.0)
+    return worst
+
+
+def distributed(torch, GK, default_catalog, tpch_runner, sqls: dict,
+                path_rows: dict, smi: str) -> tuple:
+    """Phase 19: the distributed runner on the card, SF 1, four tasks per
+    stage sharing the one card (the mesh puts four shards on it, so no
+    interconnect is measured).  (a) the 24 queries cold and warm through
+    DistributedQueryRunner(worker_count=4): rows equal phase 3's
+    standalone rows; per query the stages and task counts, the collective
+    and host edges, launches by kernel, host syncs by tag and the
+    device-to-host bytes of the cold run (traced); Q1, Q3, Q18, Q21 warm with
+    collectives on, off, off, on (rows equal).  (b) Q3 and Q18 with
+    exchange_serde (rows equal, pages and bytes serialized), ORDER BY
+    through the MERGE exchange (nation: the heap merge; orders of 1992:
+    sorted again on the card) against the standalone runner, and a
+    DistinctLimit plan.  (c) the fused Q1 program on make_q1_inputs(1):
+    q1_step and q1_spmd over a 4-shard mesh against q1_numpy (counts
+    exact, sums rtol 1e-9), warm ms, input rows/s, launches.  Returns the
+    phase's launches, the runner and the Q1 batch for phase 6's cases."""
+    t_phase = time.perf_counter()
+    from trino_tpu_torch.bench_kernels import (make_q1_inputs, q1_numpy,
+                                               q1_spmd, q1_step)
+    from trino_tpu_torch.exec import syncguard as SG
+    from trino_tpu_torch.execution import task as T
+    from trino_tpu_torch.execution.distributed_runner import (
+        DistributedQueryRunner)
+    from trino_tpu_torch.parallel.distributed import make_mesh
+    from trino_tpu_torch.runner import Session
+    from trino_tpu_torch.tools.window_profile import copy_bytes
+
+    cat = default_catalog(PATH_SF)
+    dist = DistributedQueryRunner(
+        cat, worker_count=DIST_WORKERS,
+        session=Session(node_count=DIST_WORKERS), device="cuda")
+    log(f"distributed: {DIST_WORKERS} tasks per stage share one card "
+        f"({smi}); the mesh's all_to_all is a copy within its memory, so "
+        f"no interconnect is measured")
+    GK.reset_launch_counts()
+    # -- (a) the 24 queries ------------------------------------------------
+    warm_ms: dict = {}
+    for name, sql in sqls.items():
+        before = dict(GK.LAUNCHES)
+        out = []
+        # the cold run is traced for its device-to-host copies
+        copies = copy_bytes(lambda: out.append(_timed(torch, dist, sql)))
+        cold, res = out[0]
+        cold_rows = res.rows()
+        s0 = SG.snapshot()
+        warm, res = _timed(torch, dist, sql)
+        sync = SG.take_delta(s0)
+        rows = res.rows()
+        warm_ms[name] = warm
+        launched = {k: GK.LAUNCHES[k] - before[k] for k in GK.LAUNCHES}
+        for k in REQUIRED.get(name, ()):
+            if launched[k] <= 0:
+                raise AssertionError(f"distributed {name} launched no {k}")
+        rtol = REAL_PARITY_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+        _same_dist(cold_rows, path_rows[name], sql,
+                   f"distributed {name} cold", rtol)
+        worst = _same_dist(rows, path_rows[name], sql,
+                           f"distributed {name} warm", rtol)
+        frags = dist.create_subplan(sql).all_fragments()
+        coll, host = _edges(dist, frags)
+        log(f"distributed SF{PATH_SF:g} {name}: {len(rows)} rows equal "
+            f"phase 3's (largest float rel diff {worst:.3g}), cold "
+            f"{cold:.1f} ms (traced), warm {warm:.1f} ms; stages "
+            f"[{_stages_line(dist, frags)}]; collective edges "
+            f"{['f%d' % f for f in coll]}, host edges {host}; launches "
+            f"(cold + warm) {launched}; warm host syncs {sync.host_syncs} "
+            f"{dict(sorted(sync.by_tag.items()))}; device-to-host bytes "
+            f"of the cold run {_dtoh(copies)}")
+    log(f"distributed warm sum {sum(warm_ms.values()):.1f} ms "
+        f"({len(warm_ms)} queries; four tasks share the card)")
+    off = DistributedQueryRunner(
+        cat, worker_count=DIST_WORKERS,
+        session=Session(node_count=DIST_WORKERS, use_collectives=False),
+        device="cuda")
+    for name in DIST_TURNS:
+        sql = sqls[name]
+        times, outs = [], []
+        for r in (dist, off, off, dist):
+            ms, res = _timed(torch, r, sql)
+            times.append(ms)
+            outs.append(res.rows())
+        if off._collective_edges or not dist._collective_edges:
+            raise AssertionError(f"distributed {name}: collectives on "
+                                 f"{list(dist._collective_edges)}, off "
+                                 f"{list(off._collective_edges)}")
+        for o in outs[1:]:
+            _same_dist(o, outs[0], sql, f"distributed {name} on vs off",
+                       DOUBLE_RTOL)
+        on, off_ = sorted(times[0::3]), sorted(times[1:3])
+        apart = on[1] < off_[0] or off_[1] < on[0]
+        log(f"distributed {name} warm ms, collectives on / off / off / on "
+            f"({smi}): {' / '.join(f'{t:.1f}' for t in times)}; on "
+            f"{on[0]:.1f}-{on[1]:.1f}, off {off_[0]:.1f}-{off_[1]:.1f}: "
+            f"the ranges {'are apart' if apart else 'overlap'}; rows equal")
+    # -- (b) wire format, MERGE, DistinctLimit -------------------------------
+    serde = DistributedQueryRunner(
+        cat, worker_count=DIST_WORKERS,
+        session=Session(node_count=DIST_WORKERS, exchange_serde=True),
+        device="cuda")
+    orig_ser = T.serialize_batch
+    pages = [0, 0]
+
+    def counted(batch, *a, **kw):
+        out = orig_ser(batch, *a, **kw)
+        pages[0] += 1
+        pages[1] += len(out)
+        return out
+
+    T.serialize_batch = counted
+    try:
+        for name in DIST_SERDE:
+            pages[:] = [0, 0]
+            ms, res = _timed(torch, serde, sqls[name])
+            _same_dist(res.rows(), path_rows[name], sqls[name],
+                       f"distributed serde {name}", DOUBLE_RTOL)
+            if not pages[0]:
+                raise AssertionError(f"serde {name} serialized no page")
+            log(f"distributed exchange_serde {name}: rows equal, "
+                f"{pages[0]} pages / {pages[1]} bytes serialized, "
+                f"{ms:.1f} ms")
+    finally:
+        T.serialize_batch = orig_ser
+    for label, sql in DIST_MERGE.items():
+        if "MERGE" not in dist.explain(sql):
+            raise AssertionError(f"{label}: no MERGE exchange")
+        ms, res = _timed(torch, dist, sql)
+        got = res.rows()
+        same_rows(got, tpch_runner.execute(sql).rows(),
+                  f"distributed {label}")
+        log(f"distributed {label}: {len(got)} rows in the standalone "
+            f"runner's order, {ms:.1f} ms")
+    sql, count = DIST_DISTINCT
+    sub, res = _distinct_limit(dist, sql, count)
+    got = res.rows()
+    want = set(tpch_runner.execute(sql).rows())
+    text = sub.text()
+    if (len(got) != count or len(set(got)) != count
+            or not set(got) <= want or text.count("DistinctLimit") != 2):
+        raise AssertionError(f"distinct limit: {got} of {len(want)}")
+    log(f"distributed DistinctLimit[{count}] over {len(want)} distinct "
+        f"rows: {count} distinct rows, a partial DistinctLimit per task "
+        f"and the final one")
+    # -- (c) the fused Q1 program ------------------------------------------
+    t0 = time.perf_counter()
+    b = make_q1_inputs(PATH_SF, "cuda")
+    torch.cuda.synchronize()
+    n = int(b.shipdate.shape[0])
+    log(f"q1 inputs: make_q1_inputs({PATH_SF:g}) {n} rows on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    want = q1_numpy(b)
+    mesh = make_mesh(Q1_MESH)
+    spmd = q1_spmd(mesh)
+    for label, fn in (("q1_step", lambda: q1_step(b)),
+                      (f"q1_spmd over {mesh}", lambda: spmd(b))):
+        before = dict(GK.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        launched = {k: GK.LAUNCHES[k] - before[k] for k in GK.LAUNCHES}
+        if label.startswith("q1_spmd"):
+            overflow = int(out[3].max())
+            if overflow > 8:
+                raise AssertionError(f"q1_spmd overflow {overflow} > 8")
+            keys, values, used = out[0], out[1], out[2]
+        else:
+            keys, values, used = out
+        worst = _same_q1(_q1_rows(keys, values, used), want, label)
+        ms = cuda_ms(torch, fn, 5)
+        log(f"{label}: equals q1_numpy (counts exact, largest sum rel diff "
+            f"{worst:.3g}), warm {ms:.3f} ms ({smi}), {n / ms * 1e3:.0f} "
+            f"input rows/s, launches a call {launched}")
+    launches = dict(GK.LAUNCHES)
+    log(f"distributed launches: {launches}")
+    log(f"distributed: {time.perf_counter() - t_phase:.1f} s for phase 19")
+    return launches, dist, b
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -2948,6 +3260,17 @@ def kernel_cases(torch, GK, captured) -> list:
     cases.append(("hash_insert", "local exchange: Q18 largest insert of one "
                   "partition driver (task_concurrency=4)",
                   pick("engine Q18", "hash_insert", lambda c: True)))
+    calls = [(q, c) for (q, k), cs in captured.items()
+             if k == "hash_insert" and q.startswith("distributed Q")
+             for c in cs]
+    if not calls:
+        raise AssertionError("the distributed path made no hash_insert call")
+    q, args = max(calls, key=lambda qc: _rows_of("hash_insert", qc[1]))
+    cases.append(("hash_insert", f"distributed: largest insert of a task "
+                  f"({q[12:]}, {DIST_WORKERS} tasks)", args))
+    cases.append(("hash_insert", "distributed: q1_step insert (fused Q1, "
+                  "8 slots)", pick("distributed q1_step", "hash_insert",
+                                   lambda c: True)))
     return cases
 
 
@@ -3001,6 +3324,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
     from trino_tpu_torch.connectors.surface_queries import SURFACE_QUERIES
     from trino_tpu_torch.connectors.nested_queries import NESTED_QUERIES
     from trino_tpu_torch.connectors.window_queries import WINDOW_QUERIES
+    from trino_tpu_torch.bench_kernels import q1_step as bench_q1_step
     from trino_tpu_torch.exec.stats import QueryStats
     from trino_tpu_torch.runner import StandaloneQueryRunner
 
@@ -3130,6 +3454,10 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
                                    staged_rows, staged_warm, smi)
     executing.enter_context(result_cache.disabled())
 
+    # -- 19. the distributed runner, the collective exchange, fused Q1 ------
+    distributed_launches, dist, q1_batch = distributed(
+        torch, GK, default_catalog, runner, sqls, path_rows, smi)
+
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
     # kept apart from the path runs so the held tensors do not inflate
@@ -3146,7 +3474,11 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
         + [(f"nested {name}", staged, NESTED_QUERIES[name])
            for name in NESTED_CAPTURE]
         + [("statements ANALYZE", staged, f"analyze {ANALYZE_CASE}"),
-           ("engine Q18", parallel, sqls["Q18"])])
+           ("engine Q18", parallel, sqls["Q18"])]
+        + [(f"distributed {name}", dist, sqls[name])
+           for name in DIST_CAPTURE]
+        + [("distributed q1_step",
+            _Program(lambda: bench_q1_step(q1_batch)), None)])
     staged.execute(f"drop table {ANALYZE_CASE}")
     cases = kernel_cases(torch, GK, captured)
     log(library_read_rate(torch, cases[7][2][0]))
@@ -3195,6 +3527,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
             "launches_engine": engine_launches[kernel],
             "launches_storage": storage_launches[kernel],
             "launches_telemetry": telemetry_launches[kernel],
+            "launches_distributed": distributed_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],
@@ -3204,6 +3537,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
         entry["max_abs_err"] = max(entry["max_abs_err"], res["err"])
         entry["cases"].append(case)
     del captured, cases, args, res, staged, staged_cat, runner, parallel
+    del dist, q1_batch
     torch.cuda.empty_cache()
 
     # -- 9. SF 10: Q1 and Q3 over staged tables -----------------------------

@@ -893,3 +893,103 @@ def test_device_memory_watermark_reads_the_allocator(cuda):
     assert peak >= x.numel()
     assert metrics.DEVICE_MEMORY_PEAK.value() == peak
     assert metrics.DEVICE_MEMORY_IN_USE.value() >= x.numel()
+
+
+def _static_inputs(device, n=100_000):
+    rng = np.random.default_rng(11)
+    keys = [torch.from_numpy(rng.integers(0, 500, n)).to(device),
+            torch.from_numpy(rng.integers(0, 3, n).astype(np.int32))
+            .to(device)]
+    vals = torch.from_numpy(rng.standard_normal(n)).to(device)
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(device)
+    return keys, vals, mask
+
+
+def _slot_map(keys, values, used) -> dict:
+    used = used.cpu()
+    k = [x.cpu() for x in keys]
+    v = [x.cpu() for x in values]
+    return {tuple(x[i].item() for x in k): tuple(x[i].item() for x in v)
+            for i in torch.nonzero(used).flatten().tolist()}
+
+
+def _close_maps(a: dict, b: dict) -> None:
+    assert set(a) == set(b)
+    for key in a:
+        for x, y in zip(a[key], b[key]):
+            assert x == pytest.approx(y, rel=1e-9), key
+
+
+@pytest.mark.gpu
+def test_static_grouped_agg_on_card_equals_cpu(cuda):
+    """One hash_insert launch, no host read, the CPU run's groups."""
+    from trino_tpu_torch.exec import syncguard as SG
+    from trino_tpu_torch.parallel.static_agg import (AggSpec,
+                                                     static_grouped_agg)
+
+    specs = [AggSpec("sum", torch.float64), AggSpec("count_star",
+                                                    torch.int64),
+             AggSpec("min", torch.float64), AggSpec("max", torch.float64)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        keys, vals, mask = _static_inputs(dev)
+        before = dict(GK.LAUNCHES)
+        s0 = SG.snapshot()
+        r = static_grouped_agg(keys, [None, None],
+                               [(s, vals, None) for s in specs], 2048, mask)
+        if dev == "cuda":
+            assert isinstance(r.num_groups, torch.Tensor) and \
+                r.num_groups.is_cuda
+            assert GK.LAUNCHES["hash_insert"] == before["hash_insert"] + 1
+            assert SG.take_delta(s0).host_syncs == 0
+        out[dev] = (_slot_map(r.keys, r.values, r.slot_used),
+                    int(r.num_groups))
+    assert out["cuda"][1] == out["cpu"][1] == 1500
+    _close_maps(out["cuda"][0], out["cpu"][0])
+
+
+@pytest.mark.gpu
+def test_distributed_grouped_agg_four_shards_on_card(cuda):
+    from trino_tpu_torch.parallel.distributed import (
+        distributed_grouped_agg, make_mesh)
+    from trino_tpu_torch.parallel.static_agg import AggSpec
+
+    specs = [AggSpec("sum", torch.float64), AggSpec("count_star",
+                                                    torch.int64)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        keys, vals, mask = _static_inputs(dev)
+        mesh = make_mesh(4, device=dev)
+        fn = distributed_grouped_agg(mesh, "x", [torch.int64, torch.int32],
+                                     specs, cap=2048)
+        k, v, used, overflow = fn(*keys, vals, vals, mask)
+        assert int(overflow.max()) <= 2048
+        out[dev] = _slot_map(k, v, used)
+    _close_maps(out["cuda"], out["cpu"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiled", [False, True], ids=["lanes", "tiled"])
+def test_collective_exchange_on_card_equals_cpu(cuda, monkeypatch, tiled):
+    from trino_tpu_torch.execution import collective_exchange as CE
+    from trino_tpu_torch.execution.distributed_runner import (
+        DistributedQueryRunner)
+    from trino_tpu_torch.runner import Session
+
+    if tiled:
+        monkeypatch.setattr(CE, "TILED_THRESHOLD_ROWS", 0)
+    cat = default_catalog(0.01)
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        dist = DistributedQueryRunner(cat, worker_count=4, device=dev,
+                                      session=Session(node_count=4))
+        rows[dev] = [dist.execute(QUERIES[q]).rows() for q in (1, 3, 18)]
+        assert dist._collective_edges
+        assert all(e.tiled == tiled
+                   for e in dist._collective_edges.values())
+    for g, c in zip(rows["cuda"], rows["cpu"]):
+        assert len(g) == len(c)
+        for a, b in zip(g, c):
+            for x, y in zip(a, b):
+                assert (x == pytest.approx(y, rel=1e-9)
+                        if isinstance(y, float) else x == y), (a, b)

@@ -613,15 +613,18 @@ def test_engine_session_properties_run(name, value):
 
 
 def test_reference_only_properties_are_stored():
+    """``use_collectives`` is a Session field the distributed runner reads,
+    set to the reference's value; ``retry_policy`` stays stored unread."""
     ref, port = _runners()
     for sql in ("set session use_collectives = false",
                 "set session retry_policy = 'TASK'",
                 "set session node_count = 1"):
         _same(ref, port, sql)
+    assert port.session.use_collectives is ref.session.use_collectives \
+        is False
     assert (port.session.get("use_collectives"),
             port.session.get("retry_policy")) == (False, "TASK")
-    assert port.session.properties == {"use_collectives": False,
-                                       "retry_policy": "TASK"}
+    assert port.session.properties == {"retry_policy": "TASK"}
 
 
 @pytest.mark.parametrize("name", [

@@ -8,6 +8,7 @@ tests/test_journal.py.  Every run gets fresh caches and a journal in
 
 import json
 import os
+from collections import deque
 
 import pytest
 
@@ -16,6 +17,7 @@ from trino_tpu.connectors.catalog import default_catalog as ref_catalog
 from trino_tpu.connectors.system import SystemConnector as RefSystem
 from trino_tpu.runner import StandaloneQueryRunner as RefRunner
 from trino_tpu.telemetry import journal as ref_journal
+from trino_tpu.telemetry import runtime as ref_rt
 
 from trino_tpu_torch import caching
 from trino_tpu_torch.connectors.catalog import default_catalog
@@ -81,7 +83,14 @@ def test_default_catalog_registers_system():
 
 @pytest.mark.parametrize("table", ["runtime.tasks", "runtime.workers",
                                    "runtime.resource_groups"])
-def test_distributed_feeds_are_empty_for_a_standalone_runner(table):
+def test_distributed_feeds_are_empty_for_a_standalone_runner(table,
+                                                            monkeypatch):
+    # the task registry is process-wide in both packages, and distributed
+    # runners of other test files in this process record tasks into it:
+    # start both empty, so the count is what the standalone runners add
+    for runtime in (rt, ref_rt):
+        monkeypatch.setattr(runtime, "_TASKS",
+                            deque(maxlen=runtime._TASKS.maxlen))
     port = StandaloneQueryRunner(default_catalog(SF), device="cpu")
     ref = RefRunner(ref_catalog(SF))
     got = port.execute(f"select count(*) from system.{table}").rows()

@@ -142,6 +142,12 @@ class TimeSharingTaskExecutor:
 
     def submit(self, pipelines: Sequence[Sequence],
                stats: Optional[QueryStats] = None) -> TaskHandle:
+        # exchange sources and sinks poll instead of waiting: a parked
+        # consumer or a producer facing a full buffer releases its worker
+        for p in pipelines:
+            for op in p:
+                if hasattr(op, "blocking"):
+                    op.blocking = False
         handle = TaskHandle(pipelines, stats)
         self._enqueue(handle, 0)
         return handle

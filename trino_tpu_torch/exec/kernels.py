@@ -30,7 +30,8 @@ __all__ = [
     "distinct_count", "hash_group_ids", "small_codes_group_space",
     "small_grouped_aggregate", "grouped_reduce", "finalize_groups",
     "group_keys_out", "device_sort", "lexsort", "decimal_limb_tables",
-    "combine_limb_sums", "rle_fill", "DeviceDomain",
+    "combine_limb_sums", "rle_fill", "DeviceDomain", "unsigned_mod",
+    "partition_key_hashes", "partition_assignments",
 ]
 
 
@@ -237,6 +238,35 @@ def hash_combine(datas: Sequence) -> torch.Tensor:
     return h
 
 
+def unsigned_mod(h, m: int):
+    """``h`` (uint64 bits held in int64) modulo ``m`` as an unsigned
+    number: 2^64 mod m folds the sign bit back in."""
+    r = torch.remainder(h, m)
+    return torch.where(h < 0, torch.remainder(r + (1 << 64) % m, m), r)
+
+
+def partition_key_hashes(keys: Sequence[tuple]) -> torch.Tensor:
+    """Row -> 64-bit key hash (uint64 bits in int64) with NULL keys forced
+    to 0, on the keys' device: the reference's routing hash, bit for bit
+    (``h % n`` with null -> 0 is the null -> partition-0 placement)."""
+    h = hash_combine([d for d, _ in keys])
+    null = None
+    for _, v in keys:
+        if v is not None:
+            null = ~v if null is None else (null | ~v)
+    if null is not None:
+        h = torch.where(null, torch.zeros((), dtype=h.dtype,
+                                          device=h.device), h)
+    return h
+
+
+def partition_assignments(keys: Sequence[tuple],
+                          num_partitions: int) -> torch.Tensor:
+    """Row -> partition id (int64, on the keys' device) by key hash; NULL
+    keys -> partition 0."""
+    return unsigned_mod(partition_key_hashes(keys), num_partitions)
+
+
 def _i32_bits(x):
     """Low 32 bits of an int64 tensor as an int32 tensor (same bits)."""
     x = x & _U32
@@ -274,16 +304,18 @@ def slot_hash32(h):
     return _i32_bits(h ^ _shr(h, 32))
 
 
-def hash_row_gids(keys: Sequence[tuple], live=None):
+def hash_row_gids(keys: Sequence[tuple], live=None,
+                  count_on_device: bool = False):
     """Per-row dense group ids in first-occurrence order via the
     ``hash_insert`` kernel.  Returns (row_gid, count): dead rows get the
-    table size (>= any real id)."""
+    table size (>= any real id); ``count`` is a host int, or with
+    ``count_on_device`` a 0-d tensor on the keys' device (no host read)."""
     n = int(keys[0][0].shape[0])
     S = bucket(2 * max(n, 1))
     planes = key_planes(keys)
     h32 = slot_hash32(hash_combine(planes))
     row_gid, count, _table, _sgid = GK.hash_insert(
-        torch.stack(planes), h32, live, S)
+        torch.stack(planes), h32, live, S, count_on_device=count_on_device)
     return row_gid, count
 
 

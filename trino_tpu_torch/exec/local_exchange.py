@@ -55,30 +55,31 @@ def _entry_hashes(dictionary, device) -> torch.Tensor:
     return torch.from_numpy(h).to(device)
 
 
+def partition_key_tuple(c) -> tuple:
+    """(data, valid) of a routing key column on its device, as
+    ``kernels.partition_assignments`` takes it: a dictionary column's codes
+    become the crc32 of their values (the reference's
+    ``_dict_value_hashes``), since code 3 in one batch's dictionary is a
+    different string than code 3 in another's."""
+    if c.dictionary is None:
+        return c.data, c.valid
+    if not len(c.dictionary):
+        return (torch.zeros(len(c), dtype=torch.int64, device=c.device),
+                c.valid)
+    return _entry_hashes(c.dictionary, c.device)[c.data.long()], c.valid
+
+
 def hash_partitions(batch: ColumnBatch, key_channels: Sequence[int],
                     m: int) -> torch.Tensor:
-    """Each row's partition in [0, m): the 64-bit hash (uint64 bits in
-    int64, ``kernels.hash_combine``) of the key channels that are not
-    dictionary codes, modulo m as an unsigned number; 0 where one of them
-    is NULL.  Rows of one group agree on any subset of its keys, so when a
-    key is a plain column the dictionary keys are left out; when all are
-    dictionary keys, their values' hashes stand in for the codes."""
+    """Each row's partition in [0, m): ``kernels.partition_assignments``
+    (the 64-bit ``hash_combine`` modulo m as an unsigned number, 0 where a
+    key is NULL) over the key channels that are not dictionary codes.
+    Rows of one group agree on any subset of its keys, so when a key is a
+    plain column the dictionary keys are left out; when all are dictionary
+    keys, their values' hashes stand in for the codes."""
     cols = [batch.columns[ch] for ch in key_channels]
     use = [c for c in cols if c.dictionary is None] or cols
-    datas, null = [], None
-    for c in use:
-        datas.append(c.data if c.dictionary is None else
-                     _entry_hashes(c.dictionary, c.device)[c.data.long()])
-        if c.valid is not None:
-            null = ~c.valid if null is None else (null | ~c.valid)
-    h = K.hash_combine(datas)
-    # unsigned h mod m from the signed bits: 2^64 mod m folds the sign bit
-    # back in
-    part = torch.remainder(h, m)
-    part = torch.where(h < 0, torch.remainder(part + (1 << 64) % m, m), part)
-    if null is not None:
-        part = torch.where(null, 0, part)
-    return part
+    return K.partition_assignments([partition_key_tuple(c) for c in use], m)
 
 
 class LocalExchange:

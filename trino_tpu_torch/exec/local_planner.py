@@ -25,7 +25,16 @@ reserves its buffer in, and whose disk threshold sends a buffer past it
 to a spill file (exec/spill.py).  With
 ``task_concurrency`` > 1, a pipeline whose source is a multi-split scan
 forks into parallel driver chains behind local exchanges
-(:meth:`LocalPlanner._parallelize`).  DistinctLimit raises (not ported).
+(:meth:`LocalPlanner._parallelize`).
+
+Under the distributed runner (execution/distributed_runner.py) a planner
+plans one task of a fragment: ``task_index`` of ``task_count`` takes every
+``task_count``-th split of each scan, and a ``RemoteSource`` reads the
+upstream fragment through ``remote_clients[fragment_id]``: a collective
+exchange (CollectiveSourceOperator), a list of per-producer clients for a
+MERGE edge (MergeSourceOperator) or one ExchangeClient
+(RemoteExchangeSourceOperator).  DistinctLimit (which only
+``planner/add_exchanges`` emits) becomes a DistinctLimitOperator.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from .local_exchange import (GATHER, HASH, LocalExchange,
 from .match_recognize import MatchRecognizeOperator
 from .operators import (
     BufferedInputMixin,
+    DistinctLimitOperator,
     FilterProjectOperator,
     GroupIdOperator,
     HashAggregationOperator,
@@ -93,11 +103,18 @@ class LocalPlanner:
                  encoded_exec: bool = True,
                  hbm_limit_bytes: int = 16 << 30,
                  task_concurrency: int = 1,
-                 spill_to_disk_bytes: int = 0):
+                 spill_to_disk_bytes: int = 0,
+                 task_index: int = 0, task_count: int = 1,
+                 remote_clients: Optional[dict] = None):
         self.catalog = catalog
         self.device = device
         self.splits_per_node = splits_per_node
         self.node_count = node_count
+        # distributed: this task's share of the splits and the exchange
+        # clients per upstream fragment id (filled by the stage scheduler)
+        self.task_index = task_index
+        self.task_count = task_count
+        self.remote_clients = remote_clients or {}
         self.dynamic_filtering = dynamic_filtering
         self.ingest = ingest if ingest is not None else IngestConfig()
         self.encoded_exec = encoded_exec
@@ -212,10 +229,27 @@ class LocalPlanner:
             conn = self.catalog.connector(node.catalog)
             splits = conn.get_splits(node.table, self.splits_per_node,
                                      self.node_count)
-            return [ScanOperator(conn, splits, node.columns, self.device,
+            mine = [s for i, s in enumerate(splits)
+                    if i % self.task_count == self.task_index]
+            return [ScanOperator(conn, mine, node.columns, self.device,
                                  constraint=node.constraint,
                                  limit=node.limit, ingest=self.ingest,
                                  encoded=self.encoded_exec)]
+
+        if isinstance(node, P.RemoteSource):
+            from ..execution.collective_exchange import (
+                CollectiveRepartitionExchange, CollectiveSourceOperator)
+            from ..execution.task import (MergeSourceOperator,
+                                          RemoteExchangeSourceOperator)
+
+            client = self.remote_clients[node.fragment_id]
+            if isinstance(client, CollectiveRepartitionExchange):
+                return [CollectiveSourceOperator(client, self.task_index)]
+            if isinstance(client, list):  # MERGE: per-producer streams
+                return [MergeSourceOperator(
+                    client, node.sort_keys, node.output_names,
+                    node.output_types, self.device)]
+            return [RemoteExchangeSourceOperator(client, self.device)]
 
         if isinstance(node, P.Values):
             return [ValuesOperator(_values_batch(node).to(self.device))]
@@ -360,6 +394,11 @@ class LocalPlanner:
             chain.append(LimitOperator(node.count))
             return chain
 
+        if isinstance(node, P.DistinctLimit):
+            chain = self._chain(node.source)
+            chain.append(DistinctLimitOperator(node.count))
+            return chain
+
         if isinstance(node, P.Output):
             chain = self._chain(node.source)
             chain.append(RenameOperator(node.output_names))
@@ -378,7 +417,12 @@ class LocalPlanner:
                 schema = TableSchema(node.table, tuple(
                     ColumnSchema(n, t) for n, t in
                     zip(node.source.output_names, node.source.output_types)))
-                conn.create_table(schema)
+                try:
+                    conn.create_table(schema)
+                except ValueError:
+                    # parallel writer tasks (scale_writers) race to create
+                    # the target; the first one wins
+                    schema = conn.get_table_schema(node.table)
             # INSERT maps the query's output to table columns by position
             chain.append(RenameOperator([c.name for c in schema.columns]))
             chain.append(TableWriterOperator(

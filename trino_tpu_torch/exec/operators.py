@@ -44,6 +44,7 @@ from ..telemetry import profiler
 from ..ops.expr import SUBQUERY_MULTIPLE_ROWS as ERR_MULTIPLE_ROWS
 from ..ops.expr import (compile_expression, expr_condition_mask,
                         expr_error_scope, reduce_error_lanes)
+from ..planner.add_exchanges import partial_agg_layout
 from ..planner.plan import AggCall, SortKey, WindowFunc
 from ..spi.batch import (Column, ColumnBatch, _object_array, _same_dictionary,
                          as_tensor, encode_sorted_objects, rescale_scaled_int,
@@ -73,6 +74,7 @@ __all__ = [
     "UnionSinkOperator", "UnionSourceOperator", "GroupIdOperator",
     "ReplicateOperator", "WindowOperator", "UnnestOperator",
     "TableFunctionOperator", "BufferedInputMixin", "partial_agg_layout",
+    "DistinctLimitOperator",
     "split_aggregation",
 ]
 
@@ -812,26 +814,6 @@ def _host_copy(batch: ColumnBatch, tag: str) -> ColumnBatch:
     return ColumnBatch(batch.names, [
         Column(c.type, d, None if c.valid is None else next(got),
                c.dictionary) for c, d in zip(batch.columns, data)])
-
-
-def partial_agg_layout(aggs: Sequence[AggCall]) -> list:
-    """Per AggCall, the (state name, state type) columns of its PARTIAL
-    output (the reference's ``planner/add_exchanges.partial_agg_layout``):
-    avg -> (sum, count) with the decimal scale folded into the sum, the
-    variance family -> (sum, sum of squares, count), count -> count, any
-    other -> one column of its own type."""
-    out = []
-    for a in aggs:
-        if a.fn == "avg":
-            out.append([("avg_sum", DOUBLE), ("avg_count", BIGINT)])
-        elif a.fn in STAT_AGGS:
-            out.append([("stat_sum", DOUBLE), ("stat_sumsq", DOUBLE),
-                        ("stat_count", BIGINT)])
-        elif a.fn == "count":
-            out.append([("count", BIGINT)])
-        else:
-            out.append([(a.fn, a.type)])
-    return out
 
 
 def split_aggregation(op: "HashAggregationOperator") -> Optional[tuple]:
@@ -2319,6 +2301,53 @@ class LimitOperator(Operator):
     def is_finished(self) -> bool:
         return ((self.input_done or self._remaining == 0)
                 and self._pending is None)
+
+
+class DistinctLimitOperator(BufferedInputMixin, Operator):
+    """DISTINCT, optionally limited (the reference's DistinctLimitOperator,
+    which ``planner/add_exchanges`` places on both sides of a GATHER): the
+    first row of every distinct row value, in input order.  Group ids come
+    from ``hash_insert`` (``K.hash_row_gids``) over all the columns; they
+    are dense in first-occurrence order, so each group's smallest row
+    index, taken in id order, is already in input order."""
+
+    def __init__(self, count: Optional[int]):
+        self.count = count
+        self._batches: list[ColumnBatch] = []
+        self._result = None
+        self._emitted = False
+
+    def add_input(self, batch: ColumnBatch) -> None:
+        if batch.num_rows:
+            self.buffer(batch)
+
+    def finish_input(self) -> None:
+        super().finish_input()
+        if not self.buffered_batches():
+            self._emitted = True
+            return
+        inp = ColumnBatch.concat(self._batches)
+        n = inp.num_rows
+        row_gid, groups = K.hash_row_gids(
+            [(c.data, c.valid) for c in inp.columns])
+        rows = torch.arange(n, device=inp.device)
+        first = torch.full((groups,), n, dtype=torch.int64,
+                           device=inp.device)
+        first.scatter_reduce_(0, row_gid.long(), rows, "amin")
+        if self.count is not None:
+            first = first[:self.count]
+        self._result = ColumnBatch(inp.names,
+                                   [c.take(first) for c in inp.columns])
+        self.release_memory()
+
+    def get_output(self):
+        if self._result is not None and not self._emitted:
+            self._emitted = True
+            return self._result
+        return None
+
+    def is_finished(self) -> bool:
+        return self.input_done and self._emitted
 
 
 class TableWriterOperator(Operator):

@@ -177,6 +177,7 @@ class QueryStats:
     scan: Optional[ScanIngestStats] = None  # the run's scans, rolled up
     encoding: Optional[EncodingStats] = None  # compressed execution
     sync: Optional[object] = None  # the run's syncguard.SyncStats delta
+    label: str = ""  # a distributed task's "fragment F task T:" heading
 
     def by_operator(self) -> dict[str, float]:
         """Wall seconds summed per operator class name."""
@@ -226,8 +227,8 @@ class QueryStats:
 
     def text(self) -> str:
         """The stats lines of EXPLAIN ANALYZE: the scan and encoding
-        roll-ups, then per operator."""
-        lines = []
+        roll-ups, then per operator (under the label, when there is one)."""
+        lines = [self.label] if self.label else []
         if self.scan is not None and self.scan.scan_batches:
             lines.append("  " + self.scan.text())
         if self.sync is not None and self.sync.host_syncs:

@@ -182,15 +182,21 @@ class Tracer:
             self._local.stack = []
         return self._local.stack
 
-    def span(self, name: str, **attributes) -> _SpanCtx:
-        """Open a span under the current thread's open span.  The
-        reference's ``parent=`` (a task thread nesting under the query
-        span) and ``remote=`` (a worker's subtree shipped back over HTTP)
-        wait for the distributed runner."""
+    def span(self, name: str, parent: Optional[Span] = None,
+             **attributes) -> _SpanCtx:
+        """Open a span.  Default parenting is the current thread's open
+        span; ``parent=`` attaches to an explicit span on another thread
+        (the distributed runner's task threads nesting under the query
+        span).  The reference's ``remote=`` (a worker's subtree shipped
+        back over HTTP) waits for the worker processes."""
         s = Span(name, dict(attributes), time.perf_counter(),
                  span_id=_new_span_id())
         stack = self._stack()
-        if stack:
+        if parent is not None:
+            s.trace_id = parent.trace_id
+            s.parent_id = parent.span_id
+            parent.children.append(s)  # list.append: thread-safe
+        elif stack:
             s.trace_id = stack[-1].trace_id
             s.parent_id = stack[-1].span_id
             stack[-1].children.append(s)
@@ -209,7 +215,10 @@ class Tracer:
             stack.pop()
         if stack:
             return
-        # the thread's outermost span closed: a root
+        # the thread's outermost span closed; one attached to an explicit
+        # cross-thread parent already lives in its parent's subtree
+        if span.parent_id is not None:
+            return
         with self._lock:
             self.finished.append(span)
         if self._exporter is not None:

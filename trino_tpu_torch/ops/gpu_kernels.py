@@ -238,7 +238,8 @@ def _bucket_layout(table_planes, slot_gid, P: int) -> tuple:
 # plain torch versions (the same algorithm, vectorized in rounds)
 
 
-def hash_insert_plain(planes, hash32, live, num_slots: int):
+def hash_insert_plain(planes, hash32, live, num_slots: int,
+                      count_on_device: bool = False):
     """Linear-probing insert in rounds: every unfinished row proposes its
     current slot; an empty slot goes to its lowest proposing row; rows that
     meet an owner with equal planes stop, the rest step to the next slot.
@@ -280,7 +281,9 @@ def hash_insert_plain(planes, hash32, live, num_slots: int):
     buckets[first, 1:P + 1] = planes[:, flag].t()
     row_gid = torch.where(done, buckets[safe, 0],
                           torch.tensor(S, dtype=torch.int32, device=dev))
-    return (row_gid, int(flag.sum()), *_views(buckets, P))
+    count = flag.sum().to(torch.int32)
+    return (row_gid, count if count_on_device else int(count),
+            *_views(buckets, P))
 
 
 def hash_probe_plain(table_planes, slot_gid, planes, hash32, live):
@@ -308,7 +311,8 @@ def hash_probe_plain(table_planes, slot_gid, planes, hash32, live):
 # wrappers
 
 
-def hash_insert(planes, hash32, live: Optional[torch.Tensor], num_slots: int):
+def hash_insert(planes, hash32, live: Optional[torch.Tensor], num_slots: int,
+                count_on_device: bool = False):
     """Build an open-addressing table over ``planes`` [P, N] int32 key
     planes (plane equality == key equality), ``hash32`` [N] int32 slot
     hashes, ``live`` [N] bool (None = all live), all contiguous.
@@ -320,7 +324,9 @@ def hash_insert(planes, hash32, live: Optional[torch.Tensor], num_slots: int):
     ``count`` the number of groups (host int); ``table_planes`` [P, S] and
     ``slot_gid`` [S] (-1 = empty slot) are the table for :func:`hash_probe`,
     views of one [S, W] bucket storage (:func:`bucket_width`).  On the card
-    the count is the call's one device-to-host copy."""
+    the count is the call's one device-to-host copy; with
+    ``count_on_device`` it stays a 0-d int32 tensor on the planes' device
+    and the call reads nothing back."""
     S = int(num_slots)
     if S <= 0 or S & (S - 1) or S > _MAX_SLOTS:
         raise ValueError(f"num_slots must be a power of two <= 2^30, got {S}")
@@ -333,7 +339,7 @@ def hash_insert(planes, hash32, live: Optional[torch.Tensor], num_slots: int):
     if not planes.is_cuda:
         if planes.device.type != "cpu":
             raise ValueError(f"unsupported device {planes.device}")
-        return hash_insert_plain(planes, hash32, live, S)
+        return hash_insert_plain(planes, hash32, live, S, count_on_device)
     dev = planes.get_device()
     if dev != torch.cuda.current_device():
         raise ValueError("inputs must be on the current CUDA device")
@@ -354,7 +360,11 @@ def hash_insert(planes, hash32, live: Optional[torch.Tensor], num_slots: int):
         buckets.shape[1], base, base + 4 * S, row_gid.data_ptr(),
         base + 4 * (S + n), _stream(dev)), "hash_insert")
     _launched("hash_insert")
-    count = int(scratch[S + n + nb].item()) if n else 0
+    if count_on_device:
+        count = (scratch[S + n + nb].clone() if n else
+                 torch.zeros((), dtype=torch.int32, device=planes.device))
+    else:
+        count = int(scratch[S + n + nb].item()) if n else 0
     return (row_gid, count, *_views(buckets, P))
 
 

@@ -39,7 +39,9 @@ The ``Session`` holds what the port acts on: ``default_catalog``,
 revoke their buffers to host memory beyond it), ``spill_to_disk_bytes``
 (an operator's buffered bytes past which it spills them to disk,
 exec/spill.py; 0 = never) and ``task_concurrency`` (parallel drivers
-behind local exchanges), read on every statement.  SET SESSION also
+behind local exchanges), read on every statement, and the distributed
+runner's ``use_collectives``, ``exchange_serde``, ``task_scheduler`` and
+``executor_workers``.  SET SESSION also
 accepts the reference's other properties and stores them unread.  The
 port-only arguments ``ingest`` (an
 ``exec.prefetch.IngestConfig``: split prefetch threads, coalescing into
@@ -135,18 +137,17 @@ class QueryResult:
 # the session
 
 
-# properties of the reference's Session that only its distributed runner
-# reads (not ported yet), with the reference's defaults: SET SESSION accepts
-# them, as the reference's standalone runner does, and keeps the value in
-# ``Session.properties``; nothing in the port reads them
+# properties of the reference's Session that only parts of its distributed
+# runner the port does not have yet read, with the reference's defaults:
+# SET SESSION accepts them, as the reference's standalone runner does, and
+# keeps the value in ``Session.properties``; nothing in the port reads them
 STORED_SESSION_PROPERTIES = {
-    "use_collectives": True, "exchange_serde": False, "retry_policy": "NONE",
+    "retry_policy": "NONE",
     "task_retry_attempts": 2, "query_retry_attempts": 2,
     "retry_initial_delay_s": 0.1, "retry_max_delay_s": 2.0,
     "heartbeat_interval_s": 0.5, "heartbeat_failure_threshold": 3,
     "max_worker_replacements": 2, "exchange_backoff_min_s": 0.05,
     "exchange_backoff_max_s": 2.0, "exchange_max_failure_duration_s": 120.0,
-    "task_scheduler": "THREADS", "executor_workers": 4,
     "query_concurrency": 16, "query_max_queued": 200,
     "fte_speculative": True, "fte_speculative_delay_s": 0.25,
     "fte_memory_growth": 2.0, "speculation": None,
@@ -177,6 +178,14 @@ class Session:
     spill_to_disk_bytes: int = 0
     # parallel drivers per task behind local exchanges
     task_concurrency: int = 1
+    # the distributed runner (execution/distributed_runner.py): REPARTITION
+    # edges between equal task counts as device collectives, host-exchange
+    # pages as wire bytes, tasks on threads or on the time-sharing executor
+    # with ``executor_workers`` workers
+    use_collectives: bool = True
+    exchange_serde: bool = False
+    task_scheduler: str = "THREADS"
+    executor_workers: int = 4
     # active transaction (execution/transaction.py); None = autocommit
     transaction: object = None
     _transaction_manager: object = None
@@ -196,7 +205,8 @@ _PROPERTY_DEFAULTS = dict(STORED_SESSION_PROPERTIES)
 SETTABLE_SESSION_PROPERTIES = {
     "default_catalog", "splits_per_node", "node_count", "dynamic_filtering",
     "hbm_limit_bytes", "spill_to_disk_bytes", "task_concurrency",
-    *_PROPERTY_DEFAULTS}
+    "use_collectives", "exchange_serde", "task_scheduler",
+    "executor_workers", *_PROPERTY_DEFAULTS}
 
 
 def _literal_value(e):

@@ -5,8 +5,9 @@ declared knobs (name, type, default in its environment string form, one
 line of doc) and the same typed accessors, which raise :class:`KeyError`
 on an undeclared name.  Only the rows the port reads are declared: the
 switches and sizes of the cache plane (caching/), the flight recorder's
-level and ring (telemetry/profiler.py) and the query journal
-(telemetry/journal.py).  Both packages read the same variables, so one
+level and ring (telemetry/profiler.py), the query journal
+(telemetry/journal.py) and the exchange's stall watchdog
+(execution/task.py).  Both packages read the same variables, so one
 setting reaches both (a harness that sets ``TRINO_TPU_RESULT_CACHE=0``
 turns the result tier off in each).
 """
@@ -36,6 +37,9 @@ class Knob:
 
 
 _DECLARATIONS = (
+    Knob("TRINO_TPU_EXCHANGE_STALL_S", "float", "1800",
+         "Exchange take() stall watchdog: a source that produces nothing "
+         "for this long fails the take with PAGE_TRANSPORT_TIMEOUT."),
     Knob("TRINO_TPU_EXEC_CACHE", "bool", "1",
          "Tier B executable-registry switch; 0 keeps each memo bounded "
          "but out of the registry and its counters."),

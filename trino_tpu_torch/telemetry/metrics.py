@@ -384,6 +384,12 @@ QUERIES_FAILED = REGISTRY.counter(
     "trino_queries_failed_total", "queries that reached FAILED")
 QUERY_WALL_SECONDS = REGISTRY.distribution(
     "trino_query_wall_seconds", "per-query wall time", lo=1e-3)
+TASKS_CREATED = REGISTRY.counter(
+    "trino_tasks_created_total", "tasks started (in-process or worker)")
+TASKS_FAILED = REGISTRY.counter(
+    "trino_tasks_failed_total", "tasks that reached FAILED")
+TASK_WALL_SECONDS = REGISTRY.distribution(
+    "trino_task_wall_seconds", "per-task wall time", lo=1e-3)
 
 # device memory watermark (the caching allocator of the runner's card)
 DEVICE_MEMORY_IN_USE = REGISTRY.gauge(
