@@ -4,8 +4,9 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10-19, 6, 9, so the kernel phase holds the staged,
-surface, window, nested, parallel and distributed paths' calls too).  The
+the order 1-5, 7, 8, 10-20, 6, 9, so the kernel phase holds the staged,
+surface, window, nested, parallel, distributed and compiled paths' calls
+too).  The
 tpch path
 runs the runner's default scan: dynamic filters, split prefetch threads,
 coalescing into pinned buffers with side-stream copies, RLE / LAZY
@@ -15,8 +16,8 @@ default optimizer, the iterative one:
   2. build the CUDA kernels from trino_tpu_torch/csrc/*.cu (nvcc, sm_90a);
   3. path: the 22 TPC-H queries and the two REAL-sum queries R1, R2 at SF 1
      through StandaloneQueryRunner on cuda over the tpch connector (host
-     generation) -- cold and warm wall time, peak device memory and kernel
-     launches per query; Q1, Q3, Q12, R1 and R2 rows checked against a
+     generation) -- cold wall time (and warm for Q1, Q3, Q12, Q18, Q21, R1,
+     R2), peak device memory and kernel launches per query; Q1, Q3, Q12, R1 and R2 rows checked against a
      plain numpy evaluation on the same generated data;
   4. parity: all 24 queries at SF 0.1 on cuda and on cpu (and numpy for
      the five above);
@@ -42,8 +43,13 @@ default optimizer, the iterative one:
      gives each column that is not a dictionary: two planes, no live
      mask, 5,998,321 rows), labelled "statements"; and the largest
      insert of one of Q18's four partition drivers behind the HASH local
-     exchange (phase 16), labelled "local exchange".  The bound's random table traffic is one 32-byte sector per
-     distinct home slot of the live rows (rows of one key share theirs);
+     exchange (phase 16), labelled "local exchange"; and phase 20's
+     compiled stages, labelled "compiled": Q1's accumulate insert (one
+     batch into its 8192 slots), its seam merge's insert (4 x 8192
+     lanes a task), Q3's resident build insert (orders) and its probe of
+     that build with one lineitem batch.  The bound's random table
+     traffic is one 32-byte sector per distinct home slot of the live
+     rows (rows of one key share theirs);
   7. staging: the eight TPC-H tables at SF 1 into the memory connector on
      cuda (connectors/staging.py: orders and lineitem generated on the
      card, the others from the host generator and pinned), each table's
@@ -56,8 +62,8 @@ default optimizer, the iterative one:
      3's (the REAL sums against the numpy evaluation), then per-operator
      times as in phase 5 for the subset and the three slowest other
      queries;
-  9. SF 10: Q1 and Q3 (the texts of bench.py's QUERIES) over lineitem,
-     orders and customer staged on cuda, cold and warm, with input rows/s
+  9. SF 10: Q1 (the text of bench.py's QUERIES) over lineitem staged on
+     cuda, cold and warm, with input rows/s
      and scanned GB/s from the plans' table scans (held below the HBM
      rate), rows checked against the numpy evaluation of the staged
      columns;
@@ -92,15 +98,15 @@ default optimizer, the iterative one:
      N5 and N9 against a plain numpy / python-int evaluation of the
      arrays the table is built from (exact); per-operator times of N2, N3 and N5 (the
      Unnest and HashAggregation shares); device busy time of one traced
-     run of N2, N3, N4 and N5 (torch.profiler) against its unprofiled warm
+     run of N2 (torch.profiler) against its unprofiled warm
      wall: the idle, host share; and N1-N11 at SF 0.1 on cuda and on cpu,
      rows equal;
  14. ingest: the rows dynamic filters pruned and the bytes copied to the
      card by each of the 24 tpch-path queries (phase 3's cold runs); warm
-     ms of Q1, Q3, Q5, Q12, Q17, Q18 and Q21 under the default,
+     ms of Q1 and Q3 under the default,
      dynamic_filtering=False, IngestConfig(enabled=False) and
      encoded_exec=False in one process, rows equal; one traced warm run of
-     Q1 and Q21 with ingest on and off (torch.profiler): device busy ms,
+     Q1 with ingest on and off (torch.profiler): device busy ms,
      the idle share of the unprofiled warm wall, and host-to-device bytes
      by copy kind, pinned against pageable; it fails if more than 1 % of
      Q1's scan bytes cross from pageable memory with ingest on; and a
@@ -121,13 +127,13 @@ default optimizer, the iterative one:
      dynamic_filtering on the tpch path (Q12 prunes nothing, then again)
      and SHOW TABLES; each step's ms beside the card's name and power
      limit.  Its launches are the kernels line's ``launches_statements``;
- 16. engine: the local exchange (Q1, Q3, Q18, Q21, R1 on the tpch path
+ 16. engine: the local exchange (Q1, R1 on the tpch path
      with task_concurrency = 4 against 1, splits_per_node = 8: rows equal,
      numpy checks, warm ms in turns, hash_insert launches), revocation
-     (Q18, Q21 under a 256 MiB pool against unlimited: rows, revocations,
+     (Q18 under a 256 MiB pool against unlimited: rows, revocations,
      bytes revoked, peak memory), PARTIAL -> FINAL (Q18's lineitem
      group-by over the staged batch against SINGLE, exact), host syncs
-     (EXPLAIN ANALYZE's sync line of Q3 and Q21, syncs now and before the
+     (EXPLAIN ANALYZE's sync line of Q3 and Q12, syncs now and before the
      sync-free probe, a run under SG.forbidden(cuda_sync_debug=True)) and
      the time-sharing executor (Q1, Q3, Q6 at once on two workers against
      run_pipelines).  Its launches are ``launches_engine``;
@@ -135,7 +141,7 @@ default optimizer, the iterative one:
      connector at SF 1.  (a) CTAS of file.customer, file.orders and
      file.lineitem (all columns) from the tpch catalog: seconds, pages,
      bytes on disk against the flat column bytes, the sink's host syncs;
-     Q1, Q3, Q12, Q18 and R1 over the file tables cold and warm: rows
+     Q1, Q3, Q12 and R1 over the file tables cold and warm: rows
      equal phase 3's and the numpy evaluations (Q1, Q3, Q12, R1), bytes
      read and inflated, read / inflate / decode ms per query, the host ms
      of dictionary unification on both paths, the device idle share of
@@ -145,7 +151,7 @@ default optimizer, the iterative one:
      under spill_to_disk_bytes = 1 (the aggregation's state spill): rows
      equal the runs without a budget, pages and bytes spilled (more than
      none), write and read-back ms, the merges' hash_insert launches, the
-     peak above the start and warm ms against no budget in turns.  The
+     peak above the start and the ms of both runs.  The
      file root is removed at the end.  Its launches are
      ``launches_storage``;
  18. telemetry: the staged queries three times with both cache tiers on,
@@ -154,14 +160,25 @@ default optimizer, the iterative one:
      ``launches_telemetry``;
  19. distributed: the distributed runner at SF 1 over the tpch
      connector, four tasks per stage sharing the one card
-     (``distributed()``): the 24 queries cold and warm with rows equal
-     phase 3's, per query the stages, collective and host edges,
-     launches, host syncs by tag and device-to-host bytes; Q1, Q3, Q18,
-     Q21 with collectives on / off in turns; wire-format pages, the MERGE
+     (``distributed()``): the 24 queries, one cold run each, with rows
+     equal phase 3's, per query the stages, collective and host edges,
+     launches, host syncs by tag and device-to-host bytes; Q1 and Q3
+     with collectives on / off in turns; wire-format pages, the MERGE
      exchange, a DistinctLimit plan; the fused Q1 program (q1_step,
      q1_spmd over a 4-shard mesh) against q1_numpy.  Phase 6 adds a
      task's largest insert and q1_step's insert as "distributed" cases.
-     Its launches are ``launches_distributed``.
+     It runs with the compiled stages off (TRINO_TPU_FUSED_STAGE=0,
+     TRINO_TPU_RESIDENT_PLAN=0), the per-operator path PR 15 measured.
+     Its launches are ``launches_distributed``;
+ 20. compiled: the distributed runner at its defaults, fused seams and
+     resident plans on (``compiled()``): the 16 queries that carry one,
+     cold and warm, rows equal phase 3's, per query the seams, plans,
+     fallbacks with their reasons, batches, program calls, first calls
+     of a signature, merges, warm ms and device-to-host bytes of the
+     cold run; kernel launches per accumulate call (a batch of a warm
+     run of Q1 and of Q3 through its sink again under torch.profiler); Q1 and Q3 under SG.forbidden(cuda_sync_debug=True)
+     with no hot-loop sync; Q1, Q3, Q10 default / =0 / =0 / default.
+     Its launches are ``launches_compiled``.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -172,6 +189,7 @@ import contextlib
 import dataclasses
 import datetime
 import decimal
+import faulthandler
 import json
 import math
 import os
@@ -202,6 +220,12 @@ REAL_QUERIES = {
 ORACLE_QUERIES = ("Q1", "Q3", "Q12", "R1", "R2")
 # the per-operator and kernel-capture phases run on this subset only
 CAPTURE_QUERIES = ("Q1", "Q3", "Q12", "Q18", "Q21", "R1", "R2")
+# the tpch path's queries run warm as well as cold in phase 3 (the others
+# were cut to one run to keep the script within its time limit)
+PATH_WARM = CAPTURE_QUERIES
+# phase 5's subset on the tpch path (Q18 and Q21 cut to keep the run within
+# its time limit; phase 8 still times all of CAPTURE_QUERIES staged)
+TPCH_OPERATORS = ("Q1", "Q3", "Q12", "R1", "R2")
 # float tolerances: doubles (averages, ratios) differ only by summation
 # order; a REAL sum is a float32 sum.  The kernel adds in a fixed per-thread
 # then tree order (a numpy model of it is ~2e-7 from the float64 sum at
@@ -221,8 +245,23 @@ PLAIN_VS_F64_RTOL_ROLLUP = 4e-3
 REAL_PARITY_RTOL = 1e-4  # cuda (kernel) vs cpu (plain) at SF 0.1
 
 
+T_START = time.perf_counter()
+# the run must end within 1200 s, the kernels' build included; a run still
+# going at this point prints every thread's stack to stderr and exits 1
+WATCHDOG_S = 1140
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the report, prefixed with the seconds since start."""
+    print(f"[{time.perf_counter() - T_START:7.1f}] {msg}", flush=True)
+
+
+def progress(phase: str) -> None:
+    """The end of a phase, on stderr, so a run cut short shows how far it
+    came."""
+    print(f"chip_smoke: phase {phase} done at "
+          f"{time.perf_counter() - T_START:.1f} s", file=sys.stderr,
+          flush=True)
 
 
 def smi_line() -> str:
@@ -723,14 +762,20 @@ REQUIRED = {"Q3": ["hash_insert"], "Q12": ["hash_probe"],
             "R1": ["masked_segment_sum_f32"],
             "R2": ["masked_segment_sum_f32"]}
 SF10 = 10.0
-SF10_QUERIES = ("Q1", "Q3")  # bench.py's QUERIES (the same texts)
-SF10_TABLES = ("customer", "orders", "lineitem")
+# Q1 of bench.py's QUERIES (the same text); Q3, and the customer and
+# orders staging it needs (30 s of host generation for customer), were cut
+# to keep the run within its time limit
+SF10_QUERIES = ("Q1",)
+SF10_TABLES = ("lineitem",)
 
 
 def run_path(torch, GK, runner, sqls: dict, label: str,
              required: dict = REQUIRED, exact: bool = False,
-             scans: dict = None, warm_launches: dict = None) -> tuple:
-    """Every query cold then warm: rows, (cold ms, warm ms, peak MiB) and
+             scans: dict = None, warm_launches: dict = None,
+             warm_names=None) -> tuple:
+    """Every query cold then warm (with ``warm_names``, only those warm;
+    the others report their cold run's rows and None for warm ms): rows,
+    (cold ms, warm ms, peak MiB) and
     kernel launches per query; fails if a query misses a kernel that
     ``required`` names for it (on the main path, REQUIRED names every
     kernel), and with ``exact`` also if it launches one not named.  With
@@ -748,16 +793,18 @@ def run_path(torch, GK, runner, sqls: dict, label: str,
         torch.cuda.reset_peak_memory_stats()
         st = QueryStats() if scans is not None else None
         t0 = time.perf_counter()
-        runner.execute(sql, stats=st)
+        res = runner.execute(sql, stats=st)
         torch.cuda.synchronize()
         if st is not None:
             scans[name] = st.scan
         cold = (time.perf_counter() - t0) * 1e3
         mid = dict(GK.LAUNCHES)
-        t0 = time.perf_counter()
-        res = runner.execute(sql)
-        torch.cuda.synchronize()
-        warm = (time.perf_counter() - t0) * 1e3
+        warm = None
+        if warm_names is None or name in warm_names:
+            t0 = time.perf_counter()
+            res = runner.execute(sql)
+            torch.cuda.synchronize()
+            warm = (time.perf_counter() - t0) * 1e3
         if warm_launches is not None:
             warm_launches[name] = {k: GK.LAUNCHES[k] - mid[k]
                                    for k in GK.LAUNCHES}
@@ -766,8 +813,9 @@ def run_path(torch, GK, runner, sqls: dict, label: str,
         timings[name] = (cold, warm, peak)
         per_query[name] = {k: GK.LAUNCHES[k] - before[k]
                            for k in GK.LAUNCHES}
+        warm_text = "no warm run" if warm is None else f"warm {warm:.1f} ms"
         log(f"{label} {name}: {len(rows[name])} rows, cold {cold:.1f} ms, "
-            f"warm {warm:.1f} ms, peak device memory {peak:.1f} MiB, "
+            f"{warm_text}, peak device memory {peak:.1f} MiB, "
             f"launches {per_query[name]}")
     launches = dict(GK.LAUNCHES)
     log(f"{label} launches: {launches} "
@@ -835,6 +883,18 @@ class _Program:
 
     def execute(self, _sql):
         return self.fn()
+
+
+class _Off:
+    """A distributed runner in capture_calls' runner slot, run with the
+    compiled stages off (phase 19's path)."""
+
+    def __init__(self, runner):
+        self.runner = runner
+
+    def execute(self, sql):
+        with _compiled_off():
+            return self.runner.execute(sql)
 
 
 def _same_generated(torch, dev_col, host_col, what: str) -> None:
@@ -923,7 +983,7 @@ def scan_stats(runner, sql: str) -> tuple:
 
 def sf10(torch, sqls, default_catalog, stage_memory_tables,
          StandaloneQueryRunner) -> None:
-    """Phase 9: Q1 and Q3 at SF 10 over the tables they read, staged."""
+    """Phase 9: Q1 at SF 10 over lineitem, staged."""
     cat = default_catalog(SF10)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1378,7 +1438,8 @@ NESTED_NUMPY = ("N1", "N2", "N5", "N9")
 NESTED_OPERATORS = ("N2", "N3", "N5")
 # traced, with the top device operations (a subset, so the whole script
 # stays in its time limit)
-NESTED_PROFILE = ("N2", "N3", "N4", "N5")
+# N4 and N5 were cut to make room for phase 20
+NESTED_PROFILE = ("N2",)  # N3 cut to fit the time limit
 NESTED_CAPTURE = ("N3", "N4", "N6", "N9", "N10")  # phase 6's nested insert
 NESTED_TABLES = ("orders", "lineitem", "customer", "part")
 
@@ -1466,8 +1527,11 @@ def nested(torch, GK, QueryStats, StandaloneQueryRunner, default_catalog,
 # phase 14: the scan ingest path on the tpch path
 
 
-INGEST_QUERIES = ("Q1", "Q3", "Q5", "Q12", "Q17", "Q18", "Q21")
-INGEST_PROFILE = ("Q1", "Q21")
+# Q5, Q17 and Q18 were cut from the turns to make room for phase 20, Q12
+# and Q21 (turns and profile) to keep the run within its time limit; Q3's
+# orders build is the large build whose domain the phase checks
+INGEST_QUERIES = ("Q1", "Q3")
+INGEST_PROFILE = ("Q1",)
 PAGEABLE_LIMIT = 0.01  # pageable share of Q1's scan bytes, ingest on
 PINNED = "Memcpy HtoD (Pinned -> Device)"
 PAGEABLE = "Memcpy HtoD (Pageable -> Device)"
@@ -1496,7 +1560,7 @@ def ingest(torch, StandaloneQueryRunner, catalog, sqls: dict,
     """Phase 14: the tpch path's scan ingest at SF 1.  The rows pruned and
     the bytes copied to the card per query (phase 3's cold runs); warm ms
     of INGEST_QUERIES under four settings in one process, rows equal; one
-    traced warm run of Q1 and Q21 with ingest on and off (device busy ms,
+    traced warm run of Q1 with ingest on and off (device busy ms,
     idle share of the unprofiled warm wall, host-to-device bytes by copy
     kind); fails if more than PAGEABLE_LIMIT of Q1's scan bytes cross from
     pageable memory with ingest on; and the first build of more than
@@ -1899,10 +1963,15 @@ def statements(torch, GK, StandaloneQueryRunner, staged_cat, tpch_runner,
 # phase 16: the rest of the single-node engine
 
 
-ENGINE_QUERIES = ("Q1", "Q3", "Q18", "Q21", "R1")
-REVOKE_QUERIES = ("Q18", "Q21")
+# Q18 and Q21 were cut from (a) to make room for phase 20 ((b), (c), (d)
+# keep them)
+# Q3 (local exchange) and Q21 (revocation, host syncs) cut to keep the run
+# within its time limit; R1 launches the phase's segment sums and Q12 in
+# (d) its probes
+ENGINE_QUERIES = ("Q1", "R1")
+REVOKE_QUERIES = ("Q18",)
 REVOKE_LIMIT = 256 << 20  # below Q18's 843 and Q21's 1517 MiB peaks
-SYNC_QUERIES = ("Q3", "Q21")
+SYNC_QUERIES = ("Q3", "Q12")
 EXECUTOR_QUERIES = ("Q1", "Q3", "Q6")
 ENGINE_WAIT_S = 300.0
 
@@ -1924,17 +1993,17 @@ def engine(torch, GK, StandaloneQueryRunner, staged_cat, tpch_runner,
            sqls: dict, numpy_rows: dict, smi: str) -> tuple:
     """Phase 16: the local exchange, revocation, PARTIAL / FINAL
     aggregation, host-sync accounting and the time-sharing executor at SF 1.
-    (a) Q1, Q3, Q18, Q21, R1 on the tpch path with task_concurrency = 4 and
+    (a) Q1 and R1 on the tpch path with task_concurrency = 4 and
     1 (splits_per_node = 8), and 4 with one prefetch thread per scan
-    shard: rows equal, Q1 / Q3 / R1 also the numpy checks; warm ms of the
+    shard: rows equal, Q1 / R1 also the numpy checks; warm ms of the
     settings in turns (1, 4, 4/1t, 4/1t, 4, 1) and the hash_insert
-    launches per query.  (b) Q18 and Q21 with a 256 MiB pool:
-    rows equal the unlimited run; revocations (at least one over the two),
+    launches per query.  (b) Q18 with a 256 MiB pool:
+    rows equal the unlimited run; revocations (at least one),
     bytes revoked and the peak device memory of both, absolute and above
     the memory allocated before the run.  (c) Q18's lineitem group-by (sum(l_quantity) by
     l_orderkey) over the staged batch, fed in 65,536-row slices, as
     PARTIAL -> FINAL (early flushes of FLUSH_ROWS included) against SINGLE:
-    equal on the card.  (d) EXPLAIN ANALYZE's sync line of Q3 and Q21, each
+    equal on the card.  (d) EXPLAIN ANALYZE's sync line of Q3 and Q12, each
     query's host syncs now and before the sync-free probe (now + the probe
     batches that went through the padded expand, each of which cost one
     blocking sync before), and a warm run of each under
@@ -2185,7 +2254,8 @@ def engine(torch, GK, StandaloneQueryRunner, staged_cat, tpch_runner,
 
 
 STORAGE_TABLES = ("customer", "orders", "lineitem")
-STORAGE_QUERIES = ("Q1", "Q3", "Q12", "Q18", "R1")
+# Q18 over the file tables was cut to make room for phase 20
+STORAGE_QUERIES = ("Q1", "Q3", "Q12", "R1")
 STORAGE_REQUIRED = {"Q3": ["hash_insert"], "Q12": ["hash_probe"],
                     "R1": ["masked_segment_sum_f32"]}
 DISK_LIMIT = 64 << 20  # spill_to_disk_bytes of (b)'s first two queries
@@ -2390,7 +2460,7 @@ def _storage(torch, GK, StandaloneQueryRunner, default_catalog, tpch_runner,
                 peaks[key] = (rows, ms, st, merges["insert"],
                               (torch.cuda.max_memory_allocated() - base)
                               / 2**20)
-            want, _, _, _, above_none = peaks["none"]
+            want, ms_none, _, _, above_none = peaks["none"]
             got, cold, st, merge_inserts, above = peaks["budget"]
             worst = same_rows(got, want, f"{label} (b) {name} vs no budget")
             revocations, revoked, pages, nbytes = st.spills()
@@ -2401,10 +2471,6 @@ def _storage(torch, GK, StandaloneQueryRunner, default_catalog, tpch_runner,
                     if o.disk_pages]
             write_ms = sum(o.disk_write_s for o in ops_) * 1e3
             read_ms = sum(o.disk_read_s for o in ops_) * 1e3
-            warm = {"none": [], "budget": []}
-            for key in ("none", "budget", "budget", "none"):
-                warm[key].append(run(tpch_runner if key == "none"
-                                     else spill, texts[name])[1])
             spill_syncs = {k: v for k, v in st.sync.by_tag.items()
                            if k.startswith(("serde.", "agg.spill"))}
             log(f"{label} (b) {name} (spill_to_disk_bytes="
@@ -2418,10 +2484,9 @@ def _storage(torch, GK, StandaloneQueryRunner, default_catalog, tpch_runner,
                 f"spilling {spill_syncs}; "
                 f"{revocations} revocations ({revoked} bytes); merge "
                 f"hash_insert launches {merge_inserts}; peak above the "
-                f"start {above:.1f} MiB against {above_none:.1f}; cold "
-                f"{cold:.1f} ms; warm ms in turns none, budget, budget, "
-                f"none: {warm['none'][0]:.1f}, {warm['budget'][0]:.1f}, "
-                f"{warm['budget'][1]:.1f}, {warm['none'][1]:.1f} [{smi}]")
+                f"start {above:.1f} MiB against {above_none:.1f}; ms with "
+                f"the budget {cold:.1f}, without {ms_none:.1f} (warm runs "
+                f"cut to keep the script within its time limit) [{smi}]")
     finally:
         OPS.HashAggregationOperator._merge_spilled = orig_merge
     launches = dict(GK.LAUNCHES)
@@ -2447,6 +2512,10 @@ TELEMETRY_PROFILED = ("Q3", "Q21")
 TELEMETRY_TURNS = 2  # A B B A rounds of the warm-ms comparisons
 CLONE_REPS = 21
 SYNC_ROUNDS = 2  # rounds of off default default off for the sync counts
+# the tpch-path query under the sync debug mode: Q3 for one round (Q21 for
+# two until cut to keep the run within its time limit)
+TPCH_SYNC_QUERY = "Q3"
+TPCH_SYNC_ROUNDS = 1
 # the tags of exec/'s AsyncScalar reads: each counts a sync only when its
 # copy has not landed by the time the value is needed
 ASYNC_WAIT_TAGS = ("join.expand-overflow", "join.pair-total",
@@ -2766,17 +2835,18 @@ def _telemetry(torch, GK, StandaloneQueryRunner, staged_cat, tpch_cat,
             log(f"{label} (c) {q}: warm ms profile off {rec_off:.2f}, "
                 f"default {rec_on:.2f} ({TELEMETRY_TURNS} rounds a b b a; "
                 f"the cost of recording {rec_on - rec_off:+.2f} ms) [{smi}]")
-        # Q21 under forbidden(cuda_sync_debug=True), synchronous scan, on
-        # the tpch path as phase 16 (d): the default level adds no sync
+        # a query under forbidden(cuda_sync_debug=True), synchronous scan,
+        # on the tpch path as phase 16 (d): the default level adds no sync
+        q = TPCH_SYNC_QUERY
         sync_runner = StandaloneQueryRunner(tpch_cat, device="cuda",
                                             ingest=IngestConfig(enabled=False))
-        sync_runner.execute(sqls["Q21"], stats=QueryStats())  # warm-up
+        sync_runner.execute(sqls[q], stats=QueryStats())  # warm-up
         syncs = _syncs_in_turns(
-            sync_runner, sqls["Q21"], profiler, QueryStats, "p18c_sync_Q21",
-            lambda: SG.forbidden(cuda_sync_debug=True))
+            sync_runner, sqls[q], profiler, QueryStats, f"p18c_sync_{q}",
+            lambda: SG.forbidden(cuda_sync_debug=True), TPCH_SYNC_ROUNDS)
         steady = _same_syncs(syncs["off"], syncs["default"],
-                             f"{label} (c) Q21 forbidden")
-        log(f"{label} (c) Q21 under SG.forbidden(cuda_sync_debug=True), "
+                             f"{label} (c) {q} forbidden")
+        log(f"{label} (c) {q} under SG.forbidden(cuda_sync_debug=True), "
             f"synchronous scan: host syncs a run with the profile off "
             f"{[s.host_syncs for s in syncs['off']]}, at default "
             f"{[s.host_syncs for s in syncs['default']]} (in turns; "
@@ -2826,12 +2896,12 @@ def _hit_profile(runner, sql: str, label: str, reps: int = 20) -> None:
 
 
 def _syncs_in_turns(runner, sql: str, profiler, QueryStats, prefix: str,
-                    scope) -> dict:
+                    scope, rounds: int = SYNC_ROUNDS) -> dict:
     """Each run's SyncStats with the profiler off and at default, in turns
-    off default default off, SYNC_ROUNDS times, each run inside
+    off default default off, ``rounds`` times, each run inside
     ``scope()``; the runs are named ``<prefix>_<level>_<n>``."""
     out: dict = {"off": [], "default": []}
-    for _ in range(SYNC_ROUNDS):
+    for _ in range(rounds):
         for name in ("off", "default", "default", "off"):
             profiler.set_level(0 if name == "off" else 1)
             st = QueryStats()
@@ -2914,8 +2984,10 @@ def _level_scope(profiler, level: int):
 
 
 DIST_WORKERS = 4
-DIST_TURNS = ("Q1", "Q3", "Q18", "Q21")  # collectives on / off in turns
-DIST_SERDE = ("Q3", "Q18")
+# collectives on / off in turns (Q18 and Q21 were cut to make room for
+# phase 20)
+DIST_TURNS = ("Q1", "Q3")
+DIST_SERDE = ("Q3",)  # Q18 cut to keep the run within its time limit
 # through the MERGE exchange: a small result (the producers' streams merged
 # on the host) and one past MergeSourceOperator.MERGE_ROW_LIMIT (sorted
 # again on the card)
@@ -2928,7 +3000,9 @@ DIST_MERGE = {
 }
 DIST_DISTINCT = ("select o_orderpriority, o_orderstatus from orders", 4)
 Q1_MESH = 4
-DIST_CAPTURE = ("Q9", "Q18", "Q21")  # phase 6's largest insert of a task
+# phase 6's largest insert of a task (Q9 and Q18 cut to keep the run
+# within its time limit)
+DIST_CAPTURE = ("Q21",)
 
 
 def _ordered(sql: str) -> bool:
@@ -3021,13 +3095,13 @@ def distributed(torch, GK, default_catalog, tpch_runner, sqls: dict,
                 path_rows: dict, smi: str) -> tuple:
     """Phase 19: the distributed runner on the card, SF 1, four tasks per
     stage sharing the one card (the mesh puts four shards on it, so no
-    interconnect is measured).  (a) the 24 queries cold and warm through
-    DistributedQueryRunner(worker_count=4): rows equal phase 3's
+    interconnect is measured).  (a) the 24 queries, one cold run each
+    (the warm runs were cut to keep the script within its time limit),
+    through DistributedQueryRunner(worker_count=4): rows equal phase 3's
     standalone rows; per query the stages and task counts, the collective
     and host edges, launches by kernel, host syncs by tag and the
-    device-to-host bytes of the cold run (traced); Q1, Q3, Q18, Q21 warm with
-    collectives on, off, off, on (rows equal).  (b) Q3 and Q18 with
-    exchange_serde (rows equal, pages and bytes serialized), ORDER BY
+    device-to-host bytes (traced); Q1 and Q3 warm with collectives on, off, off, on
+    (rows equal).  (b) Q3 with exchange_serde (rows equal, pages and bytes serialized), ORDER BY
     through the MERGE exchange (nation: the heap merge; orders of 1992:
     sorted again on the card) against the standalone runner, and a
     DistinctLimit plan.  (c) the fused Q1 program on make_q1_inputs(1):
@@ -3054,40 +3128,36 @@ def distributed(torch, GK, default_catalog, tpch_runner, sqls: dict,
         f"no interconnect is measured")
     GK.reset_launch_counts()
     # -- (a) the 24 queries ------------------------------------------------
-    warm_ms: dict = {}
+    cold_ms: dict = {}
     for name, sql in sqls.items():
         before = dict(GK.LAUNCHES)
         out = []
-        # the cold run is traced for its device-to-host copies
+        s0 = SG.snapshot()
+        # the run is traced for its device-to-host copies
         copies = copy_bytes(lambda: out.append(_timed(torch, dist, sql)))
         cold, res = out[0]
-        cold_rows = res.rows()
-        s0 = SG.snapshot()
-        warm, res = _timed(torch, dist, sql)
         sync = SG.take_delta(s0)
-        rows = res.rows()
-        warm_ms[name] = warm
+        cold_ms[name] = cold
+        cold_rows = res.rows()
+        rtol = REAL_PARITY_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+        worst = _same_dist(cold_rows, path_rows[name], sql,
+                           f"distributed {name}", rtol)
         launched = {k: GK.LAUNCHES[k] - before[k] for k in GK.LAUNCHES}
         for k in REQUIRED.get(name, ()):
             if launched[k] <= 0:
                 raise AssertionError(f"distributed {name} launched no {k}")
-        rtol = REAL_PARITY_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
-        _same_dist(cold_rows, path_rows[name], sql,
-                   f"distributed {name} cold", rtol)
-        worst = _same_dist(rows, path_rows[name], sql,
-                           f"distributed {name} warm", rtol)
         frags = dist.create_subplan(sql).all_fragments()
         coll, host = _edges(dist, frags)
-        log(f"distributed SF{PATH_SF:g} {name}: {len(rows)} rows equal "
+        log(f"distributed SF{PATH_SF:g} {name}: {len(cold_rows)} rows equal "
             f"phase 3's (largest float rel diff {worst:.3g}), cold "
-            f"{cold:.1f} ms (traced), warm {warm:.1f} ms; stages "
-            f"[{_stages_line(dist, frags)}]; collective edges "
-            f"{['f%d' % f for f in coll]}, host edges {host}; launches "
-            f"(cold + warm) {launched}; warm host syncs {sync.host_syncs} "
+            f"{cold:.1f} ms (traced); stages [{_stages_line(dist, frags)}]; "
+            f"collective edges {['f%d' % f for f in coll]}, host edges "
+            f"{host}; launches {launched}; host syncs {sync.host_syncs} "
             f"{dict(sorted(sync.by_tag.items()))}; device-to-host bytes "
-            f"of the cold run {_dtoh(copies)}")
-    log(f"distributed warm sum {sum(warm_ms.values()):.1f} ms "
-        f"({len(warm_ms)} queries; four tasks share the card)")
+            f"{_dtoh(copies)}")
+    log(f"distributed cold sum {sum(cold_ms.values()):.1f} ms "
+        f"({len(cold_ms)} queries, one run each; four tasks share the "
+        f"card)")
     off = DistributedQueryRunner(
         cat, worker_count=DIST_WORKERS,
         session=Session(node_count=DIST_WORKERS, use_collectives=False),
@@ -3194,6 +3264,270 @@ def distributed(torch, GK, default_catalog, tpch_runner, sqls: dict,
     return launches, dist, b
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the compiled stages (fused seams, resident plans) on the
+# distributed path
+
+
+# the queries whose plan at four tasks carries a fused seam or a resident
+# plan (Q2, Q3, Q10, Q11)
+COMPILED_QUERIES = ("Q1", "Q2", "Q3", "Q4", "Q5", "Q9", "Q10", "Q11", "Q13",
+                    "Q15", "Q17", "Q18", "Q20", "Q21", "R1", "R2")
+COMPILED_PROFILED = ("Q1", "Q3")  # launches per accumulate call
+COMPILED_SYNC = ("Q1", "Q3")  # under SG.forbidden(cuda_sync_debug=True)
+COMPILED_TURNS = ("Q1", "Q3", "Q10")  # default / =0 / =0 / default
+COMPILED_CAPTURE = ("Q1", "Q3")  # phase 6's "compiled" cases
+COMPILED_REQUIRED = ("hash_insert", "hash_probe")
+COMPILED_OFF = (("TRINO_TPU_FUSED_STAGE", "0"),
+                ("TRINO_TPU_RESIDENT_PLAN", "0"))
+COMPILED_KNOBS = ("TRINO_TPU_FUSED_STAGE", "TRINO_TPU_RESIDENT_PLAN",
+                  "TRINO_TPU_FUSED_CAP", "TRINO_TPU_MESH_SHAPE",
+                  "TRINO_TPU_RESIDENT_MAX_FRAGMENTS")
+
+
+@contextlib.contextmanager
+def _compiled_off():
+    """The per-operator path of phase 19: both compiled stages off."""
+    with contextlib.ExitStack() as stack:
+        for name, value in COMPILED_OFF:
+            stack.enter_context(_env_scope(name, value)())
+        yield
+
+
+def _compiled_execs(runner) -> tuple:
+    """(fused seam execs, resident plan execs) of the runner's last query."""
+    from trino_tpu_torch.execution.plan_compiler import ResidentPlanExec
+
+    return (list(runner._fused_edges.values()),
+            [e for e in runner._resident_edges.values()
+             if isinstance(e, ResidentPlanExec)])
+
+
+def _compiled_stats(runner) -> dict:
+    fused, resident = _compiled_execs(runner)
+    st = [e.stats for e in fused] + [e.stats for e in resident]
+    return {"seams": len(fused), "plans": len(resident),
+            "batches": sum(s.batches for s in st),
+            "calls": sum(s.jit_calls for s in st),
+            "first": sum(s.compiles for s in st),
+            "hits": sum(s.cache_hits for s in st),
+            "merges": sum(s.merges for s in st),
+            "code_seams": sum(e.rstats.code_seam_columns for e in resident)}
+
+
+def _launches_per_batch(torch, SG, runner, sql: str,
+                        reps: int = 10) -> tuple:
+    """Device work of one accumulate call: the first batch a sink absorbs
+    in one warm run of ``sql`` is kept, and ``reps`` more calls of that
+    sink on that batch (after the run, on this thread, in a hot region)
+    are traced under torch.profiler.  Returns (rows of the batch, kernels,
+    copies, memsets, device ms, each per call, and the three kernels with
+    the most device time as (name, ms per call))."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from trino_tpu_torch.execution import stage_compiler as SC
+
+    kept: list = []
+    orig = SC._CarriedStateSink.add_input
+
+    def keep(self, batch):
+        if not kept and batch.num_rows:
+            kept.append((self, batch))
+        return orig(self, batch)
+
+    SC._CarriedStateSink.add_input = keep
+    try:
+        runner.execute(sql)
+    finally:
+        SC._CarriedStateSink.add_input = orig
+    torch.cuda.synchronize()
+    if not kept:
+        raise AssertionError("no accumulate call")
+    sink, batch = kept[0]
+    with SG.hot_region():
+        sink._accumulate(batch)  # warm
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        with SG.hot_region():
+            for _ in range(reps):
+                sink._accumulate(batch)
+        torch.cuda.synchronize()
+    out = os.path.join("build", "profiles")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"compiled-{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    count = {c: sum(1 for e in dev if e["cat"] == c)
+             for c in ("kernel", "gpu_memcpy", "gpu_memset")}
+    by_name: dict = {}
+    for e in dev:
+        if e["cat"] == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return (batch.num_rows, count["kernel"] / reps,
+            count["gpu_memcpy"] / reps, count["gpu_memset"] / reps,
+            sum(float(e["dur"]) for e in dev) / reps / 1e3,
+            [(name[:60], us / reps / 1e3) for name, us in top])
+
+
+def compiled(torch, GK, default_catalog, sqls: dict, path_rows: dict,
+             smi: str) -> tuple:
+    """Phase 20: the compiled stages on the card, SF 1 over the tpch
+    connector, DistributedQueryRunner(worker_count=4) at the default knobs
+    (fused seams and resident plans on, TRINO_TPU_FUSED_CAP 8192).  (a)
+    The 16 queries whose plan carries a fused seam or a resident plan,
+    cold and warm: rows equal phase 3's; per query the fused seams,
+    resident plans, fallbacks (with the reason), batches, program calls,
+    first calls of a signature, merges, warm ms and the device-to-host
+    bytes of the cold run (traced); hash_insert and hash_probe must
+    launch.  (b) Kernel launches per accumulate call: the first batch of
+    one warm run of Q1 and of Q3 through its sink again (torch.profiler).  (c) Q1 and Q3 once more under
+    SG.forbidden(cuda_sync_debug=True) on a runner whose tasks share one
+    time-sharing worker and scan synchronously (no other thread touches
+    the card while a hot region runs): no hot-loop sync.  (d) Q1, Q3 and
+    Q10 warm in turns, default / =0 / =0 / default.  Returns the phase's
+    launches and the runner for phase 6's "compiled" cases."""
+    t_phase = time.perf_counter()
+    from trino_tpu_torch.exec import syncguard as SG
+    from trino_tpu_torch.exec.prefetch import IngestConfig
+    from trino_tpu_torch.execution.distributed_runner import (
+        DistributedQueryRunner)
+    from trino_tpu_torch.runner import Session
+    from trino_tpu_torch.tools.window_profile import copy_bytes
+
+    set_knobs = {k: os.environ[k] for k in COMPILED_KNOBS if k in os.environ}
+    if set_knobs:
+        raise AssertionError(f"phase 20 runs the default knobs: {set_knobs}")
+    cat = default_catalog(PATH_SF)
+    dist = DistributedQueryRunner(
+        cat, worker_count=DIST_WORKERS,
+        session=Session(node_count=DIST_WORKERS), device="cuda")
+    log(f"compiled: {DIST_WORKERS} tasks per stage share one card ({smi}); "
+        "fused seams and resident plans at their defaults")
+    # -- (a) the 16 queries -------------------------------------------------
+    GK.reset_launch_counts()
+    warm_ms: dict = {}
+    fallbacks: dict = {}
+    for name in COMPILED_QUERIES:
+        sql = sqls[name]
+        before = dict(GK.LAUNCHES)
+        out = []
+        copies = copy_bytes(lambda: out.append(_timed(torch, dist, sql)))
+        cold, res = out[0]
+        cold_rows = res.rows()
+        cold_st, cold_fb = _compiled_stats(dist), dist.last_fallback
+        s0 = SG.snapshot()
+        warm, res = _timed(torch, dist, sql)
+        sync = SG.take_delta(s0)
+        st, fb = _compiled_stats(dist), dist.last_fallback
+        rows = res.rows()
+        warm_ms[name] = warm
+        launched = {k: GK.LAUNCHES[k] - before[k] for k in GK.LAUNCHES}
+        rtol = REAL_PARITY_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+        _same_dist(cold_rows, path_rows[name], sql,
+                   f"compiled {name} cold", rtol)
+        worst = _same_dist(rows, path_rows[name], sql,
+                           f"compiled {name} warm", rtol)
+        if fb is not None:
+            fallbacks[name] = fb
+        if not (st["seams"] or st["plans"] or fb is not None):
+            raise AssertionError(f"compiled {name}: no fused seam, no "
+                                 "resident plan, no fallback")
+        log(f"compiled SF{PATH_SF:g} {name}: {len(rows)} rows equal phase "
+            f"3's (largest float rel diff {worst:.3g}); fused seams "
+            f"{st['seams']}, resident plans {st['plans']} "
+            f"({st['code_seams']} code-seam columns); fallback "
+            f"{'none' if fb is None else repr(fb)}"
+            f"{'' if cold_fb == fb else f' (cold: {cold_fb!r})'}; warm: "
+            f"{st['batches']} batches in {st['calls']} program calls, "
+            f"{st['first']} first calls of a signature / {st['hits']} "
+            f"repeats, {st['merges']} merges; cold: {cold_st['first']} "
+            f"first calls of {cold_st['calls']}; cold {cold:.1f} ms "
+            f"(traced), warm {warm:.1f} ms ({smi}); launches (cold + warm) "
+            f"{launched}; warm host syncs {sync.host_syncs} "
+            f"{dict(sorted(sync.by_tag.items()))}; device-to-host bytes of "
+            f"the cold run {_dtoh(copies)}")
+    launches = dict(GK.LAUNCHES)
+    for k in COMPILED_REQUIRED:
+        if launches[k] <= 0:
+            raise AssertionError(f"the compiled path launched no {k}")
+    log(f"compiled warm sum {sum(warm_ms.values()):.1f} ms "
+        f"({len(warm_ms)} queries); fallbacks {len(fallbacks)}: "
+        f"{sorted(fallbacks)}; launches {launches}; (a) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # -- (b) launches per accumulate call -----------------------------------
+    for name in COMPILED_PROFILED:
+        rows, kernels, copies, sets, dev_ms, top = _launches_per_batch(
+            torch, SG, dist, sqls[name])
+        if kernels <= 0 and torch.cuda.is_available():
+            raise AssertionError(f"compiled {name}: no kernel in the trace "
+                                 "of an accumulate call")
+        log(f"compiled {name}: one accumulate call (the first batch of a "
+            f"warm run, {rows} rows, traced 10 times with torch.profiler) "
+            f"launches {kernels:.1f} kernels, {copies:.1f} copies and "
+            f"{sets:.1f} memsets on the device, {dev_ms:.3f} device ms "
+            f"(summed); most device time: "
+            + "; ".join(f"{n} {ms:.3f} ms" for n, ms in top))
+    t_part = time.perf_counter()
+    # -- (c) no hot-loop sync under the sync debug mode ---------------------
+    sync_runner = DistributedQueryRunner(
+        cat, worker_count=DIST_WORKERS, device="cuda",
+        ingest=IngestConfig(enabled=False),
+        session=Session(node_count=DIST_WORKERS,
+                        task_scheduler="TIME_SHARING", executor_workers=1))
+    for name in COMPILED_SYNC:
+        sql = sqls[name]
+        sync_runner.execute(sql)  # warm: first calls, caches
+        torch.cuda.synchronize()
+        s0 = SG.snapshot()
+        with SG.forbidden(cuda_sync_debug=True):
+            res = sync_runner.execute(sql)
+            torch.cuda.synchronize()
+        sync = SG.take_delta(s0)
+        st = _compiled_stats(sync_runner)
+        if sync.hot_loop_syncs or not (st["seams"] or st["plans"]):
+            raise AssertionError(f"compiled {name} (c): {sync.text()}, {st}")
+        _same_dist(res.rows(), path_rows[name], sql,
+                   f"compiled {name} (c)", DOUBLE_RTOL)
+        log(f"compiled {name} (c): a run under SG.forbidden(cuda_sync_debug"
+            f"=True) (one time-sharing worker, synchronous scan) made no "
+            f"blocking sync in a hot region: {sync.text()}")
+    del sync_runner
+    log(f"compiled (c): {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+    # -- (d) default against =0 in turns -------------------------------------
+    for name in COMPILED_TURNS:
+        sql = sqls[name]
+        times, outs, execs = [], [], []
+        for on in (True, False, False, True):
+            with contextlib.ExitStack() as stack:
+                if not on:
+                    stack.enter_context(_compiled_off())
+                ms, res = _timed(torch, dist, sql)
+            times.append(ms)
+            outs.append(res.rows())
+            execs.append(any(_compiled_execs(dist)))
+        if execs[1] or execs[2]:
+            raise AssertionError(f"compiled {name}: =0 compiled a stage")
+        for o in outs[1:]:
+            _same_dist(o, outs[0], sql, f"compiled {name} default vs =0",
+                       DOUBLE_RTOL)
+        log(f"compiled {name} warm ms, default / =0 / =0 / default "
+            f"({smi}): {' / '.join(f'{t:.1f}' for t in times)}; "
+            f"fallback {dist.last_fallback!r} on the last default run")
+    log(f"compiled (d): {time.perf_counter() - t_part:.1f} s")
+    log(f"compiled: {time.perf_counter() - t_phase:.1f} s for phase 20")
+    return launches, dist
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -3271,6 +3605,28 @@ def kernel_cases(torch, GK, captured) -> list:
     cases.append(("hash_insert", "distributed: q1_step insert (fused Q1, "
                   "8 slots)", pick("distributed q1_step", "hash_insert",
                                    lambda c: True)))
+    # the compiled stages (phase 20): Q1's accumulate groups a batch into
+    # its 8192 slots and merges 2 x 8192 state rows; the seam merge
+    # combines 4 x 8192 lanes a task; Q3's resident builds index int64
+    # keys (two planes) and its lineitem batches probe the orders build
+    cap = 8192
+    cases += [
+        ("hash_insert", "compiled: Q1 accumulate insert (one batch, cap "
+         f"{cap})", pick("compiled Q1", "hash_insert",
+                         lambda c: c[0].shape[1] not in (2 * cap,
+                                                         DIST_WORKERS * cap))),
+        ("hash_insert", f"compiled: Q1 seam merge insert ({DIST_WORKERS} x "
+         f"{cap} lanes)", pick("compiled Q1", "hash_insert",
+                               lambda c: c[0].shape[1] == DIST_WORKERS * cap)),
+        ("hash_insert", "compiled: Q3 resident build insert (orders)",
+         pick("compiled Q3", "hash_insert", lambda c: c[0].shape[0] == 2)),
+        ("hash_probe", "compiled: Q3 resident probe of the orders build "
+         "(one lineitem batch)",
+         max(captured.get(("compiled Q3", "hash_probe"), [None]),
+             key=lambda c: (c[1].shape[0], c[2].shape[1]) if c else (0, 0))),
+    ]
+    if cases[-1][2] is None:
+        raise AssertionError("no captured hash_probe call of compiled Q3")
     return cases
 
 
@@ -3288,13 +3644,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     from trino_tpu_torch.caching import result_cache
     from trino_tpu_torch.connectors.tpch_queries import QUERIES
     from trino_tpu_torch.ops import gpu_kernels as GK
 
     sqls = {f"Q{q}": QUERIES[q] for q in sorted(QUERIES)}
     sqls.update(REAL_QUERIES)
-    t_start = time.perf_counter()
+    t_start = T_START
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {smi}")
@@ -3313,6 +3670,7 @@ def main() -> int:
         return _main(torch, GK, result_cache, executing, smi, kind, sqls,
                      t_start)
     finally:
+        faulthandler.cancel_dump_traceback_later()
         executing.close()
         shutil.rmtree(journal_dir, ignore_errors=True)
 
@@ -3333,12 +3691,14 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
     GK.build_library(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc trino_tpu_torch/csrc/*.cu, one process per source)")
+    progress("2 (build)")
 
     # -- 3. path: SF 1 on cuda ---------------------------------------------
     runner = StandaloneQueryRunner(default_catalog(PATH_SF), device="cuda")
     scans: dict = {}
     path_rows, _, launches = run_path(torch, GK, runner, sqls,
-                                      f"path SF{PATH_SF:g}", scans=scans)
+                                      f"path SF{PATH_SF:g}", scans=scans,
+                                      warm_names=PATH_WARM)
     t0 = time.perf_counter()
     read1 = host_reader(runner.catalog.connector("tpch"))
     numpy_rows = {}
@@ -3350,6 +3710,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
         log(f"path SF{PATH_SF:g} {name}: rows equal the numpy evaluation "
             f"(largest float rel diff {worst:.3g}, limit {rtol:g})")
     log(f"numpy evaluations: {time.perf_counter() - t0:.1f} s")
+    progress("3 (path)")
 
     # -- 4. parity: SF 0.1, cuda vs cpu (vs numpy) ---------------------------
     t0 = time.perf_counter()
@@ -3373,12 +3734,15 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
             f"and cpu{msg} (largest float rel diff {worst:.3g})")
     log(f"parity: {time.perf_counter() - t0:.1f} s")
     del cat, r_gpu, r_cpu
+    progress("4 (parity)")
 
     # -- 5. per-operator time (synchronized after every operator call) -----
-    per_operator(QueryStats, runner, sqls, f"SF{PATH_SF:g}")
+    per_operator(QueryStats, runner, sqls, f"SF{PATH_SF:g}", TPCH_OPERATORS)
+    progress("5 (operators)")
 
     # -- 7. staging: SF 1 into memory on cuda ------------------------------
     staged_cat = stage_sf1(torch, default_catalog, stage_memory_tables)
+    progress("7 (staging)")
 
     # -- 8. the staged path: memory tables, one split ----------------------
     staged = StandaloneQueryRunner(staged_cat, device="cuda",
@@ -3403,43 +3767,52 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
                      key=lambda n: -staged_times[n][1])[:3]
     per_operator(QueryStats, staged, sqls, f"staged SF{PATH_SF:g}",
                  CAPTURE_QUERIES + tuple(slowest))
+    progress("8 (staged)")
 
     # -- 10. optimizers: legacy vs iterative over the staged tables --------
     t0 = time.perf_counter()
     optimizers(torch, StandaloneQueryRunner, staged_cat, runner.catalog,
                sqls)
     log(f"optimizers: {time.perf_counter() - t0:.1f} s")
+    progress("10 (optimizers)")
 
     # -- 11. surface: set operations, grouping sets, outer joins, functions
     surface_launches = surface(torch, GK, QueryStats, StandaloneQueryRunner,
                                default_catalog, staged_cat)
+    progress("11 (surface)")
 
     # -- 12. windows: window functions and MATCH_RECOGNIZE ------------------
     window_launches = windows(torch, GK, QueryStats, StandaloneQueryRunner,
                               default_catalog, staged_cat)
+    progress("12 (windows)")
 
     # -- 13. nested types, long decimals, JSON, table functions ------------
     nested_launches = nested(torch, GK, QueryStats, StandaloneQueryRunner,
                              default_catalog, staged_cat)
+    progress("13 (nested)")
 
     # -- 14. the scan ingest path on the tpch path --------------------------
     ingest(torch, StandaloneQueryRunner, runner.catalog, sqls, scans,
            staged_cat)
+    progress("14 (ingest)")
 
     # -- 15. the statements a session sends besides queries ----------------
     statement_launches = statements(torch, GK, StandaloneQueryRunner,
                                     staged_cat, runner, smi,
                                     path_rows["Q12"])
+    progress("15 (statements)")
 
     # -- 16. the rest of the single-node engine ----------------------------
     engine_launches, parallel = engine(torch, GK, StandaloneQueryRunner,
                                        staged_cat, runner, sqls, numpy_rows,
                                        smi)
+    progress("16 (engine)")
 
     # -- 17. the wire format, the disk tier of spill, the file connector ---
     storage_launches = storage(torch, GK, StandaloneQueryRunner,
                                default_catalog, runner, sqls, path_rows,
                                numpy_rows, smi)
+    progress("17 (storage)")
 
     # -- 18. the telemetry plane, the plan and result caches, the system
     # connector: the caches on
@@ -3453,10 +3826,20 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
                                    staged_cat, runner.catalog, sqls,
                                    staged_rows, staged_warm, smi)
     executing.enter_context(result_cache.disabled())
+    progress("18 (telemetry)")
 
     # -- 19. the distributed runner, the collective exchange, fused Q1 ------
-    distributed_launches, dist, q1_batch = distributed(
-        torch, GK, default_catalog, runner, sqls, path_rows, smi)
+    # on the per-operator path, as PR 15 measured it (phase 20 takes the
+    # compiled stages, the default)
+    with _compiled_off():
+        distributed_launches, dist, q1_batch = distributed(
+            torch, GK, default_catalog, runner, sqls, path_rows, smi)
+    progress("19 (distributed)")
+
+    # -- 20. the compiled stages: fused seams and resident plans ------------
+    compiled_launches, compiled_dist = compiled(
+        torch, GK, default_catalog, sqls, path_rows, smi)
+    progress("20 (compiled)")
 
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
@@ -3475,8 +3858,10 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
            for name in NESTED_CAPTURE]
         + [("statements ANALYZE", staged, f"analyze {ANALYZE_CASE}"),
            ("engine Q18", parallel, sqls["Q18"])]
-        + [(f"distributed {name}", dist, sqls[name])
+        + [(f"distributed {name}", _Off(dist), sqls[name])
            for name in DIST_CAPTURE]
+        + [(f"compiled {name}", compiled_dist, sqls[name])
+           for name in COMPILED_CAPTURE]
         + [("distributed q1_step",
             _Program(lambda: bench_q1_step(q1_batch)), None)])
     staged.execute(f"drop table {ANALYZE_CASE}")
@@ -3528,6 +3913,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
             "launches_storage": storage_launches[kernel],
             "launches_telemetry": telemetry_launches[kernel],
             "launches_distributed": distributed_launches[kernel],
+            "launches_compiled": compiled_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],
@@ -3537,12 +3923,14 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
         entry["max_abs_err"] = max(entry["max_abs_err"], res["err"])
         entry["cases"].append(case)
     del captured, cases, args, res, staged, staged_cat, runner, parallel
-    del dist, q1_batch
+    del dist, q1_batch, compiled_dist
     torch.cuda.empty_cache()
+    progress("6 (kernels)")
 
     # -- 9. SF 10: Q1 and Q3 over staged tables -----------------------------
     sf10(torch, sqls, default_catalog, stage_memory_tables,
          StandaloneQueryRunner)
+    progress("9 (SF 10)")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)

@@ -35,9 +35,10 @@ from trino_tpu_torch.execution.distributed_runner import (
 from trino_tpu_torch.parallel.distributed import make_mesh
 from trino_tpu_torch.planner import optimizer as PO
 from trino_tpu_torch.runner import Session
+from trino_tpu_torch.spi import batch as B
 from trino_tpu_torch.spi.batch import Column, ColumnBatch
 from trino_tpu_torch.spi.errors import PAGE_TRANSPORT_TIMEOUT, TrinoError
-from trino_tpu_torch.spi.types import BIGINT
+from trino_tpu_torch.spi.types import BIGINT, DOUBLE, VARCHAR
 
 SF = 0.01
 PINS = (("TRINO_TPU_HASH_IMPL", "sort"), ("TRINO_TPU_PALLAS", "0"),
@@ -254,3 +255,116 @@ def test_runner_mesh_is_the_runner_device(monkeypatch):
         assert list(edge.mesh) == [port.device] * 4
     assert sum(r[1] for r in rows) == port.execute(
         "select count(*) from lineitem").rows()[0][0]
+
+
+# a filter on the partition key leaves most consumer shards with lanes but
+# no live row (tests/test_shape_stress.py::test_empty_partitions_on_mesh):
+# every buffering operator behind the edge must take such a shard
+EMPTY_SHARDS = {
+    "window_count": ("select o_custkey, count(*) over (partition by "
+                     "o_custkey) from orders where o_custkey = 1", False),
+    "ranking": ("select o_custkey, o_orderkey, row_number() over "
+                "(partition by o_custkey order by o_orderkey), rank() over "
+                "(partition by o_custkey order by o_orderdate), "
+                "lag(o_totalprice) over (partition by o_custkey order by "
+                "o_orderkey) from orders where o_custkey in (1, 2, 4)",
+                False),
+    "order_limit": ("select o_custkey, o_orderkey, count(*) over "
+                    "(partition by o_custkey) from orders "
+                    "where o_custkey = 1 order by o_orderkey limit 3", True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EMPTY_SHARDS))
+def test_shards_without_live_rows_match_reference(runners, name):
+    sql, ordered = EMPTY_SHARDS[name]
+    port, ref = runners
+    got = port.execute(sql).rows()
+    want = ref.execute(sql).rows()
+    assert port._collective_edges
+    assert got and len(got) == len(want)
+    _same(got, want, ordered)
+
+
+def _dead_batch(n: int = 8) -> ColumnBatch:
+    return ColumnBatch(["k", "s", "x"], [
+        Column(BIGINT, torch.arange(n)),
+        Column(VARCHAR, torch.zeros(n, dtype=torch.int32), None,
+               np.array(["a"], dtype=object)),
+        Column(DOUBLE, torch.ones(n, dtype=torch.float64))],
+        torch.zeros(n, dtype=torch.bool))
+
+
+def _match_recognize_operator():
+    from trino_tpu_torch.connectors.window_queries import m1_text
+    from trino_tpu_torch.exec.match_recognize import MatchRecognizeOperator
+    from trino_tpu_torch.planner.plan import MatchRecognize
+    from trino_tpu_torch.runner import StandaloneQueryRunner
+
+    plan = StandaloneQueryRunner(default_catalog(SF), device="cpu"
+                                 ).create_plan(m1_text("orders"))
+    stack = [plan]
+    while not isinstance(stack[-1], MatchRecognize):
+        stack.extend(stack.pop().children)
+    node = stack[-1]
+    width = len(node.source.output_types)
+    cols = [Column(t, torch.zeros(8, dtype=torch.int32), None,
+                   np.array(["a"], dtype=object))
+            if t.is_dictionary_encoded else
+            Column(t, torch.zeros(8, dtype=B.torch_dtype(t.storage_dtype)))
+            for t in node.source.output_types]
+    batch = ColumnBatch(list(node.source.output_names), cols,
+                        torch.zeros(8, dtype=torch.bool))
+    assert batch.num_columns == width
+    return MatchRecognizeOperator(
+        node.partition_channels, node.order_keys, node.pattern,
+        node.defines, node.measures, node.skip_past, node.output_names,
+        node.output_types, node.source.output_names), batch
+
+
+def _buffering_operator(kind: str):
+    from trino_tpu_torch.exec import operators as O
+    from trino_tpu_torch.planner.plan import AggCall, SortKey, WindowFunc
+
+    types = [BIGINT, VARCHAR, DOUBLE, BIGINT, DOUBLE]
+    aggs = [AggCall("count", -1, BIGINT), AggCall("sum", 2, DOUBLE)]
+    if kind.startswith("aggregation"):
+        step = kind.split("_")[1].upper()
+        if step == "FINAL":
+            aggs = [AggCall("count", 0, BIGINT), AggCall("sum", 2, DOUBLE)]
+        return O.HashAggregationOperator(
+            [1], aggs, ["s", "c", "x"], [VARCHAR, BIGINT, DOUBLE], step), \
+            _dead_batch()
+    if kind == "sort":
+        return O.SortOperator([SortKey(0)]), _dead_batch()
+    if kind == "topn":
+        return O.TopNOperator(3, [SortKey(2, False)]), _dead_batch()
+    if kind == "distinct_limit":
+        return O.DistinctLimitOperator(3), _dead_batch()
+    if kind == "window":
+        return O.WindowOperator(
+            [0], [SortKey(2)], [WindowFunc("row_number", (), BIGINT),
+                                WindowFunc("lag", (2,), DOUBLE)],
+            ["k", "s", "x", "r", "l"], types), _dead_batch()
+    if kind == "join_build":
+        bridge = O.JoinBridge()
+        return O.JoinBuildSink(bridge, [0], types[:3], ["k", "s", "x"],
+                               "cpu"), _dead_batch()
+    return _match_recognize_operator()
+
+
+@pytest.mark.parametrize("kind", [
+    "aggregation_single", "aggregation_partial", "aggregation_final",
+    "sort", "topn", "distinct_limit", "window", "join_build",
+    "match_recognize"])
+def test_buffering_operator_takes_a_shard_without_live_rows(kind):
+    """A collective shard has lanes but may have no live row: each
+    buffering operator finishes on one and emits no live row."""
+    op, batch = _buffering_operator(kind)
+    op.add_input(batch)
+    op.finish_input()
+    outs = [op.get_output() for _ in range(3)]
+    rows = [r for o in outs if o is not None for r in o.to_pylist()]
+    assert rows == []
+    if kind == "join_build":
+        assert op.bridge.batch.num_rows == 0 and op.bridge.table is not None

@@ -10,9 +10,11 @@ text.  Then the cases of the reference's tests/test_distributed.py,
 tests/test_merge_exchange.py and test_parallel.py's distributed one, a
 DistinctLimit plan, the time-sharing scheduler, wire-format pages, the
 task lifecycle's telemetry and what the slice refuses.  The reference is
-pinned as ROADMAP "Pinning the reference" says, with its compiled stages
-off (``TRINO_TPU_FUSED_STAGE=0``, ``TRINO_TPU_RESIDENT_PLAN=0``): the port
-runs every edge as the reference does then.
+pinned as ROADMAP "Pinning the reference" says, with the compiled stages
+off (``TRINO_TPU_FUSED_STAGE=0``, ``TRINO_TPU_RESIDENT_PLAN=0``), which
+both packages read: each runs every edge on the per-operator and
+collective path (tests/test_torch_fused_stage.py and
+tests/test_torch_resident_plan.py hold the compiled stages).
 """
 
 import dataclasses

@@ -17,11 +17,20 @@ import numpy as np
 import pytest
 import torch
 
+from trino_tpu.connectors.catalog import default_catalog as ref_catalog
 from trino_tpu.execution import exchange as RX
 from trino_tpu.execution import task as RT
+from trino_tpu.execution.distributed_runner import (
+    DistributedQueryRunner as RefDist)
+from trino_tpu.runner import Session as RefSession
 from trino_tpu.spi import batch as RB
 from trino_tpu.spi import types as RTY
+from trino_tpu_torch.caching import result_cache
+from trino_tpu_torch.connectors.catalog import default_catalog
 from trino_tpu_torch.exec import syncguard as SG
+from trino_tpu_torch.execution.distributed_runner import (
+    DistributedQueryRunner)
+from trino_tpu_torch.runner import Session
 from trino_tpu_torch.execution import exchange as PX
 from trino_tpu_torch.execution import task as PT
 from trino_tpu_torch.spi import batch as PB
@@ -296,3 +305,33 @@ def test_stall_watchdog_is_a_declared_knob(monkeypatch):
     assert PT.STALL_TIMEOUT_S == PK.get_float(name) == RT.STALL_TIMEOUT_S
     monkeypatch.setenv(name, "7.5")
     assert PK.get_float(name) == 7.5
+
+
+SELF_JOIN = ("select n1.n_name, n2.n_name, n1.n_nationkey, n2.n_nationkey "
+             "from nation n1 join nation n2 "
+             "on n1.n_regionkey = n2.n_regionkey{} order by 3, 4")
+
+
+@pytest.mark.parametrize("residual", [False, True],
+                         ids=["equi", "residual"])
+def test_serialized_self_join_pages_keep_both_sides(monkeypatch, residual):
+    """A self-join's output has two columns of each name: pages through
+    the host exchange as wire bytes must decode them by position."""
+    for k, v in (("TRINO_TPU_HASH_IMPL", "sort"), ("TRINO_TPU_PALLAS", "0"),
+                 ("TRINO_TPU_RESULT_CACHE", "0"), ("TRINO_TPU_HBO", "0"),
+                 ("TRINO_TPU_OPTIMIZER", "iterative"),
+                 ("TRINO_TPU_FUSED_STAGE", "0"),
+                 ("TRINO_TPU_RESIDENT_PLAN", "0")):
+        monkeypatch.setenv(k, v)
+    sql = SELF_JOIN.format(" and n1.n_nationkey < n2.n_nationkey"
+                           if residual else "")
+    port = DistributedQueryRunner(
+        default_catalog(0.01), worker_count=3,
+        session=Session(node_count=3, exchange_serde=True), device="cpu")
+    ref = RefDist(ref_catalog(scale_factor=0.01), worker_count=3,
+                  session=RefSession(node_count=3, exchange_serde=True))
+    with result_cache.disabled():
+        got = port.execute(sql).rows()
+    want = ref.execute(sql).rows()
+    assert got == want and len(got) == (50 if residual else 125)
+    assert any(a != b for a, b, _, _ in got)

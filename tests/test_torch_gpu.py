@@ -978,6 +978,8 @@ def test_collective_exchange_on_card_equals_cpu(cuda, monkeypatch, tiled):
 
     if tiled:
         monkeypatch.setattr(CE, "TILED_THRESHOLD_ROWS", 0)
+    # the compiled stages would take these queries' seams off the edge
+    monkeypatch.setenv("TRINO_TPU_FUSED_STAGE", "0")
     cat = default_catalog(0.01)
     rows = {}
     for dev in ("cpu", "cuda"):
@@ -993,3 +995,39 @@ def test_collective_exchange_on_card_equals_cpu(cuda, monkeypatch, tiled):
             for x, y in zip(a, b):
                 assert (x == pytest.approx(y, rel=1e-9)
                         if isinstance(y, float) else x == y), (a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 3])
+def test_compiled_stages_on_card_equal_cpu(cuda, monkeypatch, q):
+    """Q1's fused seam and Q3's resident plan at their defaults on the
+    card: the rows of the CPU run, the same compiled edges, no fallback,
+    and the accumulate, build and probe launching the hash kernels."""
+    from trino_tpu_torch.execution.distributed_runner import (
+        DistributedQueryRunner)
+    from trino_tpu_torch.runner import Session
+
+    for k in ("TRINO_TPU_FUSED_STAGE", "TRINO_TPU_RESIDENT_PLAN",
+              "TRINO_TPU_FUSED_CAP"):
+        monkeypatch.delenv(k, raising=False)
+    cat = default_catalog(0.01)
+    rows, edges = {}, {}
+    for dev in ("cpu", "cuda"):
+        dist = DistributedQueryRunner(cat, worker_count=4, device=dev,
+                                      session=Session(node_count=4))
+        before = dict(GK.LAUNCHES)
+        rows[dev] = dist.execute(QUERIES[q]).rows()
+        edges[dev] = (sorted(dist._fused_edges),
+                      sorted(dist._resident_edges))
+        assert dist._fused_edges or dist._resident_edges
+        assert dist.fused_fallbacks == dist.resident_fallbacks == 0
+        if dev == "cuda":
+            assert GK.LAUNCHES["hash_insert"] > before["hash_insert"]
+            if q == 3:
+                assert GK.LAUNCHES["hash_probe"] > before["hash_probe"]
+    assert edges["cuda"] == edges["cpu"]
+    assert len(rows["cuda"]) == len(rows["cpu"]) > 0
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        for x, y in zip(a, b):
+            assert (x == pytest.approx(y, rel=1e-9)
+                    if isinstance(y, float) else x == y), (a, b)

@@ -170,3 +170,29 @@ def test_buffered_batches_keep_arrival_order_across_tiers():
     got = torch.cat([b.columns[0].data for b in op.buffered_batches()])
     assert got.tolist() == list(range(1200))
     assert op._spiller is None and not op._revoked
+
+
+# a join of a table with itself gives an output with two columns of each
+# name: the spilled pages of the ORDER BY's buffer must decode them apart
+SELF_JOINS = {
+    "nation": "select n1.n_name, n2.n_name from nation n1 join nation n2 "
+              "on n1.n_regionkey = n2.n_regionkey order by 1, 2",
+    "orders": "select o1.o_orderkey, o2.o_orderkey, o1.o_totalprice "
+              "from orders o1 join orders o2 on o1.o_custkey = o2.o_custkey "
+              "where o1.o_custkey < 40 order by 1, 2",
+}
+
+
+@pytest.mark.parametrize("name", sorted(SELF_JOINS))
+def test_self_join_under_disk_spill_matches_reference(name):
+    sql = SELF_JOINS[name]
+    port = StandaloneQueryRunner(default_catalog(0.01), device="cpu",
+                                 session=Session(spill_to_disk_bytes=1))
+    st = QueryStats()
+    got = port.execute(sql, stats=st).rows()
+    want = RefRunner(ref_catalog(scale_factor=0.01),
+                     session=RefSession(spill_to_disk_bytes=1)
+                     ).execute(sql).rows()
+    _same(got, want, sql)
+    assert len(set(got)) > 1  # the two sides' columns differ
+    assert st.spills()[2] > 0

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..caching.executable_cache import memo
-from ..spi.batch import ColumnBatch
+from ..spi.batch import ColumnBatch, host_table
 from . import kernels as K
 from .operators import Operator
 
@@ -52,7 +52,7 @@ def _entry_hashes(dictionary, device) -> torch.Tensor:
     namespaces, values are not."""
     h = np.fromiter((zlib.crc32(str(v).encode()) for v in dictionary),
                     dtype=np.int64, count=len(dictionary))
-    return torch.from_numpy(h).to(device)
+    return host_table(h, device)
 
 
 def partition_key_tuple(c) -> tuple:

@@ -33,7 +33,9 @@ plans one task of a fragment: ``task_index`` of ``task_count`` takes every
 upstream fragment through ``remote_clients[fragment_id]``: a collective
 exchange (CollectiveSourceOperator), a list of per-producer clients for a
 MERGE edge (MergeSourceOperator) or one ExchangeClient
-(RemoteExchangeSourceOperator).  DistinctLimit (which only
+(RemoteExchangeSourceOperator); a FINAL aggregation over a fused stage's
+edge (execution/stage_compiler.py) becomes that stage's
+FusedStageSourceOperator.  DistinctLimit (which only
 ``planner/add_exchanges`` emits) becomes a DistinctLimitOperator.
 """
 
@@ -296,6 +298,18 @@ class LocalPlanner:
             return chain
 
         if isinstance(node, P.Aggregate):
+            if (node.step == "FINAL"
+                    and isinstance(node.source, P.RemoteSource)):
+                from ..execution.stage_compiler import (
+                    FusedStageExec, FusedStageSourceOperator)
+
+                client = self.remote_clients.get(node.source.fragment_id)
+                if isinstance(client, FusedStageExec):
+                    # whole-stage compilation: the producer stage already
+                    # ran PARTIAL, the shuffle and FINAL in its programs;
+                    # this pipeline takes its shard
+                    return [FusedStageSourceOperator(client,
+                                                     self.task_index)]
             chain = self._chain(node.source)
             chain.append(HashAggregationOperator(
                 node.group_keys, node.aggregates,

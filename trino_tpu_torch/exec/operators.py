@@ -2157,14 +2157,17 @@ class WindowOperator(BufferedInputMixin, Operator):
 
     def finish_input(self) -> None:
         super().finish_input()
-        if not self.buffered_batches():
+        # a shard can arrive with rows that are all dead (a collective
+        # edge's lanes): nothing is left once the concat compacts it
+        inp = (ColumnBatch.concat(self._batches)  # compacts + unifies dicts
+               if self.buffered_batches() else None)
+        self.release_memory()
+        if inp is None or inp.num_rows == 0:
             self._result = ColumnBatch(
                 self.output_names,
                 [Column(t, np.empty(0, t.storage_dtype))
                  for t in self.output_types])
             return
-        inp = ColumnBatch.concat(self._batches)  # compacts + unifies dicts
-        self.release_memory()
         pkeys = [(inp.columns[c].data, inp.columns[c].valid)
                  for c in self.partition_keys]
         okeys = [(inp.columns[k.channel].data, inp.columns[k.channel].valid,

@@ -2,8 +2,8 @@
 
 The Driver credits wall time, rows and batches to each operator as it moves
 batches (reference: operator/OperatorStats.java, the port of
-``exec/stats.py`` with its scan-ingest, encoding and host-sync counters;
-the resilience, fused, resident and adaptive ones are not ported).  Rows
+``exec/stats.py`` with its scan-ingest, encoding, host-sync and compiled-
+stage counters; the resilience and adaptive ones are not ported).  Rows
 are live rows: on the card a masked batch's count is a device reduction,
 so the driver adds the counts up as tensors and
 :meth:`QueryStats.read_counts` reads them all once the run has ended.
@@ -150,6 +150,89 @@ class EncodingStats:
 
 
 @dataclass
+class FusedStageStats:
+    """Counters of whole-stage compilation (execution/stage_compiler.py):
+    the batches the accumulate program absorbed, how many calls were the
+    first of their (program, bucket) signature, and how many seam merges
+    and per-operator re-runs ran.  One instance per FusedStageExec;
+    ``merge`` folds the sinks' instances into the query's roll-up."""
+
+    stages: int = 0            # fused stage seams that executed
+    compiles: int = 0          # first calls of a (program, bucket) signature
+    cache_hits: int = 0        # calls of a signature seen before
+    jit_calls: int = 0         # accumulate-program calls (one per batch)
+    batches: int = 0           # input batches absorbed
+    input_rows: int = 0        # physical rows (padded slots included)
+    merges: int = 0            # seam merges executed (one per stage)
+    fallbacks: int = 0         # overflow -> per-operator re-runs
+
+    def merge(self, other: "FusedStageStats") -> None:
+        for f in fields(self):
+            setattr(self, f.name, getattr(self, f.name)
+                    + getattr(other, f.name))
+
+    @property
+    def any(self) -> bool:
+        return any((self.stages, self.jit_calls, self.batches,
+                    self.merges, self.fallbacks))
+
+    def text(self) -> str:
+        return (
+            f"fused: {self.stages} stages, {self.batches} batches "
+            f"({self.input_rows} rows) in {self.jit_calls} jit calls, "
+            f"{self.compiles} compiles / {self.cache_hits} cache hits, "
+            f"{self.merges} seam merges, {self.fallbacks} fallbacks")
+
+
+@dataclass
+class ResidentPlanStats:
+    """Counters of whole-query compilation (execution/plan_compiler.py):
+    resident plans run as one program call per probe batch, the interior
+    seams (broadcast builds and the aggregation's repartition) they fold
+    in, and the per-operator re-runs taken when a plan cannot hold
+    (duplicate build keys, state overflow).  One instance per
+    ResidentPlanExec; ``merge`` folds them into the query's roll-up."""
+
+    plans: int = 0             # resident plans that executed
+    programs: int = 0          # first calls of a (program, bucket) signature
+    seams: int = 0             # interior exchange edges folded in
+    batches: int = 0           # probe batches absorbed
+    jit_calls: int = 0         # whole-plan program calls (one per batch)
+    cache_hits: int = 0        # calls of a signature seen before
+    input_rows: int = 0        # physical probe rows (padded slots included)
+    merges: int = 0            # terminal seam merges (one per plan)
+    code_seam_columns: int = 0  # dictionary-code lanes crossing a seam
+    fallbacks: int = 0         # overflow / duplicate key -> re-runs
+    fallback_reasons: list = field(default_factory=list)
+
+    def merge(self, other: "ResidentPlanStats") -> None:
+        for f in fields(self):
+            setattr(self, f.name, getattr(self, f.name)
+                    + getattr(other, f.name))
+
+    @property
+    def launches_per_batch(self) -> float:
+        return self.jit_calls / self.batches if self.batches else 0.0
+
+    @property
+    def any(self) -> bool:
+        return any((self.plans, self.batches, self.jit_calls,
+                    self.merges, self.fallbacks))
+
+    def text(self) -> str:
+        why = (f" ({', '.join(self.fallback_reasons)})"
+               if self.fallback_reasons else "")
+        return (
+            f"resident: {self.plans} plans ({self.seams} seams fused), "
+            f"{self.batches} batches ({self.input_rows} rows) in "
+            f"{self.jit_calls} jit calls "
+            f"({self.launches_per_batch:.2f} launches/batch), "
+            f"{self.programs} programs / {self.cache_hits} cache hits, "
+            f"{self.code_seam_columns} code-seam columns, "
+            f"{self.merges} merges, {self.fallbacks} fallbacks{why}")
+
+
+@dataclass
 class OperatorStats:
     name: str
     input_rows: int = 0
@@ -178,6 +261,8 @@ class QueryStats:
     encoding: Optional[EncodingStats] = None  # compressed execution
     sync: Optional[object] = None  # the run's syncguard.SyncStats delta
     label: str = ""  # a distributed task's "fragment F task T:" heading
+    fused: Optional[FusedStageStats] = None  # whole-stage compilation
+    resident: Optional[ResidentPlanStats] = None  # whole-query compilation
 
     def by_operator(self) -> dict[str, float]:
         """Wall seconds summed per operator class name."""
@@ -233,6 +318,10 @@ class QueryStats:
             lines.append("  " + self.scan.text())
         if self.sync is not None and self.sync.host_syncs:
             lines.append("  " + self.sync.text())
+        if self.fused is not None and self.fused.any:
+            lines.append("  " + self.fused.text())
+        if self.resident is not None and self.resident.any:
+            lines.append("  " + self.resident.text())
         if self.encoding is not None and self.encoding.any:
             lines.append("  " + self.encoding.text())
         for i, p in enumerate(self.pipelines):

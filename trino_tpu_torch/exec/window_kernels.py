@@ -85,6 +85,8 @@ def _starts(diff):
 
 def _boundary(datas, valids, n: int, device):
     """True where sorted row i starts a new run of the given key columns."""
+    if n == 0:
+        return torch.zeros(0, dtype=torch.bool, device=device)
     new = None
     for d, v in zip(datas, valids):
         if d.is_floating_point():

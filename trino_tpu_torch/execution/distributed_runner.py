@@ -15,6 +15,19 @@ is scheduled, never as a recovery from a failure.  Tasks run on a thread
 each (``task_scheduler = "THREADS"``) or on the time-sharing executor
 (``"TIME_SHARING"``, exec/executor.py).
 
+Before the collective edges, the fragmenter's marks are compiled, as in
+the reference by default: a fused seam (PARTIAL -> shuffle -> FINAL) runs
+as one accumulate call per batch and one seam merge
+(``execution/stage_compiler.py``), and a resident plan (a broadcast join
+tree under such a seam) as one whole-plan call per probe batch
+(``execution/plan_compiler.py``); ``TRINO_TPU_FUSED_STAGE=0`` /
+``TRINO_TPU_RESIDENT_PLAN=0`` turn them off.  The one failure they
+recover from is :class:`~.stage_compiler.FusedStageOverflow` (a task held
+more groups than the state's cap, or a resident build had duplicate
+keys): the query re-runs with both off, on the same device, counted in
+``fused_fallbacks`` / ``resident_fallbacks``, the ``*_FALLBACKS`` metrics
+and a stats line.  Any other error fails the query.
+
 Every task plans and runs on the runner's ``device``: on the card the
 tasks share it, and the pages between them stay device batches unless
 ``exchange_serde`` turns them into wire bytes.  ``device="cuda"`` (the
@@ -27,15 +40,13 @@ span under the query's span and the profiler's TASK event.
 Not ported yet (ROADMAP queue 1 item 6), and refused with
 NotImplementedError: fault-tolerant execution (``retry_policy`` other
 than NONE, ``fte_run_attempt`` / ``resume_fte_query``), speculation, the
-adaptive plane and worker drains.  The fragmenter's fused seams and
-resident plans are recorded but not compiled: every edge runs as the
-reference's does under ``TRINO_TPU_FUSED_STAGE=0`` and
-``TRINO_TPU_RESIDENT_PLAN=0``.  History-based optimization waits for
+adaptive plane and worker drains.  History-based optimization waits for
 ``planner/history.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import threading
 import time
@@ -51,7 +62,8 @@ from ..exec import syncguard as SG
 from ..exec.driver import (collect_encoding_stats, collect_scan_stats,
                            run_pipelines)
 from ..exec.local_planner import LocalPlanner
-from ..exec.stats import QueryStats
+from ..exec.prefetch import IngestConfig
+from ..exec.stats import FusedStageStats, QueryStats, ResidentPlanStats
 from ..parallel.distributed import Mesh
 from ..planner.add_exchanges import add_exchanges
 from ..planner.logical import LogicalPlanner
@@ -74,8 +86,14 @@ from .collective_exchange import (CollectiveOutputSink,
                                   collectives_available)
 from .exchange import ExchangeClient, OutputBuffer
 from .fragmenter import PlanFragment, SubPlan, fragment_plan
+from .plan_compiler import (ResidentBuildHandle, ResidentBuildSinkOperator,
+                            ResidentPlanExec, ResidentPlanOverflow,
+                            ResidentPlanSinkOperator, plan_resident_plans)
+from .stage_compiler import (FusedStageExec, FusedStageOverflow,
+                             FusedStageSinkOperator, plan_fused_stages)
 from .task import STALL_TIMEOUT_S, PartitionedOutputSink, maybe_deserialize
-from .tracing import Tracer, annotate_scan_span, annotate_sync_span
+from .tracing import (Tracer, annotate_fused_span, annotate_resident_span,
+                      annotate_scan_span, annotate_sync_span)
 from .transaction import handle_transaction_stmt
 
 __all__ = ["DistributedQueryRunner"]
@@ -98,14 +116,15 @@ class _Stage:
 class DistributedQueryRunner:
     """``worker_count`` in-process workers on ``device``; ``session``
     defaults to ``Session(node_count=worker_count)``.  Tasks plan with the
-    iterative optimizer and the default scan (IngestConfig(), encoded
-    execution), as the StandaloneQueryRunner does by default; the device
-    and the worker count are the runner's :attr:`execution_key`."""
+    iterative optimizer, encoded execution and the scan ``ingest`` (the
+    port-only argument of the StandaloneQueryRunner, by default
+    ``IngestConfig()``); the device, the worker count and the ingest are
+    the runner's :attr:`execution_key`."""
 
     def __init__(self, catalog: Optional[Catalog] = None,
                  worker_count: int = 3,
                  session: Optional[Session] = None,
-                 device="cuda"):
+                 device="cuda", ingest: Optional[IngestConfig] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -115,7 +134,9 @@ class DistributedQueryRunner:
         self.worker_count = worker_count
         self.session = session if session is not None else Session(
             node_count=worker_count)
-        self.execution_key = (str(self.device), worker_count)
+        self.ingest = ingest if ingest is not None else IngestConfig()
+        self.execution_key = (str(self.device), worker_count,
+                              dataclasses.astuple(self.ingest))
         self.tracer = Tracer()
         self.event_listeners = EventListenerManager()
         self.access_control = AccessControlManager()
@@ -126,6 +147,13 @@ class DistributedQueryRunner:
         # the last query's edges, for observability and tests; tasks get
         # the dict as an argument so concurrent queries cannot cross-wire
         self._collective_edges: dict = {}
+        self._fused_edges: dict = {}
+        self._resident_edges: dict = {}
+        # re-runs on the per-operator path after a compiled stage's
+        # overflow, and the last query's reason for one (None: no re-run)
+        self.fused_fallbacks = 0
+        self.resident_fallbacks = 0
+        self.last_fallback: Optional[str] = None
         sysconn = self.catalog._connectors.get("system")
         if sysconn is not None and hasattr(sysconn, "attach"):
             sysconn.attach(self)
@@ -291,9 +319,11 @@ class DistributedQueryRunner:
                 consumer_tasks[src] = task_counts[f.id]
         return task_counts, consumer_tasks
 
-    def _run_streaming(self, subplan: SubPlan,
-                       stats_sink: Optional[list]) -> QueryResult:
+    def _run_streaming(self, subplan: SubPlan, stats_sink: Optional[list],
+                       use_fused: bool = True) -> QueryResult:
         fragments = subplan.all_fragments()
+        if use_fused:
+            self.last_fallback = None
         task_counts, consumer_tasks = self.stage_task_counts(fragments)
         stages = {f.id: _Stage(f, task_counts[f.id], []) for f in fragments}
         for f in fragments:
@@ -301,6 +331,18 @@ class DistributedQueryRunner:
             stages[f.id].buffers = [OutputBuffer(nparts,
                                                  max_bytes=SINK_MAX_BYTES)
                                     for _ in range(stages[f.id].task_count)]
+        # whole-stage and whole-query compilation first: a resident plan
+        # takes its core fragment's fused seam
+        fused: dict = {}
+        resident: dict = {}
+        if use_fused:
+            fused = plan_fused_stages(fragments, self.session, task_counts,
+                                      consumer_tasks, self.device)
+            resident = plan_resident_plans(fragments, self.session,
+                                           task_counts, consumer_tasks,
+                                           self.device)
+            for fid in resident:
+                fused.pop(fid, None)
         # device-collective REPARTITION edges where producer and consumer
         # task counts line up; host buffers carry every other edge.  Every
         # task plans and runs on the runner's device, so every shard of
@@ -309,26 +351,36 @@ class DistributedQueryRunner:
         if self.session.use_collectives:
             for f in fragments:
                 tc = stages[f.id].task_count
-                if (f.output_kind == "REPARTITION"
+                if (f.id not in fused and f.id not in resident
+                        and f.output_kind == "REPARTITION"
                         and consumer_tasks.get(f.id) == tc
                         and collectives_available(tc)):
                     collective[f.id] = CollectiveRepartitionExchange(
                         tc, f.output_keys, f.root.output_names,
                         f.root.output_types, Mesh([self.device] * tc))
         self._collective_edges = collective
+        self._fused_edges = fused
+        self._resident_edges = resident
+        edges = {**collective, **fused, **resident}
 
         errors: list[BaseException] = []
         if self.session.task_scheduler == "TIME_SHARING":
             hung = self._run_time_sharing(fragments, stages, errors,
-                                          stats_sink, collective)
+                                          stats_sink, edges)
         else:
             hung = self._run_threads(fragments, stages, errors, stats_sink,
-                                     collective)
+                                     edges)
         if errors or hung:
-            self._abort(stages, collective)
+            self._abort(stages, edges)
             if errors:
+                if use_fused and any(isinstance(e, FusedStageOverflow)
+                                     for e in errors):
+                    self._count_fallback(errors, stats_sink)
+                    return self._run_streaming(subplan, stats_sink,
+                                               use_fused=False)
                 raise errors[0]
             raise TimeoutError(f"tasks did not complete: {hung}")
+        self._roll_compiled_stats(fused, resident, stats_sink)
 
         # drain the root stage's buffer as the client
         root = stages[subplan.fragment.id]
@@ -341,18 +393,68 @@ class DistributedQueryRunner:
         return self._to_result(subplan, batches)
 
     @staticmethod
-    def _abort(stages: dict, collective: dict) -> None:
+    def _abort(stages: dict, edges: dict) -> None:
         """Unblock every task of the query: producers waiting on a full
         buffer, consumers polling a dead producer, partners parked at a
-        collective."""
+        collective edge or a compiled stage's rendezvous."""
         for s in stages.values():
             for b in s.buffers:
                 b.abort()
-        for ex in collective.values():
+        for ex in edges.values():
             ex.abort()
 
+    def _count_fallback(self, errors: list, stats_sink) -> None:
+        """Count the re-run a compiled stage's overflow takes (reference:
+        distributed_runner.py, the FusedStageOverflow branch)."""
+        res = [e for e in errors if isinstance(e, ResidentPlanOverflow)]
+        self.last_fallback = str(
+            next(e for e in errors if isinstance(e, FusedStageOverflow)))
+        if res:
+            self.resident_fallbacks += 1
+            tm.RESIDENT_FALLBACKS.inc()
+            if stats_sink is not None:
+                stats_sink.append(QueryStats(
+                    label="resident plans:", resident=ResidentPlanStats(
+                        fallbacks=1,
+                        fallback_reasons=[str(res[0])[:120]])))
+        else:
+            self.fused_fallbacks += 1
+            tm.FUSED_FALLBACKS.inc()
+            if stats_sink is not None:
+                stats_sink.append(QueryStats(
+                    label="fused stages:",
+                    fused=FusedStageStats(fallbacks=1)))
+
+    def _roll_compiled_stats(self, fused: dict, resident: dict,
+                             stats_sink) -> None:
+        """The compiled stages' roll-ups into the metrics, the execution
+        span and EXPLAIN ANALYZE's stats lines."""
+        span = self.tracer.current()
+        if fused:
+            roll = FusedStageStats()
+            for ex in fused.values():
+                roll.merge(ex.stats)
+            tm.observe_fused(roll)
+            if span is not None:
+                annotate_fused_span(span, roll)
+            if stats_sink is not None:
+                stats_sink.append(QueryStats(label="fused stages:",
+                                             fused=roll))
+        execs = [e for e in resident.values()
+                 if isinstance(e, ResidentPlanExec)]
+        if execs:
+            rroll = ResidentPlanStats()
+            for ex in execs:
+                rroll.merge(ex.rstats)
+            tm.observe_resident(rroll)
+            if span is not None:
+                annotate_resident_span(span, rroll)
+            if stats_sink is not None:
+                stats_sink.append(QueryStats(label="resident plans:",
+                                             resident=rroll))
+
     def _run_threads(self, fragments, stages, errors, stats_sink,
-                     collective) -> list[str]:
+                     edges) -> list[str]:
         """A thread per task; returns the names of tasks still running at
         the deadline."""
         # task spans nest under the coordinator thread's open span
@@ -364,7 +466,7 @@ class DistributedQueryRunner:
             for t in range(stage.task_count):
                 th = threading.Thread(
                     target=self._run_task,
-                    args=(stage, t, stages, errors, stats_sink, collective,
+                    args=(stage, t, stages, errors, stats_sink, edges,
                           parent_span, qrec),
                     name=f"task-{f.id}.{t}", daemon=True)
                 th.start()
@@ -383,13 +485,13 @@ class DistributedQueryRunner:
             Column(t, np.empty(0, t.storage_dtype)) for t in types]))
 
     def _build_task(self, stage: _Stage, task_index: int, stages: dict,
-                    stats_sink: Optional[list], collective: dict
+                    stats_sink: Optional[list], edges: dict
                     ) -> tuple[list, Optional[QueryStats]]:
         f = stage.fragment
         clients: dict = {}
         for src in f.source_fragments:
-            if src in collective:
-                clients[src] = collective[src]
+            if src in edges:
+                clients[src] = edges[src]
             elif stages[src].fragment.output_kind == "MERGE":
                 # order-preserving gather: one client PER producer so the
                 # merge operator sees each task's sorted stream separately
@@ -399,20 +501,33 @@ class DistributedQueryRunner:
                 clients[src] = ExchangeClient(stages[src].buffers,
                                               task_index)
         s = self.session
+        ex = edges.get(f.id)
         planner = LocalPlanner(
             self.catalog, self.device, splits_per_node=s.splits_per_node,
             node_count=self.worker_count,
             dynamic_filtering=s.dynamic_filtering,
             hbm_limit_bytes=s.hbm_limit_bytes,
             task_concurrency=s.task_concurrency,
-            spill_to_disk_bytes=s.spill_to_disk_bytes,
+            spill_to_disk_bytes=s.spill_to_disk_bytes, ingest=self.ingest,
             task_index=task_index, task_count=stage.task_count,
             remote_clients=clients)
-        local = planner.plan(f.root)
-        ex = collective.get(f.id)
-        if ex is not None:
+        # a fused producer plans only its feed (the chain, the PARTIAL
+        # aggregation and the shuffle run in the fused sink's programs); a
+        # resident core only the scan feed below its join spine
+        if isinstance(ex, ResidentPlanExec):
+            local = planner.plan(ex.spec.feed)
+            sink = ResidentPlanSinkOperator(ex, task_index)
+        elif isinstance(ex, ResidentBuildHandle):
+            local = planner.plan(f.root)
+            sink = ResidentBuildSinkOperator(ex, task_index)
+        elif isinstance(ex, FusedStageExec):
+            local = planner.plan(ex.spec.feed)
+            sink = FusedStageSinkOperator(ex, task_index)
+        elif ex is not None:
+            local = planner.plan(f.root)
             sink = CollectiveOutputSink(ex, task_index)
         else:
+            local = planner.plan(f.root)
             kind = f.output_kind if f.output_kind != "OUTPUT" else "GATHER"
             sink = PartitionedOutputSink(
                 stage.buffers[task_index], kind, f.output_keys,
@@ -426,7 +541,7 @@ class DistributedQueryRunner:
         return local.pipelines, stats
 
     def _run_time_sharing(self, fragments, stages, errors, stats_sink,
-                          collective) -> list[str]:
+                          edges) -> list[str]:
         """Schedule every task on a bounded MLFQ executor
         (exec/executor.py); returns the names of tasks that never
         finished."""
@@ -440,13 +555,13 @@ class DistributedQueryRunner:
                     stage = stages[f.id]
                     for t in range(stage.task_count):
                         pipelines, stats = self._build_task(
-                            stage, t, stages, stats_sink, collective)
+                            stage, t, stages, stats_sink, edges)
                         handles.append(
                             (f, t, executor.submit(pipelines, stats)))
             except BaseException:
                 # a task that failed to build must not leave its submitted
                 # siblings blocked on its buffers
-                self._abort(stages, collective)
+                self._abort(stages, edges)
                 raise
             # poll every handle so the first failure aborts all buffers
             # at once (as the thread-per-task mode does)
@@ -460,7 +575,7 @@ class DistributedQueryRunner:
                         still.append(i)
                     elif h.error is not None:
                         errors.append(h.error)
-                        self._abort(stages, collective)
+                        self._abort(stages, edges)
                 if len(still) == len(pending):
                     time.sleep(0.02)
                 pending = still
@@ -471,13 +586,13 @@ class DistributedQueryRunner:
 
     def _run_task(self, stage: _Stage, task_index: int, stages: dict,
                   errors: list, stats_sink: Optional[list],
-                  collective: dict, parent_span=None,
+                  edges: dict, parent_span=None,
                   query_record=None) -> None:
         """One task on its thread, with the task lifecycle's telemetry
         (reference: distributed_runner.py _run_task): the task counters and
         wall distribution, the ``system.runtime.tasks`` record, the
         ``trino.task`` span and the profiler's TASK event.  A failure
-        aborts every buffer and collective of the query."""
+        aborts every buffer and edge of the query."""
         rt.adopt_record(query_record)
         tm.TASKS_CREATED.inc()
         trec = rt.task_started(
@@ -498,7 +613,7 @@ class DistributedQueryRunner:
                    "trino.task.worker": "local"}) as sp:
             try:
                 pipelines, stats = self._build_task(
-                    stage, task_index, stages, stats_sink, collective)
+                    stage, task_index, stages, stats_sink, edges)
                 run_pipelines(pipelines, stats)
             except BaseException as e:  # noqa: BLE001 — surfaced to the
                 # coordinator
@@ -506,7 +621,7 @@ class DistributedQueryRunner:
                 state = "FAILED"
                 err = f"{type(e).__name__}: {e}"
                 sp.set("error", type(e).__name__)
-                self._abort(stages, collective)
+                self._abort(stages, edges)
             ingest = collect_scan_stats(pipelines) if pipelines else None
             if pipelines:
                 tm.observe_encoding(collect_encoding_stats(pipelines))

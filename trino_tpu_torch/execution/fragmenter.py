@@ -10,9 +10,8 @@ consumer / coordinator stage).
 
 :func:`mark_device_residency` records the reference's ``FusedSeam`` and
 ``ResidentPlan`` marks on the fragments, so the fragment text is the
-reference's; the port does not compile them yet (its runner runs every
-edge as the reference does under ``TRINO_TPU_FUSED_STAGE=0`` and
-``TRINO_TPU_RESIDENT_PLAN=0``).
+reference's; the distributed runner compiles them
+(execution/stage_compiler.py, execution/plan_compiler.py).
 """
 
 from __future__ import annotations

@@ -433,22 +433,24 @@ def inflate_page(data) -> tuple:
 
 def decode_page(magic: bytes, payload,
                 columns: Optional[Sequence[str]] = None) -> ColumnBatch:
-    """The batch of an inflated page (see :func:`deserialize_batch`)."""
+    """The batch of an inflated page (see :func:`deserialize_batch`).
+    Columns decode by position, so two columns of one name (a self-join's
+    output) stay apart; a ``columns`` subset picks, for each name in the
+    caller's order, the first column of that name."""
     r = _Reader(payload)
     num_rows, num_cols = struct.unpack("<II", r.take(8))
-    want = None if columns is None else set(columns)
     v2 = magic == _MAGIC2
-    got: dict = {}
+    got: list = []
     names: list[str] = []
     for _ in range(num_cols):
         name = r.text()
+        keep = columns is None or (name in columns and name not in names)
         names.append(name)
-        col = _read_column(r, num_rows, v2,
-                           keep=want is None or name in want)
-        if col is not None:
-            got[name] = col
-    order = names if columns is None else list(columns)
-    return ColumnBatch(order, [got[n] for n in order])
+        got.append(_read_column(r, num_rows, v2, keep=keep))
+    if columns is None:
+        return ColumnBatch(names, got)
+    picks = [names.index(n) for n in columns]
+    return ColumnBatch(list(columns), [got[i] for i in picks])
 
 
 def _read_column(r: _Reader, num_rows: int, v2: bool,

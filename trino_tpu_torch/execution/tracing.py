@@ -1,9 +1,9 @@
 """Tracing: per-query span trees (the OpenTelemetry role).
 
-The port of the single-node part of the reference ``execution/tracing.py``:
-spans, the tracer, W3C traceparent propagation and the scan and host-sync
-annotations (the fused-stage, resident-plan and resilience annotations
-come with the distributed runner).  It mirrors Trino's tracing layer
+The port of the reference ``execution/tracing.py``: spans, the tracer,
+W3C traceparent propagation and the scan, host-sync, fused-stage and
+resident-plan annotations (the resilience one comes with fault-tolerant
+execution).  It mirrors Trino's tracing layer
 (tracing/TracingMetadata.java:121 decorators, tracing/TrinoAttributes.java
 span vocabulary, spans per query/stage/task propagated into workers)
 without the OTel SDK dependency:
@@ -21,7 +21,8 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 __all__ = ["Span", "Tracer", "traceparent", "parse_traceparent",
-           "annotate_scan_span", "annotate_sync_span"]
+           "annotate_scan_span", "annotate_sync_span", "annotate_fused_span",
+           "annotate_resident_span"]
 
 
 # ids from the process's seeded generator, not the system's entropy: one
@@ -70,6 +71,42 @@ def annotate_sync_span(span: "Span", sync) -> None:
     span.set("trino.exec.async-poll-hits", sync.poll_hits)
     span.set("trino.exec.expand-overflows", sync.expand_overflows)
     span.set("trino.exec.expand-retries", sync.expand_retries)
+
+
+def annotate_fused_span(span: "Span", fs) -> None:
+    """Set the ``trino.fused.*`` attributes from a FusedStageStats roll-up
+    (exec/stats.py): whole-stage compile counts, shape-bucket cache hits and
+    per-batch dispatch counts next to the query wall time."""
+    if fs is None or not fs.any:
+        return
+    span.set("trino.fused.stages", fs.stages)
+    span.set("trino.fused.batches", fs.batches)
+    span.set("trino.fused.input-rows", fs.input_rows)
+    span.set("trino.fused.jit-calls", fs.jit_calls)
+    span.set("trino.fused.compiles", fs.compiles)
+    span.set("trino.fused.cache-hits", fs.cache_hits)
+    span.set("trino.fused.seam-merges", fs.merges)
+    span.set("trino.fused.fallbacks", fs.fallbacks)
+
+
+def annotate_resident_span(span: "Span", rs) -> None:
+    """Set the ``trino.resident.*`` attributes from a ResidentPlanStats
+    roll-up (exec/stats.py): whole-plan program counts, in-program seam
+    fusion and the launches/batch figure next to the query wall time."""
+    if rs is None or not rs.any:
+        return
+    span.set("trino.resident.plans", rs.plans)
+    span.set("trino.resident.seams", rs.seams)
+    span.set("trino.resident.batches", rs.batches)
+    span.set("trino.resident.input-rows", rs.input_rows)
+    span.set("trino.resident.jit-calls", rs.jit_calls)
+    span.set("trino.resident.programs", rs.programs)
+    span.set("trino.resident.cache-hits", rs.cache_hits)
+    span.set("trino.resident.launches-per-batch",
+             round(rs.launches_per_batch, 3))
+    span.set("trino.resident.code-seam-columns", rs.code_seam_columns)
+    span.set("trino.resident.merges", rs.merges)
+    span.set("trino.resident.fallbacks", rs.fallbacks)
 
 
 def annotate_scan_span(span: "Span", ingest) -> None:

@@ -147,8 +147,10 @@ def reduce_error_lanes(acc, n: int, device):
     err = torch.zeros((), dtype=torch.int32, device=device)
     for code, lanes in acc:
         hit = torch.as_tensor(lanes, device=device).any()
+        # a fill, not a copy of a host scalar: no host wait, so a hot
+        # region may reduce its error lanes
         err = torch.maximum(err, torch.where(
-            hit, torch.tensor(code, dtype=torch.int32, device=device),
+            hit, torch.full((), code, dtype=torch.int32, device=device),
             torch.zeros((), dtype=torch.int32, device=device)))
     return err
 

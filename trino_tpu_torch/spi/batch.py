@@ -73,6 +73,18 @@ def as_tensor(x, device=None) -> torch.Tensor:
     return t if device is None else t.to(device)
 
 
+def host_table(a, device) -> torch.Tensor:
+    """A small host array (a remap or hash table) as a tensor on
+    ``device``.  To the card it goes from pinned memory without blocking
+    the host: a copy from pageable memory would wait for the stream, and
+    under torch's sync debug mode it counts as a synchronization."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _canon_key(v):
     """Sort key of a tuple dictionary entry: lexicographic with NULL
     elements last (a comparison must never meet None < x)."""
@@ -582,7 +594,7 @@ def unify_dictionaries(columns: Sequence[Column]) -> list[Column]:
         if not len(d):
             data = torch.zeros(len(c), dtype=torch.int32, device=c.device)
         else:
-            data = as_tensor(remap, c.device)[c.data.long()]
+            data = host_table(remap, c.device)[c.data.long()]
         out.append(Column(c.type, data, c.valid, merged))
     return out
 

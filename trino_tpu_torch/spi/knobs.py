@@ -6,8 +6,9 @@ line of doc) and the same typed accessors, which raise :class:`KeyError`
 on an undeclared name.  Only the rows the port reads are declared: the
 switches and sizes of the cache plane (caching/), the flight recorder's
 level and ring (telemetry/profiler.py), the query journal
-(telemetry/journal.py) and the exchange's stall watchdog
-(execution/task.py).  Both packages read the same variables, so one
+(telemetry/journal.py), the exchange's stall watchdog
+(execution/task.py) and the compiled stages' switches and sizes
+(execution/stage_compiler.py, execution/plan_compiler.py).  Both packages read the same variables, so one
 setting reaches both (a harness that sets ``TRINO_TPU_RESULT_CACHE=0``
 turns the result tier off in each).
 """
@@ -45,6 +46,13 @@ _DECLARATIONS = (
          "but out of the registry and its counters."),
     Knob("TRINO_TPU_EXEC_CACHE_ENTRIES", "int", "256",
          "LRU capacity (entries) of each registered executable memo."),
+    Knob("TRINO_TPU_FUSED_CAP", "int", "8192",
+         "Fused-stage carried-state capacity (groups per task); overflow "
+         "re-runs the query on the per-operator path."),
+    Knob("TRINO_TPU_FUSED_STAGE", "enum", "auto",
+         "Whole-stage compilation of PARTIAL->shuffle->FINAL seams; 0 is "
+         "the per-operator and collective-exchange path.",
+         choices=("auto", "1", "0")),
     Knob("TRINO_TPU_JOURNAL", "bool", "1",
          "Durable query journal (JSONL EventListener); 0 disables."),
     Knob("TRINO_TPU_JOURNAL_DIR", "path", "",
@@ -53,6 +61,10 @@ _DECLARATIONS = (
          "Rotated journal generations kept."),
     Knob("TRINO_TPU_JOURNAL_MAX_BYTES", "int", "4194304",
          "Journal rotate threshold per file."),
+    Knob("TRINO_TPU_MESH_SHAPE", "str", "",
+         "Mesh-shape override for resident-plan programs (\"8\" or "
+         "\"2x4\"); the dimension product caps the mesh width a plan may "
+         "claim.  Unset sizes the mesh from the stage task count."),
     Knob("TRINO_TPU_PLAN_CACHE", "bool", "1",
          "Tier A fingerprinted logical-plan cache; 0 disables (checked "
          "per lookup)."),
@@ -65,6 +77,14 @@ _DECLARATIONS = (
          choices=("off", "default", "full")),
     Knob("TRINO_TPU_PROFILE_RING", "int", "4096",
          "Per-thread profiler event-ring capacity."),
+    Knob("TRINO_TPU_RESIDENT_MAX_FRAGMENTS", "int", "8",
+         "Largest fragment count one resident-plan program may absorb; "
+         "bigger coalesced subtrees stay on the fused or per-operator "
+         "path."),
+    Knob("TRINO_TPU_RESIDENT_PLAN", "enum", "auto",
+         "Whole-query compilation (one program per maximal device-resident "
+         "plan); 0 keeps the fused or per-operator path.",
+         choices=("auto", "1", "0")),
     Knob("TRINO_TPU_RESULT_CACHE", "bool", "1",
          "Tier C versioned result cache; 0 disables (checked per "
          "lookup)."),

@@ -28,10 +28,11 @@ tools/lint_metric_names.py over this file): Prometheus-legal
 The families registered here are those a single-node run records: scan
 ingest, host syncs and the padded expand, compressed execution, the query
 lifecycle, the iterative optimizer, the device memory watermark, the
-flight recorder (profiler and journal) and the three cache tiers.  The
-distributed plane's families (fault-tolerant execution, HA, fused and
-resident stages, exchange, resilience, adaptive execution, resource
-groups, HBO) come with the modules that record them.
+flight recorder (profiler and journal), the three cache tiers and the
+compiled stages (fused seams and resident plans).  The rest of the
+distributed plane's families (fault-tolerant execution, HA, exchange,
+resilience, adaptive execution, resource groups, HBO) come with the
+modules that record them.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ from typing import Optional
 
 __all__ = [
     "Counter", "Gauge", "Distribution", "MetricsRegistry", "REGISTRY",
-    "observe_scan", "observe_sync", "observe_encoding",
+    "observe_scan", "observe_sync", "observe_encoding", "observe_fused",
+    "observe_resident",
     "update_device_memory_watermark", "merge_snapshot",
     "render_snapshot_prometheus",
 ]
@@ -503,6 +505,49 @@ ENCODING_RLE_AGG_ROWS = REGISTRY.counter(
     "input rows aggregated arithmetically from RLE runs (value * "
     "run_count) without expansion")
 
+# whole-stage compilation (execution/stage_compiler.py)
+FUSED_STAGES = REGISTRY.counter(
+    "trino_fused_stages_total", "fused stage seams executed")
+FUSED_BATCHES = REGISTRY.counter(
+    "trino_fused_batches_total", "input batches absorbed by fused stages")
+FUSED_JIT_CALLS = REGISTRY.counter(
+    "trino_fused_jit_calls_total", "fused accumulate-program dispatches")
+FUSED_COMPILES = REGISTRY.counter(
+    "trino_fused_compiles_total", "distinct (program, bucket) traces")
+FUSED_CACHE_HITS = REGISTRY.counter(
+    "trino_fused_cache_hits_total",
+    "fused dispatches served by an existing trace")
+FUSED_MERGES = REGISTRY.counter(
+    "trino_fused_seam_merges_total", "fused seam merge programs executed")
+FUSED_FALLBACKS = REGISTRY.counter(
+    "trino_fused_fallbacks_total",
+    "fused-stage overflow fallbacks to the legacy path")
+FUSED_COMPILE_SECONDS = REGISTRY.distribution(
+    "trino_fused_compile_seconds",
+    "wall time of fused-program trace+compile dispatches", lo=1e-3)
+
+# whole-query compilation (execution/plan_compiler.py)
+RESIDENT_PLANS = REGISTRY.counter(
+    "trino_resident_plans_total", "maximal TPU-resident plans executed")
+RESIDENT_PROGRAMS = REGISTRY.counter(
+    "trino_resident_programs_total",
+    "distinct (resident program, bucket) traces compiled")
+RESIDENT_SEAMS = REGISTRY.counter(
+    "trino_resident_seams_total",
+    "interior exchange edges fused inside resident-plan programs")
+RESIDENT_BATCHES = REGISTRY.counter(
+    "trino_resident_batches_total",
+    "probe batches absorbed by resident-plan programs")
+RESIDENT_JIT_CALLS = REGISTRY.counter(
+    "trino_resident_jit_calls_total",
+    "whole-plan program dispatches (one per probe batch)")
+RESIDENT_CODE_SEAMS = REGISTRY.counter(
+    "trino_resident_code_seam_columns_total",
+    "dictionary-code lanes that crossed an interior seam unmaterialized")
+RESIDENT_FALLBACKS = REGISTRY.counter(
+    "trino_resident_fallbacks_total",
+    "resident-plan overflow/dup-key fallbacks to the legacy path")
+
 
 # ------------------------------------------------------------ observe hooks
 
@@ -547,6 +592,33 @@ def observe_encoding(enc) -> None:
     ENCODING_BYTES_SAVED.inc(enc.bytes_saved)
     ENCODING_LAZY_SKIPPED_BYTES.inc(enc.lazy_skipped_bytes)
     ENCODING_RLE_AGG_ROWS.inc(enc.rle_agg_rows)
+
+
+def observe_fused(fs) -> None:
+    """Fold a FusedStageStats roll-up.  ``compiles`` is deliberately NOT
+    added here: the compile site (execution/stage_compiler.py) records it
+    directly, together with the compile-wall-time histogram."""
+    if fs is None or not fs.any:
+        return
+    FUSED_STAGES.inc(fs.stages)
+    FUSED_BATCHES.inc(fs.batches)
+    FUSED_JIT_CALLS.inc(fs.jit_calls)
+    FUSED_CACHE_HITS.inc(fs.cache_hits)
+    FUSED_MERGES.inc(fs.merges)
+    FUSED_FALLBACKS.inc(fs.fallbacks)
+
+
+def observe_resident(rs) -> None:
+    """Fold a ResidentPlanStats roll-up.  ``programs`` and
+    ``code_seam_columns`` are recorded at their event sites
+    (execution/plan_compiler.py), mirroring the observe_fused contract."""
+    if rs is None or not rs.any:
+        return
+    RESIDENT_PLANS.inc(rs.plans)
+    RESIDENT_SEAMS.inc(rs.seams)
+    RESIDENT_BATCHES.inc(rs.batches)
+    RESIDENT_JIT_CALLS.inc(rs.jit_calls)
+    RESIDENT_FALLBACKS.inc(rs.fallbacks)
 
 
 def update_device_memory_watermark(device=None) -> Optional[int]:
