@@ -4,9 +4,10 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10-20, 6, 9, so the kernel phase holds the staged,
-surface, window, nested, parallel, distributed and compiled paths' calls
-too).  The
+the order 1-5, 7, 8, 10-21, 6, 9, so the kernel phase holds the staged,
+surface, window, nested, parallel, distributed, compiled and
+fault-tolerant paths' calls too; every phase but 21 runs with
+TRINO_TPU_HBO=0 and TRINO_TPU_ADAPTIVE=0).  The
 tpch path
 runs the runner's default scan: dynamic filters, split prefetch threads,
 coalescing into pinned buffers with side-stream copies, RLE / LAZY
@@ -3528,6 +3529,528 @@ def compiled(torch, GK, default_catalog, sqls: dict, path_rows: dict,
     return launches, dist
 
 
+# ---------------------------------------------------------------------------
+# phase 21: history-based optimization, the adaptive plane and fault-
+# tolerant execution on the distributed path
+
+P21_PINS = ("TRINO_TPU_HBO", "TRINO_TPU_ADAPTIVE")  # "0" before phase 21
+P21_HBO = ("Q1", "Q3", "Q5", "Q18")  # twice each: record, plan from it
+P21_ADAPTIVE_RUNS = 2  # decision-site queries run at auto
+P21_FTE = ("Q1", "Q3", "Q12", "R1")  # retry_policy=TASK
+P21_CAPTURE = ("Q3", "Q12", "R1")  # phase 6's "fault-tolerant" cases
+P21_JOIN = ("select c.c_mktsegment, count(*) n, sum(o.o_totalprice) s "
+            "from orders o join customer c on o.o_custkey = c.c_custkey "
+            "group by c.c_mktsegment order by 1")
+P21_SKEW = ("select count(*) n, sum(p.v + b.w) s from skew21 p "
+            "join dim21 b on p.k = b.k")
+SKEW_ROWS = 6_000_000
+SKEW_SHARE = 0.3  # of the probe rows on one join key
+SKEW_KEYS = 100_000
+SKEW_SEED = 21
+SKEW_FACTOR = 1.1  # 30 % against 1.1 x the 25 % mean of four tasks
+P21_STALL_S = 60.0  # the stalled leaf's stall; its twin must win first
+P21_JOURNAL_FILL = 12 << 20  # bytes appended before (a2)'s lookups
+P21_JOURNAL_ROUNDS = 5
+
+
+def _walk_plan(node):
+    yield node
+    for c in node.children:
+        yield from _walk_plan(c)
+
+
+def _join_distributions(runner, sql: str) -> list:
+    from trino_tpu_torch.planner.plan import Join
+
+    return [f"f{f.id}:{n.distribution}"
+            for f in runner.create_subplan(sql).all_fragments()
+            for n in _walk_plan(f.root) if isinstance(n, Join)]
+
+
+def _plan_stats_records() -> list:
+    from trino_tpu_torch.telemetry import journal
+
+    return journal.get_journal().read(events=("plan_stats",))
+
+
+def _compiled_edges(runner) -> str:
+    """The fused seams' and resident plans' fragment ids of the runner's
+    last query (a history-driven fan-out can take a seam away)."""
+    return (f"fused seams {sorted(runner._fused_edges)}, resident plans "
+            f"{sorted(runner._resident_edges)}")
+
+
+def _journal_cost(torch, cat, sqls: dict, smi: str) -> None:
+    """(a2) What history costs a plan-cache hit and a plan at the default
+    knobs once the journal is full: P21_JOURNAL_FILL bytes of query
+    triples (created, completed, an 8-node plan_stats) are appended, then
+    a standalone runner executes Q6 (appending its own records) and looks
+    its plan up, and plans Q3, P21_JOURNAL_ROUNDS times.  Printed beside
+    them: one full parse of the journal's plan_stats, the cost a lookup
+    would pay if the table were re-read after every append."""
+    from trino_tpu_torch.caching import plan_cache
+    from trino_tpu_torch.planner import history
+    from trino_tpu_torch.runner import StandaloneQueryRunner
+    from trino_tpu_torch.telemetry import journal
+
+    t_part = time.perf_counter()
+    j = journal.get_journal()
+    created, completed = [r for r in journal.sample_records()
+                          if r["event"] in ("query_created",
+                                            "query_completed")][:2]
+
+    def size() -> int:
+        return sum(os.path.getsize(f) for f in j.fleet_files())
+
+    start, i = size(), 0
+    while size() - start < P21_JOURNAL_FILL:
+        for _ in range(256):
+            j._write(created)
+            j._write(completed)
+            j.plan_stats(f"fill_{i}", "fill", {
+                f"fill{i:07d}n{n}": {"rows": 1000 * n + i, "bytes": 8 * i}
+                for n in range(8)}, 1.7e9 + i)
+            i += 1
+    written = size() - start
+    t0 = time.perf_counter()
+    n_stats = len(j.read(events=("plan_stats",)))
+    full_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    table, _ = history._stats_table()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    sa = StandaloneQueryRunner(cat, device="cuda")
+    hit_ms, plan_ms = [], []
+    for _ in range(P21_JOURNAL_ROUNDS):
+        sa.execute(sqls["Q6"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hit = plan_cache.lookup(sqls["Q6"], sa.session, cat,
+                                sa.execution_key)
+        hit_ms.append((time.perf_counter() - t0) * 1e3)
+        if hit is None:
+            raise AssertionError("resilient journal: Q6's plan missed")
+        t0 = time.perf_counter()
+        sa.create_plan(sqls["Q3"])
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"resilient journal ({smi}): {written} bytes of {3 * i} records "
+        f"appended ({n_stats} plan_stats, {len(table)} fingerprints in "
+        f"the table, {len(j.fleet_files())} files); a full parse of its "
+        f"plan_stats {full_ms:.2f} ms; the first table lookup "
+        f"{first_ms:.2f} ms; after each executed Q6, its plan-cache hit "
+        f"ms {[round(x, 3) for x in hit_ms]}, a plan of Q3 ms "
+        f"{[round(x, 2) for x in plan_ms]}; (a2) took "
+        f"{time.perf_counter() - t_part:.1f} s")
+
+
+def _skew_tables(torch, cat, device) -> tuple:
+    """``memory.skew21`` (k, v: SKEW_ROWS rows, SKEW_SHARE of them on key
+    7) and ``memory.dim21`` (k, w: SKEW_KEYS rows) generated on the card
+    from SKEW_SEED, pinned there; returns the expected (count, sum)."""
+    from trino_tpu_torch.spi.batch import Column, ColumnBatch
+    from trino_tpu_torch.spi.connector import ColumnSchema, TableSchema
+    from trino_tpu_torch.spi.types import BIGINT
+
+    g = torch.Generator(device=device)
+    g.manual_seed(SKEW_SEED)
+    k = torch.randint(0, SKEW_KEYS, (SKEW_ROWS,), generator=g,
+                      device=device)
+    hot = torch.rand(SKEW_ROWS, generator=g, device=device) < SKEW_SHARE
+    k = torch.where(hot, torch.full_like(k, 7), k)
+    v = torch.randint(0, 100, (SKEW_ROWS,), generator=g, device=device)
+    dk = torch.arange(SKEW_KEYS, device=device)
+    w = dk % 13
+    mem = cat.connector("memory")
+    for name, cols in (("skew21", (("k", k), ("v", v))),
+                       ("dim21", (("k", dk), ("w", w)))):
+        mem.create_table(TableSchema(name, tuple(
+            ColumnSchema(c, BIGINT) for c, _ in cols)))
+        mem.finish_insert(name, [[ColumnBatch(
+            [c for c, _ in cols], [Column(BIGINT, t) for _, t in cols])]])
+        mem.pin_to_device(name, device)
+    want = (SKEW_ROWS, int((v.sum() + w[k].sum()).item()))
+    return want, float(hot.float().mean().item())
+
+
+def resilient(torch, GK, default_catalog, sqls: dict, path_rows: dict,
+              smi: str) -> tuple:
+    """Phase 21: history-based optimization, the adaptive plane and
+    fault-tolerant execution, DistributedQueryRunner(worker_count=4) on the
+    card over the tpch connector at SF 1, at the default knobs (the
+    earlier phases pin TRINO_TPU_HBO=0 and TRINO_TPU_ADAPTIVE=0), with the
+    script's fresh journal and the result tier off.  (a) HBO: Q1, Q3, Q5
+    and Q18 twice each (the fingerprints the first run records; the
+    second's lookups, hits, join distributions, fan-out adjustments and
+    compiled edges; whether its plan changed), then one standalone plan
+    and its hits; (a2) a plan-cache hit and a plan after a 12 MiB journal
+    fill (``_journal_cost``).  (b) Adaptive:
+    the queries whose plan has a decision site, two of them at auto; a
+    mis-estimate drill (TRINO_TPU_BROADCAST_ROW_LIMIT=0: the barrier flips
+    the join from observed bytes); a skew drill over a 6,000,000-row
+    memory table generated on the card (30 % of its rows on one key: the
+    split and its imbalance ratio).  (c) FTE: Q1, Q3, Q12 and R1 under
+    retry_policy=TASK (spool bytes written and read, attempts, every
+    spooled page read back onto the card), then Q3 once with a task
+    failure on a join-stage task, an upstream read failure, a corrupted
+    part file and an out-of-memory attempt (the memory multiplier).
+    (d) Q3 under retry_policy=QUERY with one injected failure; an FTE Q3
+    interrupted after its first commits and resumed by a fresh runner
+    from the write-ahead log (no committed attempt re-executed); a
+    stalled leaf task whose speculative twin wins.  Rows equal phase 3's
+    (the drills: a static run of the same query, or the card's own
+    evaluation of the generated tables).  Returns the launches of (b) and
+    (c) and the FTE runner for phase 6's "fault-tolerant" cases."""
+    t_phase = time.perf_counter()
+    from trino_tpu_torch.execution import durable_spool, query_state, spool_gc
+    from trino_tpu_torch.execution.distributed_runner import (
+        DistributedQueryRunner)
+    from trino_tpu_torch.execution.failure_injector import (
+        GET_RESULTS_FAILURE, SPOOL_CORRUPTION, TASK_FAILURE, TASK_OOM,
+        TASK_STALL, FailureInjector)
+    from trino_tpu_torch.planner.plan import Join
+    from trino_tpu_torch.runner import Session, StandaloneQueryRunner
+    from trino_tpu_torch.telemetry import metrics as tm
+    from trino_tpu_torch.telemetry import runtime as rt
+
+    base = tempfile.mkdtemp(prefix="chip-smoke-p21-", dir="build")
+    with contextlib.ExitStack() as stack:
+        for name in P21_PINS:  # the defaults, for this phase only
+            old = os.environ.pop(name, None)
+            stack.callback(
+                lambda n=name, o=old: os.environ.__setitem__(n, o)
+                if o is not None else None)
+        stack.enter_context(_env_scope("TRINO_TPU_SPOOL_DIR",
+                                       os.path.join(base, "spool"))())
+        stack.enter_context(_env_scope("TRINO_TPU_QUERY_STATE_DIR",
+                                       os.path.join(base, "state"))())
+        stack.callback(shutil.rmtree, base, True)
+        cat = default_catalog(PATH_SF)
+        dist = DistributedQueryRunner(
+            cat, worker_count=DIST_WORKERS, device="cuda",
+            session=Session(node_count=DIST_WORKERS))
+        log(f"resilient: {DIST_WORKERS} tasks per stage share one card "
+            f"({smi}); default knobs (HBO auto, adaptive auto, fused seams "
+            "and resident plans on); a fresh journal")
+
+        # -- (a) HBO ----------------------------------------------------
+        t_part = time.perf_counter()
+        if _plan_stats_records():
+            raise AssertionError("phase 21 starts from a journal with "
+                                 "plan_stats: phases 3-20 pin HBO off")
+        for name in P21_HBO:
+            sql = sqls[name]
+            plan1 = dist.explain(sql)
+            dists1 = _join_distributions(dist, sql)
+            n0 = len(_plan_stats_records())
+            ms1, res = _timed(torch, dist, sql)
+            _same_dist(res.rows(), path_rows[name], sql,
+                       f"resilient {name} run 1", DOUBLE_RTOL)
+            edges1 = _compiled_edges(dist)
+            recs = _plan_stats_records()[n0:]
+            if len(recs) != 1 or not recs[0]["nodes"]:
+                raise AssertionError(f"resilient {name}: run 1 recorded "
+                                     f"{len(recs)} plan_stats records")
+            log(f"resilient HBO {name} run 1: {ms1:.1f} ms ({smi}); join "
+                f"distributions {dists1}; {edges1}; recorded fingerprints "
+                + json.dumps(recs[0]["nodes"], sort_keys=True))
+            look0 = tm.HBO_PLAN_LOOKUPS.value()
+            hits0 = tm.HBO_PLAN_HITS.value()
+            fan0 = tm.HBO_FANOUT_ADJUSTED.value()
+            ms2, res = _timed(torch, dist, sql)
+            _same_dist(res.rows(), path_rows[name], sql,
+                       f"resilient {name} run 2", DOUBLE_RTOL)
+            fanout = [t for t in rt.queries()[-1].adaptive_decisions
+                      .split(",") if t.startswith("hbo_fanout")]
+            look = tm.HBO_PLAN_LOOKUPS.value() - look0
+            hits = tm.HBO_PLAN_HITS.value() - hits0
+            fan = tm.HBO_FANOUT_ADJUSTED.value() - fan0
+            if not look and not fan:  # Q1 has no join: only the fan-out
+                raise AssertionError(f"resilient {name}: run 2 planned "
+                                     "without the history table")
+            edges2 = _compiled_edges(dist)
+            plan2 = dist.explain(sql)
+            log(f"resilient HBO {name} run 2: {ms2:.1f} ms ({smi}); "
+                f"{look} history lookups, {hits} hits; join distributions "
+                f"{_join_distributions(dist, sql)}; fan-out adjustments "
+                f"{fan} {fanout}; plan "
+                f"{'differs from' if plan2 != plan1 else 'equals'} run 1's; "
+                f"{edges2} ({'same as' if edges2 == edges1 else 'not'} "
+                "run 1's)")
+        look0 = tm.HBO_PLAN_LOOKUPS.value()
+        hits0 = tm.HBO_PLAN_HITS.value()
+        StandaloneQueryRunner(cat, device="cuda").create_plan(sqls["Q3"])
+        log(f"resilient HBO: a standalone plan of Q3 after the records: "
+            f"{tm.HBO_PLAN_LOOKUPS.value() - look0} lookups, "
+            f"{tm.HBO_PLAN_HITS.value() - hits0} hits; (a) took "
+            f"{time.perf_counter() - t_part:.1f} s")
+        _journal_cost(torch, cat, sqls, smi)
+
+        # -- (b) adaptive -------------------------------------------------
+        t_part = time.perf_counter()
+        GK.reset_launch_counts()
+        sites = {n: dist.adaptive_sites(sqls[n]) for n in sqls}
+        with_sites = [n for n in sqls if sites[n]]
+        log(f"resilient adaptive: decision sites at {DIST_WORKERS} tasks: "
+            + "; ".join(f"{n} {sites[n]}" for n in with_sites)
+            + f" ({len(with_sites)} of {len(sqls)} queries)")
+        for name in with_sites[:P21_ADAPTIVE_RUNS]:
+            sql = sqls[name]
+            ms, res = _timed(torch, dist, sql)
+            rtol = REAL_PARITY_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+            _same_dist(res.rows(), path_rows[name], sql,
+                       f"resilient adaptive {name}", rtol)
+            st = dist.last_adaptive.stats
+            log(f"resilient adaptive {name}: {ms:.1f} ms ({smi}); "
+                f"{st.activations} phased activations, decisions "
+                f"{st.decisions}; rows equal phase 3's")
+        with contextlib.ExitStack() as drill:
+            # the drills hold the planner's static choice: no history, no
+            # fused seam, host edges (decision sites need plain buffers)
+            for k, v in (("TRINO_TPU_HBO", "0"),
+                         ("TRINO_TPU_FUSED_STAGE", "0"),
+                         ("TRINO_TPU_BROADCAST_ROW_LIMIT", "0")):
+                drill.enter_context(_env_scope(k, v)())
+            plain = DistributedQueryRunner(
+                cat, worker_count=DIST_WORKERS, device="cuda",
+                session=Session(node_count=DIST_WORKERS,
+                                use_collectives=False))
+            static = DistributedQueryRunner(
+                cat, worker_count=DIST_WORKERS, device="cuda",
+                session=Session(node_count=DIST_WORKERS, adaptive="0",
+                                use_collectives=False))
+            want = static.execute(P21_JOIN).rows()
+            ms, res = _timed(torch, plain, P21_JOIN)
+            _same_dist(res.rows(), want, P21_JOIN, "resilient mis-estimate",
+                       DOUBLE_RTOL)
+            plane = plain.last_adaptive
+            if plane is None or not any(
+                    t.startswith("flip_to_broadcast")
+                    for t in plane.stats.decisions):
+                raise AssertionError("resilient mis-estimate: no flip to "
+                                     "broadcast")
+            site = plane.sites[0]
+            log(f"resilient adaptive mis-estimate (row limit 0: the plan "
+                f"partitions orders x customer): decisions "
+                f"{plane.stats.decisions}; observed build bytes "
+                f"{site.build.bytes_observed()} against the threshold "
+                f"{plane.threshold}; {ms:.1f} ms ({smi}); rows equal the "
+                "static plan's")
+            skew_cat = default_catalog(PATH_SF)
+            want, share = _skew_tables(torch, skew_cat, dist.device)
+            skew = DistributedQueryRunner(
+                skew_cat, worker_count=DIST_WORKERS, device="cuda",
+                session=Session(node_count=DIST_WORKERS,
+                                default_catalog="memory",
+                                use_collectives=False,
+                                broadcast_threshold_bytes=1000,
+                                skew_factor=SKEW_FACTOR))
+            ms, res = _timed(torch, skew, P21_SKEW)
+            got = res.rows()
+            if got != [want]:
+                raise AssertionError(f"resilient skew: {got} != {[want]}")
+            plane = skew.last_adaptive
+            if not plane.last_split:
+                raise AssertionError(f"resilient skew: no split "
+                                     f"{plane.stats.decisions}")
+            log(f"resilient adaptive skew ({SKEW_ROWS} probe rows generated "
+                f"on the card, seed {SKEW_SEED}, {share:.4f} of them on "
+                f"key 7; {SKEW_KEYS} build keys): decisions "
+                f"{plane.stats.decisions}; split "
+                f"{ {h: t.tolist() for h, t in plane.last_split.items()} }; "
+                f"imbalance ratio {plane.last_imbalance:.4f}; {ms:.1f} ms "
+                f"({smi}); count and sum equal the card's evaluation "
+                f"{want}")
+            del skew, skew_cat, plain, static
+        adaptive_launches = dict(GK.LAUNCHES)
+        log(f"resilient adaptive launches {adaptive_launches}; (b) took "
+            f"{time.perf_counter() - t_part:.1f} s")
+
+        # -- (c) fault-tolerant execution ----------------------------------
+        t_part = time.perf_counter()
+        GK.reset_launch_counts()
+        spool = {"written": 0, "read": 0, "pages": 0, "off_card": 0}
+        orig_write = durable_spool.write_frame_crc
+        orig_iter = durable_spool._iter_partition
+
+        def write_frame(f, page):
+            spool["written"] += len(page)
+            return orig_write(f, page)
+
+        def iter_partition(d, p, device=None):
+            path = os.path.join(d, f"part-{p}.bin")
+            if os.path.exists(path):
+                spool["read"] += os.path.getsize(path)
+            for b in orig_iter(d, p, device):
+                spool["pages"] += 1
+                spool["off_card"] += b.device.type != dist.device.type
+                yield b
+
+        durable_spool.write_frame_crc = write_frame
+        durable_spool._iter_partition = iter_partition
+        stack.callback(setattr, durable_spool, "write_frame_crc", orig_write)
+        stack.callback(setattr, durable_spool, "_iter_partition", orig_iter)
+        fte = DistributedQueryRunner(
+            cat, worker_count=DIST_WORKERS, device="cuda",
+            session=Session(node_count=DIST_WORKERS, retry_policy="TASK"))
+        for name in P21_FTE:
+            sql = sqls[name]
+            before = dict(spool)
+            a0 = tm.FTE_ATTEMPT_STARTS.value()
+            ms, res = _timed(torch, fte, sql)
+            rtol = REAL_PARITY_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+            _same_dist(res.rows(), path_rows[name], sql,
+                       f"resilient FTE {name}", rtol)
+            log(f"resilient FTE {name}: {ms:.1f} ms ({smi}); "
+                f"{tm.FTE_ATTEMPT_STARTS.value() - a0:.0f} attempts; spool "
+                f"bytes written {spool['written'] - before['written']}, "
+                f"read {spool['read'] - before['read']} "
+                f"({spool['pages'] - before['pages']} pages read onto the "
+                "card); rows equal phase 3's")
+        join_fid = next(
+            f.id for f in fte.create_subplan(sqls["Q3"]).all_fragments()
+            if any(isinstance(n, Join) for n in _walk_plan(f.root)))
+        inj = FailureInjector()
+        inj.inject(TASK_FAILURE, fragment_id=join_fid, task_index=0,
+                   attempt=0)
+        inj.inject(GET_RESULTS_FAILURE, task_index=1, attempt=0)
+        inj.inject(SPOOL_CORRUPTION, task_index=2, attempt=0)
+        inj.inject(TASK_OOM, task_index=3, attempt=0)
+        drills = DistributedQueryRunner(
+            cat, worker_count=DIST_WORKERS, device="cuda",
+            session=Session(node_count=DIST_WORKERS, retry_policy="TASK",
+                            failure_injector=inj))
+        drills.session.fte_events = []
+        a0 = tm.FTE_ATTEMPT_STARTS.value()
+        r0 = tm.FTE_ATTEMPT_RETRIES.value()
+        ms, res = _timed(torch, drills, sqls["Q3"])
+        _same_dist(res.rows(), path_rows["Q3"], sqls["Q3"],
+                   "resilient FTE drills", DOUBLE_RTOL)
+        fired = [(r.kind, r.fired) for r in inj.rules]
+        events = [e for e in drills.session.fte_events if e[0] != "commit"]
+        mem = [e for e in events if e[0] == "memory_retry"]
+        if any(not n for _, n in fired) or not mem or not [
+                e for e in events if e[0] == "spool_corruption"]:
+            raise AssertionError(f"resilient FTE drills: fired {fired}, "
+                                 f"events {events}")
+        log(f"resilient FTE Q3 with four injected faults: {ms:.1f} ms "
+            f"({smi}); fired {fired} (the task failure on join stage "
+            f"f{join_fid}); {tm.FTE_ATTEMPT_STARTS.value() - a0:.0f} "
+            f"attempts, {tm.FTE_ATTEMPT_RETRIES.value() - r0:.0f} retries; "
+            f"events {events}; memory multiplier {mem[0][3]}; rows equal "
+            "phase 3's")
+        if spool["off_card"] or not spool["pages"]:
+            raise AssertionError(f"resilient FTE: spool reads {spool}")
+        del drills
+        ft_launches = dict(GK.LAUNCHES)
+        for k in SOURCES:
+            if ft_launches[k] <= 0:
+                raise AssertionError(f"the fault-tolerant path launched no "
+                                     f"{k} on the card")
+        log(f"resilient FTE launches {ft_launches}; spool {spool}; (c) took "
+            f"{time.perf_counter() - t_part:.1f} s")
+
+        # -- (d) query retry, resume, speculation -------------------------
+        t_part = time.perf_counter()
+        inj = FailureInjector()
+        inj.inject(TASK_FAILURE, task_index=0, attempt=0)
+        retry = DistributedQueryRunner(
+            cat, worker_count=DIST_WORKERS, device="cuda",
+            session=Session(node_count=DIST_WORKERS, retry_policy="QUERY",
+                            query_retry_attempts=1, failure_injector=inj))
+        ms, res = _timed(torch, retry, sqls["Q3"])
+        _same_dist(res.rows(), path_rows["Q3"], sqls["Q3"],
+                   "resilient QUERY retry", DOUBLE_RTOL)
+        if retry.resilience.query_retries != 1:
+            raise AssertionError(f"resilient QUERY: {retry.resilience}")
+        log(f"resilient QUERY Q3, one injected task failure: {ms:.1f} ms "
+            f"({smi}); {retry.resilience.text()}; events "
+            f"{retry.resilience_events}; rows equal phase 3's")
+        del retry
+        inj = FailureInjector()
+        crashed = DistributedQueryRunner(
+            cat, worker_count=DIST_WORKERS, device="cuda",
+            session=Session(node_count=DIST_WORKERS, retry_policy="TASK",
+                            failure_injector=inj, fte_speculative=False,
+                            task_retry_attempts=1))
+        frags = crashed.create_subplan(sqls["Q3"]).all_fragments()
+        last = [f.id for f in frags if f.source_fragments][-1]
+        inj.inject(TASK_FAILURE, fragment_id=last, task_index=None,
+                   attempt=None, times=10)
+        with contextlib.ExitStack() as crash:
+            # what a coordinator killed mid-query leaves: no terminal WAL
+            # record, the spool root not released
+            crash.callback(setattr, query_state.QueryStateLog, "end",
+                           query_state.QueryStateLog.end)
+            crash.callback(setattr, spool_gc, "release", spool_gc.release)
+            query_state.QueryStateLog.end = lambda self, *a, **kw: None
+            spool_gc.release = lambda root: 0
+            try:
+                # a query id of its own: the write-ahead log is per query
+                # id, and every runner numbers its queries from dq_1
+                crashed.execute(sqls["Q3"], query_id="p21_interrupted")
+                raise AssertionError("resilient resume: the query did not "
+                                     "fail")
+            except AssertionError:
+                raise
+            except Exception as e:  # the injected interruption
+                cause = f"{type(e).__name__}: {e}"
+        pending = crashed.pending_fte_recoveries()
+        if len(pending) != 1 or not pending[0].committed:
+            raise AssertionError(f"resilient resume: pending {pending}")
+        pq = pending[0]
+        starts = dict(pq.attempt_counts)
+        fresh = DistributedQueryRunner(
+            cat, worker_count=DIST_WORKERS, device="cuda",
+            session=Session(node_count=DIST_WORKERS, retry_policy="TASK"))
+        t0 = time.perf_counter()
+        rows = fresh.resume_fte_query(pq).rows()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        _same_dist(rows, path_rows["Q3"], sqls["Q3"], "resilient resume",
+                   DOUBLE_RTOL)
+        final = query_state.load(pq.path)
+        rerun = [k for k in pq.committed
+                 if final.attempt_counts.get(k, 0) != starts.get(k, 0)]
+        if final.ended != "FINISHED" or rerun:
+            raise AssertionError(f"resilient resume: {final.ended}, "
+                                 f"re-executed {rerun}")
+        log(f"resilient resume: Q3 interrupted ({cause[:80]}) after "
+            f"{len(pq.committed)} committed attempts; a fresh runner "
+            f"resumed it from the write-ahead log in {ms:.1f} ms ({smi}); "
+            f"attempt starts per (fragment, task) before "
+            f"{dict(sorted(starts.items()))}, after "
+            f"{dict(sorted(final.attempt_counts.items()))}: no committed "
+            "attempt re-executed; rows equal phase 3's")
+        del crashed, fresh
+        with _env_scope("TRINO_TPU_FUSED_STAGE", "0")():
+            inj = FailureInjector()
+            spec = DistributedQueryRunner(
+                cat, worker_count=DIST_WORKERS, device="cuda",
+                session=Session(node_count=DIST_WORKERS, speculation=True,
+                                speculation_min_delay_s=0.5, adaptive="0",
+                                use_collectives=False,
+                                failure_injector=inj))
+            leaf = next(f.id for f in
+                        spec.create_subplan(sqls["Q1"]).all_fragments()
+                        if not f.source_fragments)
+            inj.inject(TASK_STALL, fragment_id=leaf, task_index=0,
+                       attempt=0, stall_s=P21_STALL_S)
+            ms, res = _timed(torch, spec, sqls["Q1"])
+        _same_dist(res.rows(), path_rows["Q1"], sqls["Q1"],
+                   "resilient speculation", DOUBLE_RTOL)
+        if not spec.speculative_wins or ms >= P21_STALL_S * 1e3:
+            raise AssertionError(f"resilient speculation: "
+                                 f"{spec.resilience_events}")
+        log(f"resilient speculation: Q1 with leaf task f{leaf}.t0 stalled "
+            f"{P21_STALL_S:g} s finished in {ms:.1f} ms ({smi}); "
+            f"{spec.speculative_starts} twins started, "
+            f"{spec.speculative_wins} won; events {spec.resilience_events}; "
+            f"rows equal phase 3's; (d) took "
+            f"{time.perf_counter() - t_part:.1f} s")
+        del spec, dist
+    log(f"resilient: {time.perf_counter() - t_phase:.1f} s for phase 21")
+    return ft_launches, adaptive_launches, fte
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -3627,6 +4150,19 @@ def kernel_cases(torch, GK, captured) -> list:
     ]
     if cases[-1][2] is None:
         raise AssertionError("no captured hash_probe call of compiled Q3")
+    # the fault-tolerant path (phase 21): a task attempt's largest insert
+    # of Q3, its probe of Q12's non-unique build, R1's segment sum
+    cases += [
+        ("hash_insert", "fault-tolerant: Q3 largest insert of a task "
+         "attempt", pick("fault-tolerant Q3", "hash_insert",
+                         lambda c: True)),
+        ("hash_probe", "fault-tolerant: Q12 largest probe of a task "
+         "attempt", pick("fault-tolerant Q12", "hash_probe",
+                         lambda c: True)),
+        ("masked_segment_sum_f32", "fault-tolerant: R1 REAL sum of a task "
+         "attempt", pick("fault-tolerant R1", "masked_segment_sum_f32",
+                         lambda c: True)),
+    ]
     return cases
 
 
@@ -3664,6 +4200,11 @@ def main() -> int:
     os.makedirs("build", exist_ok=True)
     journal_dir = tempfile.mkdtemp(prefix="chip-smoke-journal-", dir="build")
     os.environ["TRINO_TPU_JOURNAL_DIR"] = journal_dir
+    # history-based optimization and the adaptive plane stay off in every
+    # phase but 21, so the earlier phases' plans and times compare with
+    # the runs before them (phase 21 runs the defaults)
+    for name in P21_PINS:
+        os.environ[name] = "0"
     executing = contextlib.ExitStack()
     executing.enter_context(result_cache.disabled())
     try:
@@ -3841,6 +4382,11 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
         torch, GK, default_catalog, sqls, path_rows, smi)
     progress("20 (compiled)")
 
+    # -- 21. HBO, the adaptive plane, fault-tolerant execution --------------
+    ft_launches, adaptive_launches, fte_dist = resilient(
+        torch, GK, default_catalog, sqls, path_rows, smi)
+    progress("21 (resilient)")
+
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
     # kept apart from the path runs so the held tensors do not inflate
@@ -3862,6 +4408,8 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
            for name in DIST_CAPTURE]
         + [(f"compiled {name}", compiled_dist, sqls[name])
            for name in COMPILED_CAPTURE]
+        + [(f"fault-tolerant {name}", fte_dist, sqls[name])
+           for name in P21_CAPTURE]
         + [("distributed q1_step",
             _Program(lambda: bench_q1_step(q1_batch)), None)])
     staged.execute(f"drop table {ANALYZE_CASE}")
@@ -3914,6 +4462,8 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
             "launches_telemetry": telemetry_launches[kernel],
             "launches_distributed": distributed_launches[kernel],
             "launches_compiled": compiled_launches[kernel],
+            "launches_fault_tolerant": ft_launches[kernel],
+            "launches_adaptive": adaptive_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],
@@ -3923,7 +4473,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
         entry["max_abs_err"] = max(entry["max_abs_err"], res["err"])
         entry["cases"].append(case)
     del captured, cases, args, res, staged, staged_cat, runner, parallel
-    del dist, q1_batch, compiled_dist
+    del dist, q1_batch, compiled_dist, fte_dist
     torch.cuda.empty_cache()
     progress("6 (kernels)")
 

@@ -23,7 +23,6 @@ from trino_tpu.connectors.catalog import default_catalog as ref_catalog
 from trino_tpu.execution import collective_exchange as RCE
 from trino_tpu.execution.distributed_runner import (
     DistributedQueryRunner as RefDist)
-from trino_tpu.planner import optimizer as RO
 from trino_tpu.runner import Session as RefSession
 from trino_tpu_torch.caching import result_cache
 from trino_tpu_torch.connectors.catalog import default_catalog
@@ -33,7 +32,6 @@ from trino_tpu_torch.execution import collective_exchange as CE
 from trino_tpu_torch.execution.distributed_runner import (
     DistributedQueryRunner)
 from trino_tpu_torch.parallel.distributed import make_mesh
-from trino_tpu_torch.planner import optimizer as PO
 from trino_tpu_torch.runner import Session
 from trino_tpu_torch.spi import batch as B
 from trino_tpu_torch.spi.batch import Column, ColumnBatch
@@ -122,8 +120,7 @@ def test_partitioned_string_join_routes_consistently(runners, monkeypatch,
                                                      tiled):
     """Both REPARTITION edges of a partitioned string-key join route equal
     values to the same task though each edge unifies its own dictionary."""
-    monkeypatch.setattr(PO, "_BROADCAST_LIMIT", 0)
-    monkeypatch.setattr(RO, "_BROADCAST_LIMIT", 0)
+    monkeypatch.setenv("TRINO_TPU_BROADCAST_ROW_LIMIT", "0")
     if tiled:
         monkeypatch.setattr(CE, "TILED_THRESHOLD_ROWS", 0)
         monkeypatch.setattr(RCE, "TILED_THRESHOLD_ROWS", 0)

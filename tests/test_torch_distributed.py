@@ -337,22 +337,36 @@ def test_task_telemetry_matches_reference():
     ("retry_policy", "'TASK'"), ("retry_policy", "'QUERY'"),
     ("speculation", "true"), ("adaptive", "'1'")])
 def test_unported_properties_raise(prop, value):
+    """Fault-tolerant execution, query retry, speculation and the adaptive
+    plane are ported: each property set by SQL runs the query to the
+    reference's rows (tests/test_torch_fte.py, test_torch_resilience.py
+    and test_torch_adaptive.py hold them in depth)."""
     port = DistributedQueryRunner(default_catalog(SF), worker_count=2,
                                   device="cpu")
-    port.execute(f"set session {prop} = {value}")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        port.execute("select count(*) from nation")
+    ref = RefDist(ref_catalog(scale_factor=SF), worker_count=2)
+    sql = ("select n_regionkey, count(*) from nation, region "
+           "where n_regionkey = r_regionkey group by 1 order by 1")
+    for r in (port, ref):
+        r.execute(f"set session {prop} = {value}")
+    assert port.session.get(prop) == ref.session.__dict__[prop]
+    _same(port.execute(sql).rows(), ref.execute(sql).rows(), True)
 
 
 def test_unported_methods_raise():
+    """What stays refused names its ROADMAP queue item: worker drains (the
+    control plane, item 4) and PROCESS_EXIT injection (worker processes,
+    item 5)."""
+    from trino_tpu_torch.execution.failure_injector import (
+        PROCESS_EXIT, FailureInjector)
+
     port = DistributedQueryRunner(default_catalog(SF), worker_count=2,
                                   device="cpu")
     for call in (lambda: port.drain_worker("worker-0"),
-                 lambda: port.restore_worker("worker-0"),
-                 lambda: port.resume_fte_query(None),
-                 lambda: port.fte_run_attempt(None)):
-        with pytest.raises(NotImplementedError, match="item 6"):
+                 lambda: port.restore_worker("worker-0")):
+        with pytest.raises(NotImplementedError, match="item 4"):
             call()
+    with pytest.raises(NotImplementedError, match="item 5"):
+        FailureInjector().inject(PROCESS_EXIT, fragment_id=1)
 
 
 def test_cuda_without_a_card_raises():

@@ -15,8 +15,10 @@ from trino_tpu_torch.connectors.catalog import default_catalog
 from trino_tpu_torch.connectors.tpch_queries import QUERIES
 from trino_tpu_torch.exec import kernels as K
 from trino_tpu_torch.ops import gpu_kernels as GK
+from trino_tpu_torch.planner import history
 from trino_tpu_torch.runner import StandaloneQueryRunner
 from trino_tpu_torch.caching import result_cache
+from trino_tpu_torch.telemetry import journal
 
 
 @pytest.fixture(autouse=True)
@@ -25,6 +27,27 @@ def _execution_not_cached():
     launches, syncs and revocations these tests count."""
     with result_cache.disabled():
         yield
+
+
+def _fresh_journal(monkeypatch, path):
+    """Point the query journal, and history's table of it, at ``path``.
+    A test that runs one query on two devices gives each leg a journal of
+    its own: at the default knobs the first leg's plan_stats would plan
+    the second leg's query (a shrunk fan-out, a flipped join)."""
+    monkeypatch.setenv("TRINO_TPU_JOURNAL_DIR", str(path))
+    journal.reset_for_test()
+    history.reset_for_test()
+
+
+@pytest.fixture(autouse=True)
+def _own_journal(monkeypatch, tmp_path):
+    """Every test starts from an empty journal of its own, at the default
+    knobs (history-based optimization and the adaptive plane on: this
+    module runs with ``--noconftest`` on the card)."""
+    _fresh_journal(monkeypatch, tmp_path / "journal")
+    yield
+    journal.reset_for_test()
+    history.reset_for_test()
 
 
 @pytest.fixture
@@ -970,7 +993,8 @@ def test_distributed_grouped_agg_four_shards_on_card(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("tiled", [False, True], ids=["lanes", "tiled"])
-def test_collective_exchange_on_card_equals_cpu(cuda, monkeypatch, tiled):
+def test_collective_exchange_on_card_equals_cpu(cuda, monkeypatch, tmp_path,
+                                                tiled):
     from trino_tpu_torch.execution import collective_exchange as CE
     from trino_tpu_torch.execution.distributed_runner import (
         DistributedQueryRunner)
@@ -983,6 +1007,7 @@ def test_collective_exchange_on_card_equals_cpu(cuda, monkeypatch, tiled):
     cat = default_catalog(0.01)
     rows = {}
     for dev in ("cpu", "cuda"):
+        _fresh_journal(monkeypatch, tmp_path / dev)
         dist = DistributedQueryRunner(cat, worker_count=4, device=dev,
                                       session=Session(node_count=4))
         rows[dev] = [dist.execute(QUERIES[q]).rows() for q in (1, 3, 18)]
@@ -999,7 +1024,7 @@ def test_collective_exchange_on_card_equals_cpu(cuda, monkeypatch, tiled):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("q", [1, 3])
-def test_compiled_stages_on_card_equal_cpu(cuda, monkeypatch, q):
+def test_compiled_stages_on_card_equal_cpu(cuda, monkeypatch, tmp_path, q):
     """Q1's fused seam and Q3's resident plan at their defaults on the
     card: the rows of the CPU run, the same compiled edges, no fallback,
     and the accumulate, build and probe launching the hash kernels."""
@@ -1013,6 +1038,7 @@ def test_compiled_stages_on_card_equal_cpu(cuda, monkeypatch, q):
     cat = default_catalog(0.01)
     rows, edges = {}, {}
     for dev in ("cpu", "cuda"):
+        _fresh_journal(monkeypatch, tmp_path / dev)
         dist = DistributedQueryRunner(cat, worker_count=4, device=dev,
                                       session=Session(node_count=4))
         before = dict(GK.LAUNCHES)
@@ -1031,3 +1057,86 @@ def test_compiled_stages_on_card_equal_cpu(cuda, monkeypatch, q):
         for x, y in zip(a, b):
             assert (x == pytest.approx(y, rel=1e-9)
                     if isinstance(y, float) else x == y), (a, b)
+
+
+@pytest.mark.gpu
+def test_fte_and_adaptive_on_card_equal_cpu(cuda, monkeypatch, tmp_path):
+    """Q3 under retry_policy=TASK with an injected task failure, and the
+    adaptive flip drill (a forced broadcast-row limit the barrier
+    corrects), give the CPU run's rows on the card; the FTE tasks launch
+    the hash kernels on the card (no retry takes a plain version)."""
+    from trino_tpu_torch.execution.distributed_runner import (
+        DistributedQueryRunner)
+    from trino_tpu_torch.execution.failure_injector import (
+        TASK_FAILURE, FailureInjector)
+    from trino_tpu_torch.runner import Session
+
+    monkeypatch.setenv("TRINO_TPU_SPOOL_DIR", str(tmp_path))
+    monkeypatch.setenv("TRINO_TPU_QUERY_STATE_DIR", str(tmp_path / "st"))
+    join = ("select c.c_mktsegment, count(*) n, sum(o.o_totalprice) s "
+            "from orders o join customer c on o.o_custkey = c.c_custkey "
+            "group by c.c_mktsegment order by 1")
+    cat = default_catalog(0.01)
+    rows, decisions = {}, {}
+    for dev in ("cpu", "cuda"):
+        _fresh_journal(monkeypatch, tmp_path / dev)
+        inj = FailureInjector()
+        inj.inject(TASK_FAILURE, task_index=0, attempt=0)
+        fte = DistributedQueryRunner(cat, worker_count=4, device=dev,
+                                     session=Session(
+                                         node_count=4, retry_policy="TASK",
+                                         failure_injector=inj))
+        before = dict(GK.LAUNCHES)
+        rows[("fte", dev)] = fte.execute(QUERIES[3]).rows()
+        assert any(r.fired for r in inj.rules)
+        if dev == "cuda":
+            assert GK.LAUNCHES["hash_insert"] > before["hash_insert"]
+        monkeypatch.setenv("TRINO_TPU_FUSED_STAGE", "0")
+        monkeypatch.setenv("TRINO_TPU_BROADCAST_ROW_LIMIT", "0")
+        ada = DistributedQueryRunner(cat, worker_count=3, device=dev,
+                                     session=Session(
+                                         node_count=3, adaptive="auto",
+                                         use_collectives=False,
+                                         broadcast_threshold_bytes=1 << 30))
+        rows[("ada", dev)] = ada.execute(join).rows()
+        decisions[dev] = ada.last_adaptive.stats.decisions
+        monkeypatch.delenv("TRINO_TPU_FUSED_STAGE")
+        monkeypatch.delenv("TRINO_TPU_BROADCAST_ROW_LIMIT")
+    assert decisions["cuda"] == decisions["cpu"]
+    assert "flip_to_broadcast" in decisions["cpu"][0]
+    for kind in ("fte", "ada"):
+        a, b = rows[(kind, "cuda")], rows[(kind, "cpu")]
+        assert len(a) == len(b) > 0
+        for x, y in zip(a, b):
+            assert x == y, (kind, x, y)
+
+
+@pytest.mark.gpu
+def test_spool_reads_land_on_card(cuda, tmp_path):
+    """A spooled page is decoded on the host and read back onto the card;
+    a WAL plan snapshot of a plan holding a card tensor unpickles to a
+    host tensor."""
+    from trino_tpu_torch.execution import query_state
+    from trino_tpu_torch.execution.durable_spool import (DurableSpoolClient,
+                                                         DurableSpoolWriter)
+    from trino_tpu_torch.execution.task import PartitionedOutputSink
+    from trino_tpu_torch.spi.batch import Column, ColumnBatch
+    from trino_tpu_torch.spi.types import BIGINT
+
+    batch = ColumnBatch(["x"], [Column(BIGINT, torch.arange(1000,
+                                                            device="cuda"))])
+    w = DurableSpoolWriter(str(tmp_path / "f0_t0"), 0, 2)
+    sink = PartitionedOutputSink(w, "REPARTITION", [0], serde=True)
+    sink.add_input(batch)
+    sink.finish_input()
+    w.set_finished()
+    got = []
+    for p in range(2):
+        c = DurableSpoolClient([w.committed], p, device=torch.device("cuda"))
+        while (pg := c.poll()) is not None:
+            assert pg.columns[0].data.is_cuda
+            got.extend(pg.columns[0].data.tolist())
+    assert sorted(got) == list(range(1000))
+    snap = query_state.decode_plan(query_state.encode_plan(
+        {"t": torch.arange(3, device="cuda")})[0])
+    assert snap["t"].device.type == "cpu" and snap["t"].tolist() == [0, 1, 2]

@@ -613,29 +613,39 @@ def test_engine_session_properties_run(name, value):
 
 
 def test_reference_only_properties_are_stored():
-    """``use_collectives`` is a Session field the distributed runner reads,
-    set to the reference's value; ``retry_policy`` stays stored unread."""
+    """``use_collectives`` and ``retry_policy`` are Session fields the
+    distributed runner reads, set to the reference's values;
+    ``max_worker_replacements`` (the control plane's) stays stored
+    unread."""
     ref, port = _runners()
     for sql in ("set session use_collectives = false",
                 "set session retry_policy = 'TASK'",
+                "set session max_worker_replacements = 3",
                 "set session node_count = 1"):
         _same(ref, port, sql)
     assert port.session.use_collectives is ref.session.use_collectives \
         is False
+    assert port.session.retry_policy == ref.session.retry_policy == "TASK"
     assert (port.session.get("use_collectives"),
-            port.session.get("retry_policy")) == (False, "TASK")
-    assert port.session.properties == {"retry_policy": "TASK"}
+            port.session.get("retry_policy"),
+            port.session.get("max_worker_replacements")) == (False, "TASK", 3)
+    assert port.session.properties == {"max_worker_replacements": 3}
 
 
 @pytest.mark.parametrize("name", [
     "source", "query_priority", "query_queued_timeout_s",
     "query_max_memory_bytes", "failure_injector", "fte_spool_dir"])
 def test_unread_session_fields_are_refused(name):
-    """The reference's Session fields that SQL cannot set and the port
-    would not read are no fields of the port's: passing one is an error,
-    and SET SESSION refuses them in both packages."""
-    with pytest.raises(TypeError):
-        Session(**{name: 1})
+    """The reference's Session fields that SQL cannot set: SET SESSION
+    refuses them in both packages.  Those the port does not read are no
+    fields of its Session (passing one is an error); the failure injector
+    and the spool directory are, since fault-tolerant execution reads
+    them."""
+    if name in ("failure_injector", "fte_spool_dir"):
+        assert getattr(Session(**{name: 1}), name) == 1
+    else:
+        with pytest.raises(TypeError):
+            Session(**{name: 1})
     ref, port = _runners()
     assert _outcome(port, f"set session {name} = 1") == (
         _outcome(ref, f"set session {name} = 1")) == ("raises", "KeyError")

@@ -9,19 +9,20 @@ Key = ``flavor`` ⊕ SQL fingerprint (telemetry/runtime.py) ⊕ the exact
 statement text (fingerprints fold case, which would merge ``'BUILDING'``
 with ``'building'``) ⊕ the session properties that shape planning or
 execution (:data:`SESSION_KEY_PROPS`) ⊕ the runner's *execution key* ⊕
-the catalog's instance id and **generation** (connectors/catalog.py; it
-bumps on every DDL / ANALYZE) ⊕ the history epoch.  Two departures from
-the reference's key:
+the env knobs the port's planner reads (:data:`PLANNING_ENV_KNOBS`) ⊕ the
+catalog's instance id and **generation** (connectors/catalog.py; it bumps
+on every DDL / ANALYZE) ⊕ the history epoch.  One departure from the
+reference's key: of its engine env knobs (``planning_env_key``) the port
+keeps only those it reads, and the runner's execution key stands for the
+rest, the arguments that select how a plan executes: ``optimizer``,
+``encoded_exec``, the ``IngestConfig`` and the ``device`` (runner.py
+``StandaloneQueryRunner.execution_key``).  A plan or result cached by a
+CPU runner never reaches a CUDA runner.
 
-- in place of the reference's engine env knobs (``planning_env_key``)
-  stands the runner's execution key, the arguments that select how a plan
-  executes: ``optimizer``, ``encoded_exec``, the ``IngestConfig`` and the
-  ``device`` (runner.py ``StandaloneQueryRunner.execution_key``).  A plan
-  or result cached by a CPU runner never reaches a CUDA runner;
-- the history epoch is the constant :data:`HISTORY_EPOCH` until
-  history-based optimization (the reference's planner/history.py) is
-  ported: no port path records plan statistics yet, so no history can
-  shape a plan.
+The history epoch (planner/history.py ``history_epoch``, a digest of the
+journal's plan_stats) keys out plans shaped by observed statistics: new
+records give a new epoch, so a history-driven plan never outlives the
+history that shaped it.
 
 Hits hand out clones (:func:`clone`): plan nodes are frozen dataclasses
 but may carry compare-excluded payloads (TupleDomain constraints), so one
@@ -43,13 +44,14 @@ from typing import Optional
 
 import torch
 
+from ..planner.history import history_epoch
 from ..planner.plan import TableFunctionScan, TableScan, TableWriter
 from ..spi import knobs
 
 __all__ = [
     "PlanEntry", "lookup", "store", "clone", "scan_tables", "session_key",
     "enabled", "stats", "invalidate_all", "reset_for_test",
-    "HISTORY_EPOCH",
+    "planning_env_key",
 ]
 
 # session properties that shape the logical plan or the execution layout
@@ -61,8 +63,8 @@ SESSION_KEY_PROPS = (
     "writer_task_limit",
 )
 
-# the key's history slot: constant until history-based optimization lands
-HISTORY_EPOCH = 0
+# env knobs the port's planner reads: a flip must miss
+PLANNING_ENV_KNOBS = ("TRINO_TPU_HBO", "TRINO_TPU_BROADCAST_ROW_LIMIT")
 
 
 def enabled() -> bool:
@@ -137,6 +139,10 @@ def _has_writer(plan) -> bool:
     return walk(plan)
 
 
+def planning_env_key() -> tuple:
+    return tuple(knobs.get_str(k) for k in PLANNING_ENV_KNOBS)
+
+
 def _key(sql: str, session, catalog, flavor: str,
          execution_key: tuple) -> tuple:
     from ..telemetry.runtime import fingerprint
@@ -145,8 +151,8 @@ def _key(sql: str, session, catalog, flavor: str,
     # exchanges); the catalog instance id keeps runners with fresh catalogs
     # apart; the generation re-keys every plan after DDL / ANALYZE
     return (flavor, fingerprint(sql), sql.strip(), session_key(session),
-            execution_key, catalog.instance_id, catalog.generation,
-            HISTORY_EPOCH)
+            execution_key, planning_env_key(), catalog.instance_id,
+            catalog.generation, history_epoch())
 
 
 def lookup(sql: str, session, catalog, execution_key: tuple = (),

@@ -2,8 +2,8 @@
 
 The Driver credits wall time, rows and batches to each operator as it moves
 batches (reference: operator/OperatorStats.java, the port of
-``exec/stats.py`` with its scan-ingest, encoding, host-sync and compiled-
-stage counters; the resilience and adaptive ones are not ported).  Rows
+``exec/stats.py`` with its scan-ingest, encoding, host-sync, compiled-
+stage, resilience and adaptive counters).  Rows
 are live rows: on the card a masked batch's count is a device reduction,
 so the driver adds the counts up as tensors and
 :meth:`QueryStats.read_counts` reads them all once the run has ended.
@@ -150,6 +150,117 @@ class EncodingStats:
 
 
 @dataclass
+class ResilienceStats:
+    """Counters for the query-level resilience layer (retry_policy=QUERY,
+    heartbeat detection, worker replacement, exchange backoff) — the
+    QueryStats/tracing surface of execution/failure_detector.py and the
+    remote runner's retry loop."""
+
+    query_retries: int = 0
+    backoff_waits: int = 0
+    backoff_wait_s: float = 0.0
+    blacklisted_workers: int = 0
+    worker_replacements: int = 0
+    heartbeat_transitions: int = 0
+    exchange_fetch_failures: int = 0
+    exchange_backoff_trips: int = 0
+
+    def merge(self, other: "ResilienceStats") -> None:
+        self.query_retries += other.query_retries
+        self.backoff_waits += other.backoff_waits
+        self.backoff_wait_s += other.backoff_wait_s
+        self.blacklisted_workers += other.blacklisted_workers
+        self.worker_replacements += other.worker_replacements
+        self.heartbeat_transitions += other.heartbeat_transitions
+        self.exchange_fetch_failures += other.exchange_fetch_failures
+        self.exchange_backoff_trips += other.exchange_backoff_trips
+
+    @classmethod
+    def delta(cls, after: "ResilienceStats",
+              before: "ResilienceStats") -> "ResilienceStats":
+        """after - before, field-wise (runner counters are cumulative; a
+        query's own numbers are the delta across its retry loop)."""
+        return cls(
+            query_retries=after.query_retries - before.query_retries,
+            backoff_waits=after.backoff_waits - before.backoff_waits,
+            backoff_wait_s=after.backoff_wait_s - before.backoff_wait_s,
+            blacklisted_workers=(after.blacklisted_workers
+                                 - before.blacklisted_workers),
+            worker_replacements=(after.worker_replacements
+                                 - before.worker_replacements),
+            heartbeat_transitions=(after.heartbeat_transitions
+                                   - before.heartbeat_transitions),
+            exchange_fetch_failures=(after.exchange_fetch_failures
+                                     - before.exchange_fetch_failures),
+            exchange_backoff_trips=(after.exchange_backoff_trips
+                                    - before.exchange_backoff_trips),
+        )
+
+    @property
+    def any(self) -> bool:
+        return any((self.query_retries, self.backoff_waits,
+                    self.blacklisted_workers, self.worker_replacements,
+                    self.heartbeat_transitions, self.exchange_fetch_failures,
+                    self.exchange_backoff_trips))
+
+    def text(self) -> str:
+        return (
+            f"resilience: {self.query_retries} query retries "
+            f"({self.backoff_waits} backoff waits, "
+            f"{self.backoff_wait_s * 1e3:.0f} ms), "
+            f"{self.blacklisted_workers} blacklists, "
+            f"{self.worker_replacements} worker replacements, "
+            f"{self.heartbeat_transitions} heartbeat transitions, "
+            f"{self.exchange_fetch_failures} exchange fetch failures "
+            f"({self.exchange_backoff_trips} backoff trips)"
+        )
+
+
+@dataclass
+class AdaptiveStats:
+    """Counters + decision tags for the adaptive execution plane
+    (execution/adaptive.py): phased stage activations and the join-
+    distribution / skew decisions taken at activation barriers.  The
+    ``decisions`` list carries compact human-readable tags
+    (``flip_to_broadcast[f3]``, ``skew_split[f5:k2]``, ``keep[f3]``) that
+    surface verbatim in EXPLAIN ANALYZE and system.runtime.queries."""
+
+    activations: int = 0       # stages activated by the phased scheduler
+    decision_points: int = 0   # barriers where a decision was evaluated
+    broadcast_flips: int = 0   # PARTITIONED -> REPLICATED rewrites
+    partition_flips: int = 0   # REPLICATED -> PARTITIONED rewrites
+    skew_splits: int = 0       # heavy keys split across probe tasks
+    memo_hits: int = 0         # decisions replayed from the runtime memo
+    decisions: list[str] = field(default_factory=list)
+
+    def merge(self, other: "AdaptiveStats") -> None:
+        self.activations += other.activations
+        self.decision_points += other.decision_points
+        self.broadcast_flips += other.broadcast_flips
+        self.partition_flips += other.partition_flips
+        self.skew_splits += other.skew_splits
+        self.memo_hits += other.memo_hits
+        self.decisions.extend(other.decisions)
+
+    @property
+    def any(self) -> bool:
+        return any((self.activations, self.decision_points,
+                    self.broadcast_flips, self.partition_flips,
+                    self.skew_splits))
+
+    def text(self) -> str:
+        tags = ", ".join(self.decisions) if self.decisions else "none"
+        return (
+            f"adaptive: {self.activations} phased activations, "
+            f"{self.decision_points} decision points "
+            f"({self.broadcast_flips} -> broadcast, "
+            f"{self.partition_flips} -> partitioned, "
+            f"{self.skew_splits} skew splits, "
+            f"{self.memo_hits} memo hits); decisions: {tags}"
+        )
+
+
+@dataclass
 class FusedStageStats:
     """Counters of whole-stage compilation (execution/stage_compiler.py):
     the batches the accumulate program absorbed, how many calls were the
@@ -263,6 +374,8 @@ class QueryStats:
     label: str = ""  # a distributed task's "fragment F task T:" heading
     fused: Optional[FusedStageStats] = None  # whole-stage compilation
     resident: Optional[ResidentPlanStats] = None  # whole-query compilation
+    resilience: Optional[ResilienceStats] = None  # retry delta
+    adaptive: Optional[AdaptiveStats] = None  # adaptive-execution decisions
 
     def by_operator(self) -> dict[str, float]:
         """Wall seconds summed per operator class name."""
@@ -318,10 +431,14 @@ class QueryStats:
             lines.append("  " + self.scan.text())
         if self.sync is not None and self.sync.host_syncs:
             lines.append("  " + self.sync.text())
+        if self.resilience is not None and self.resilience.any:
+            lines.append("  " + self.resilience.text())
         if self.fused is not None and self.fused.any:
             lines.append("  " + self.fused.text())
         if self.resident is not None and self.resident.any:
             lines.append("  " + self.resident.text())
+        if self.adaptive is not None and self.adaptive.any:
+            lines.append("  " + self.adaptive.text())
         if self.encoding is not None and self.encoding.any:
             lines.append("  " + self.encoding.text())
         for i, p in enumerate(self.pipelines):

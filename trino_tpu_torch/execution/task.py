@@ -264,8 +264,10 @@ class PartitionedOutputSink(Operator):
     about that many rows.  With ``serde`` the pages are wire bytes, and
     each partition's stream gets its own PageStreamEncoder, so a dictionary
     ships once per (task, partition).
-    The reference's ``sketch`` arguments (the adaptive plane's heavy-hitter
-    sketch) wait for that plane."""
+    ``sketch`` (the adaptive plane's deferred edges,
+    execution/adaptive.py): a HeavyHitterSketch fed the ``sketch_keys``
+    hashes of every live row, so the coordinator can fold per-task key
+    distributions at the consumer's activation barrier."""
 
     # blocking=True: wait inside OutputBuffer.enqueue when the byte budget
     # is exhausted (thread-per-task mode).  The time-sharing executor flips
@@ -275,11 +277,14 @@ class PartitionedOutputSink(Operator):
 
     def __init__(self, buffer: OutputBuffer, kind: str,
                  keys: Sequence[int] = (), serde: bool = False,
+                 sketch=None, sketch_keys: Sequence[int] = (),
                  coalesce_rows: int = 0):
         self.buffer = buffer
         self.kind = kind
         self.keys = list(keys)
         self.serde = serde
+        self.sketch = sketch
+        self.sketch_keys = list(sketch_keys)
         self._rr = 0  # ROUND_ROBIN rotation cursor
         self.coalesce_rows = coalesce_rows
         self._pend: dict[int, list] = {}  # partition -> [rows, [slivers]]
@@ -314,6 +319,11 @@ class PartitionedOutputSink(Operator):
     def add_input(self, batch: ColumnBatch) -> None:
         if batch.num_rows == 0:
             return
+        if self.sketch is not None and self.sketch_keys:
+            batch = batch.compact()
+            self.sketch.update(K.partition_key_hashes(
+                [partition_key_tuple(batch.columns[k])
+                 for k in self.sketch_keys]))
         n = self.buffer.num_partitions
         if self.kind == "REPARTITION" and n > 1:
             order, counts = partition_rows(batch, self.keys, n)

@@ -1,9 +1,8 @@
 """Tracing: per-query span trees (the OpenTelemetry role).
 
 The port of the reference ``execution/tracing.py``: spans, the tracer,
-W3C traceparent propagation and the scan, host-sync, fused-stage and
-resident-plan annotations (the resilience one comes with fault-tolerant
-execution).  It mirrors Trino's tracing layer
+W3C traceparent propagation and the scan, host-sync, fused-stage,
+resident-plan and resilience annotations.  It mirrors Trino's tracing layer
 (tracing/TracingMetadata.java:121 decorators, tracing/TrinoAttributes.java
 span vocabulary, spans per query/stage/task propagated into workers)
 without the OTel SDK dependency:
@@ -22,7 +21,7 @@ from typing import Callable, Optional
 
 __all__ = ["Span", "Tracer", "traceparent", "parse_traceparent",
            "annotate_scan_span", "annotate_sync_span", "annotate_fused_span",
-           "annotate_resident_span"]
+           "annotate_resident_span", "annotate_resilience_span"]
 
 
 # ids from the process's seeded generator, not the system's entropy: one
@@ -107,6 +106,22 @@ def annotate_resident_span(span: "Span", rs) -> None:
     span.set("trino.resident.code-seam-columns", rs.code_seam_columns)
     span.set("trino.resident.merges", rs.merges)
     span.set("trino.resident.fallbacks", rs.fallbacks)
+
+
+def annotate_resilience_span(span: "Span", res) -> None:
+    """Set the ``trino.exec.*`` resilience attributes from a ResilienceStats
+    delta (exec/stats.py) so exporters see retries, backoff waits, worker
+    replacements and heartbeat churn next to the query wall time."""
+    if res is None or not res.any:
+        return
+    span.set("trino.exec.query-retries", res.query_retries)
+    span.set("trino.exec.backoff-waits", res.backoff_waits)
+    span.set("trino.exec.backoff-wait-ms", round(res.backoff_wait_s * 1e3, 1))
+    span.set("trino.exec.blacklisted-workers", res.blacklisted_workers)
+    span.set("trino.exec.worker-replacements", res.worker_replacements)
+    span.set("trino.exec.heartbeat-transitions", res.heartbeat_transitions)
+    span.set("trino.exec.exchange-fetch-failures", res.exchange_fetch_failures)
+    span.set("trino.exec.exchange-backoff-trips", res.exchange_backoff_trips)
 
 
 def annotate_scan_span(span: "Span", ingest) -> None:

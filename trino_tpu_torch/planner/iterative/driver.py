@@ -12,7 +12,9 @@ cleanup), each a full fixpoint pass over the memo.
 then hands the extracted tree to the legacy final passes (column
 pruning, scan-constraint attachment, limit-into-scan) that both
 optimizer modes share, and publishes the firing trace for EXPLAIN.
-The port has no history-based optimization: rules see ``history=None``.
+Rules see the journal's observed statistics through a
+``planner/history.HistoryProvider`` when ``TRINO_TPU_HBO`` is on and
+plan_stats exist (the reference's ``provider_if_enabled``).
 """
 
 from __future__ import annotations
@@ -152,16 +154,24 @@ def _assert_decorrelated(node: PlanNode) -> None:
 def optimize_iterative(root: PlanNode, catalog) -> PlanNode:
     """Full iterative pipeline: rule phases over the memo, then the
     shared legacy final passes; publishes the trace for EXPLAIN."""
+    from .. import history as hbo
     from .. import optimizer as opt
 
     t0 = time.perf_counter()
-    ctx = Context(catalog=catalog, history=None, trace=Trace())
+    history = hbo.provider_if_enabled()
+    ctx = Context(catalog=catalog, history=history, trace=Trace())
     out = IterativeOptimizer().run(root, ctx)
     _assert_decorrelated(out)
     out = opt.final_passes(out, catalog)
     ctx.trace.planning_ms = (time.perf_counter() - t0) * 1000.0
+    if history is not None:
+        ctx.trace.history_lookups = history.lookups
+        ctx.trace.history_hits = history.hits
     _LAST.trace = ctx.trace
     tm.OPTIMIZER_RUNS.inc()
     tm.OPTIMIZER_RULE_FIRINGS.inc(len(ctx.trace.fires))
     tm.OPTIMIZER_PLANNING_MS.inc(ctx.trace.planning_ms)
+    if history is not None:
+        tm.HBO_PLAN_LOOKUPS.inc(history.lookups)
+        tm.HBO_PLAN_HITS.inc(history.hits)
     return out

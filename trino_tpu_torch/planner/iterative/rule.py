@@ -1,7 +1,7 @@
 """Rule base class, rule context, and the firing trace (the port of the
 reference ``planner/iterative/rule.py``; Trino: sql/planner/iterative/
 Rule.java + Rule.Context, and the IterativeOptimizer stats that EXPLAIN
-ANALYZE VERBOSE surfaces).  No history lookups: the port has no HBO.
+ANALYZE VERBOSE surfaces).
 """
 
 from __future__ import annotations
@@ -15,12 +15,14 @@ __all__ = ["Context", "Rule", "Trace"]
 
 
 class Trace:
-    """Append-only record of rule firings; ``lines()`` renders the EXPLAIN
-    trace block."""
+    """Append-only record of rule firings plus history-lookup counters;
+    ``lines()`` renders the EXPLAIN trace block."""
 
     def __init__(self):
         self.fires: list[tuple[str, str, str]] = []  # (phase, rule, node)
         self.planning_ms = 0.0
+        self.history_hits = 0
+        self.history_lookups = 0
 
     def fire(self, phase: str, rule: str, node: PlanNode) -> None:
         self.fires.append((phase, rule, type(node).__name__))
@@ -44,13 +46,17 @@ class Trace:
             seen[key] = seen.get(key, 0) + 1
         for phase, rule in order:
             out.append(f"  rule {rule} [{phase}] fired x{seen[(phase, rule)]}")
+        if self.history_lookups:
+            out.append(
+                f"history: {'hit' if self.history_hits else 'miss'} "
+                f"({self.history_hits}/{self.history_lookups} lookups)")
         return out
 
 
 @dataclass
 class Context:
-    """What rules see: the catalog for stats, the history provider (always
-    None in the port), the trace, and memo plumbing (resolve GroupRefs,
+    """What rules see: the catalog for stats, the optional
+    HistoryProvider (planner/history.py), the trace, and memo plumbing (resolve GroupRefs,
     extract concrete subtrees).  ``reordered`` holds the reprs of join
     subtrees a ReorderJoins firing produced, so the rule skips its own
     output.  ``dp_limit`` is the largest join cluster ReorderJoins orders

@@ -21,6 +21,7 @@ from dataclasses import replace
 from typing import Optional
 
 from ..connectors.catalog import Catalog
+from ..spi import knobs
 from ..spi.types import BOOLEAN
 from ..sql.ir import Call, InputRef, Literal, RowExpression, walk
 from .plan import (
@@ -54,7 +55,6 @@ __all__ = ["optimize", "estimate_rows", "final_passes", "OPTIMIZER_MODES"]
 # as an argument (StandaloneQueryRunner(optimizer=...))
 OPTIMIZER_MODES = ("iterative", "legacy")
 
-_BROADCAST_LIMIT = 2_000_000  # build rows below this replicate to every task
 
 # Damped selectivity of one extra equality join clause whose NDV is unknown
 # (Trino's UNKNOWN_FILTER_COEFFICIENT idiom): before the fix, every clause
@@ -479,12 +479,27 @@ def _choose_distribution(build: PlanNode, catalog: Catalog,
     # right/full joins cannot use REPLICATED)
     if join_type in ("RIGHT", "FULL"):
         return "PARTITIONED"
-    limit = _BROADCAST_LIMIT
+    # override hook for mis-estimation drills: force a wrong static choice
+    # and let the adaptive plane (execution/adaptive.py) correct it at the
+    # activation barrier from OBSERVED bytes
+    # (an empty value means the declared default, as unset does)
+    limit = knobs.get_int("TRINO_TPU_BROADCAST_ROW_LIMIT")
+    if limit is None:
+        limit = int(knobs.knob("TRINO_TPU_BROADCAST_ROW_LIMIT").default)
     if history is not None:
         stats = history.stats_for(build)
-        if stats is not None and stats.rows is not None:
-            return ("BROADCAST" if stats.rows <= limit
-                    else "PARTITIONED")
+        if stats is not None:
+            # observed build bytes against the same threshold the adaptive
+            # activation barrier uses: the plan-time version of its flip
+            if stats.bytes is not None:
+                from ..execution.adaptive import broadcast_threshold_bytes
+
+                return ("BROADCAST"
+                        if stats.bytes <= broadcast_threshold_bytes(None)
+                        else "PARTITIONED")
+            if stats.rows is not None:
+                return ("BROADCAST" if stats.rows <= limit
+                        else "PARTITIONED")
     return ("BROADCAST" if estimate_rows(build, catalog, history) <= limit
             else "PARTITIONED")
 

@@ -138,23 +138,17 @@ class QueryResult:
 
 
 # properties of the reference's Session that only parts of its distributed
-# runner the port does not have yet read, with the reference's defaults:
-# SET SESSION accepts them, as the reference's standalone runner does, and
-# keeps the value in ``Session.properties``; nothing in the port reads them
+# runner the port does not have yet read (the control plane's heartbeats,
+# worker replacement, the HTTP exchange's backoff, admission), with the
+# reference's defaults: SET SESSION accepts them, as the reference's
+# standalone runner does, and keeps the value in ``Session.properties``;
+# nothing in the port reads them
 STORED_SESSION_PROPERTIES = {
-    "retry_policy": "NONE",
-    "task_retry_attempts": 2, "query_retry_attempts": 2,
-    "retry_initial_delay_s": 0.1, "retry_max_delay_s": 2.0,
     "heartbeat_interval_s": 0.5, "heartbeat_failure_threshold": 3,
     "max_worker_replacements": 2, "exchange_backoff_min_s": 0.05,
     "exchange_backoff_max_s": 2.0, "exchange_max_failure_duration_s": 120.0,
     "query_concurrency": 16, "query_max_queued": 200,
-    "fte_speculative": True, "fte_speculative_delay_s": 0.25,
-    "fte_memory_growth": 2.0, "speculation": None,
-    "speculation_lag_multiplier": 2.0, "speculation_min_delay_s": 0.25,
-    "speculation_nonleaf": None, "blacklist_ttl_s": None,
-    "blacklist_threshold": None, "drain_timeout_s": None, "adaptive": None,
-    "broadcast_threshold_bytes": 0, "skew_factor": 0.0,
+    "drain_timeout_s": None,
     "scale_writers": False, "writer_task_limit": 4,
 }
 
@@ -186,9 +180,49 @@ class Session:
     exchange_serde: bool = False
     task_scheduler: str = "THREADS"
     executor_workers: int = 4
+    # NONE = streaming pipelined scheduler; TASK = fault-tolerant execution
+    # (stage-by-stage durable spool + per-task retry, execution/fte.py);
+    # QUERY = streaming with coordinator query-level retry: on a retryable
+    # (non-USER) failure the whole subplan re-runs
+    retry_policy: str = "NONE"
+    task_retry_attempts: int = 2
+    # retry_policy=QUERY: attempt budget and the deterministic exponential
+    # backoff between re-runs (spi/errors.py Backoff)
+    query_retry_attempts: int = 2
+    retry_initial_delay_s: float = 0.1
+    retry_max_delay_s: float = 2.0
     # active transaction (execution/transaction.py); None = autocommit
     transaction: object = None
     _transaction_manager: object = None
+    # engine-level failure injection (execution/failure_injector.py)
+    failure_injector: object = None
+    # base directory of the durable FTE spool (None = TRINO_TPU_SPOOL_DIR
+    # or the system temp)
+    fte_spool_dir: object = None
+    # FTE stragglers get a speculative attempt once half the stage
+    # committed and the task exceeds max(2x median, fte_speculative_delay_s);
+    # a memory failure multiplies the next attempt's device memory budget by
+    # fte_memory_growth
+    fte_speculative: bool = True
+    fte_speculative_delay_s: float = 0.25
+    fte_memory_growth: float = 2.0
+    # streaming straggler speculation (execution/speculation.py): None defers
+    # to TRINO_TPU_SPECULATION / TRINO_TPU_SPECULATION_NONLEAF
+    speculation: object = None
+    speculation_lag_multiplier: float = 2.0
+    speculation_min_delay_s: float = 0.25
+    speculation_nonleaf: object = None
+    # the cross-query cluster blacklist: None defers to
+    # TRINO_TPU_BLACKLIST_TTL_S / TRINO_TPU_BLACKLIST_THRESHOLD
+    blacklist_ttl_s: object = None
+    blacklist_threshold: object = None
+    # the adaptive plane (execution/adaptive.py): None defers to
+    # TRINO_TPU_ADAPTIVE ("auto"; "0" is the static plan, "1" forces phased
+    # scheduling); 0 thresholds defer to TRINO_TPU_BROADCAST_THRESHOLD_BYTES
+    # / TRINO_TPU_SKEW_FACTOR
+    adaptive: object = None
+    broadcast_threshold_bytes: int = 0
+    skew_factor: float = 0.0
     # SET SESSION values of STORED_SESSION_PROPERTIES
     properties: dict = field(default_factory=dict)
 
@@ -206,7 +240,13 @@ SETTABLE_SESSION_PROPERTIES = {
     "default_catalog", "splits_per_node", "node_count", "dynamic_filtering",
     "hbm_limit_bytes", "spill_to_disk_bytes", "task_concurrency",
     "use_collectives", "exchange_serde", "task_scheduler",
-    "executor_workers", *_PROPERTY_DEFAULTS}
+    "executor_workers", "retry_policy", "task_retry_attempts",
+    "query_retry_attempts", "retry_initial_delay_s", "retry_max_delay_s",
+    "fte_speculative", "fte_speculative_delay_s", "fte_memory_growth",
+    "speculation", "speculation_lag_multiplier", "speculation_min_delay_s",
+    "speculation_nonleaf", "blacklist_ttl_s", "blacklist_threshold",
+    "adaptive", "broadcast_threshold_bytes", "skew_factor",
+    *_PROPERTY_DEFAULTS}
 
 
 def _literal_value(e):

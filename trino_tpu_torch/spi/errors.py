@@ -1,4 +1,4 @@
-"""Error classification (the resilience vocabulary).
+"""Error classification + deterministic backoff (the resilience vocabulary).
 
 Mirrors the reference's error taxonomy (spi/StandardErrorCode.java:31,
 spi/ErrorType.java:17) and the airlift ``Backoff`` used by
@@ -20,17 +20,19 @@ on carries an :class:`ErrorCode` whose :class:`ErrorType` decides
 ``classify()`` maps arbitrary exceptions onto :class:`TrinoError` so the
 worker can report ``error_type`` in its status JSON and the coordinator's
 ``retry_policy="QUERY"`` loop can decide fail-fast vs re-run without parsing
-message strings.
+message strings.  :class:`Backoff` bounds how long an unreachable peer is
+re-polled before it surfaces as a classified EXTERNAL failure.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 __all__ = [
     "USER", "INTERNAL", "EXTERNAL", "INSUFFICIENT_RESOURCES", "ERROR_TYPES",
-    "ErrorCode", "TrinoError",
+    "ErrorCode", "TrinoError", "Backoff",
     "GENERIC_USER_ERROR", "SUBQUERY_MULTIPLE_ROWS",
     "GENERIC_INTERNAL_ERROR", "REMOTE_TASK_ERROR",
     "REMOTE_HOST_GONE", "PAGE_TRANSPORT_TIMEOUT", "PAGE_TRANSPORT_ERROR",
@@ -166,7 +168,11 @@ def classify(exc: BaseException) -> TrinoError:
     EXTERNAL, everything unrecognized → GENERIC_INTERNAL_ERROR."""
     if isinstance(exc, TrinoError):
         return exc
+    from .memory import ExceededMemoryLimitError
+
     msg = f"{type(exc).__name__}: {exc}"
+    if isinstance(exc, ExceededMemoryLimitError):
+        return TrinoError(EXCEEDED_MEMORY_LIMIT_CODE, msg)
     name = type(exc).__name__
     if name in _USER_ERROR_CLASS_NAMES:
         if "DIVISION_BY_ZERO" in str(exc):
@@ -178,3 +184,60 @@ def classify(exc: BaseException) -> TrinoError:
         return TrinoError(PAGE_TRANSPORT_ERROR, msg)
     return TrinoError(GENERIC_INTERNAL_ERROR, msg)
 
+
+class Backoff:
+    """Deterministic exponential backoff with a failure-duration budget
+    (reference: the airlift Backoff inside HttpPageBufferClient — min/max
+    delay doubling, ``maxFailureDuration`` deciding when a flaky peer is
+    declared failed).
+
+    No jitter on purpose: delays are a pure function of the failure count,
+    so fault drills on the CPU mesh are reproducible.  ``clock`` is
+    injectable for tests."""
+
+    def __init__(self, min_delay_s: float = 0.05, max_delay_s: float = 2.0,
+                 max_failure_duration_s: float = 120.0,
+                 clock: Callable[[], float] = time.monotonic):
+        self.min_delay_s = float(min_delay_s)
+        self.max_delay_s = float(max_delay_s)
+        self.max_failure_duration_s = float(max_failure_duration_s)
+        self._clock = clock
+        self.failure_count = 0
+        self._first_failure: Optional[float] = None
+        self._ready_at: float = 0.0
+
+    @property
+    def delay_s(self) -> float:
+        """Current delay: min_delay * 2^(failures-1), capped at max_delay."""
+        if self.failure_count == 0:
+            return 0.0
+        return min(self.max_delay_s,
+                   self.min_delay_s * (2.0 ** (self.failure_count - 1)))
+
+    def failure(self) -> bool:
+        """Record one failure; returns True once failures have persisted
+        past ``max_failure_duration_s`` (measured from the FIRST failure of
+        the current streak, requiring at least two observations — one
+        transient blip never trips the budget)."""
+        now = self._clock()
+        if self._first_failure is None:
+            self._first_failure = now
+        self.failure_count += 1
+        self._ready_at = now + self.delay_s
+        return (self.failure_count > 1
+                and now - self._first_failure >= self.max_failure_duration_s)
+
+    def success(self) -> None:
+        self.failure_count = 0
+        self._first_failure = None
+        self._ready_at = 0.0
+
+    def ready(self) -> bool:
+        """False while the current delay gate is still closed."""
+        return self._clock() >= self._ready_at
+
+    @property
+    def failure_duration_s(self) -> float:
+        if self._first_failure is None:
+            return 0.0
+        return self._clock() - self._first_failure

@@ -7,8 +7,13 @@ on an undeclared name.  Only the rows the port reads are declared: the
 switches and sizes of the cache plane (caching/), the flight recorder's
 level and ring (telemetry/profiler.py), the query journal
 (telemetry/journal.py), the exchange's stall watchdog
-(execution/task.py) and the compiled stages' switches and sizes
-(execution/stage_compiler.py, execution/plan_compiler.py).  Both packages read the same variables, so one
+(execution/task.py), the compiled stages' switches and sizes
+(execution/stage_compiler.py, execution/plan_compiler.py), history-based
+optimization (planner/history.py), the adaptive plane
+(execution/adaptive.py, with the planner's broadcast row limit) and
+fault-tolerant execution (the spool, its retention, the query-state log,
+speculation and the cluster blacklist).  Both packages read the same
+variables, so one
 setting reaches both (a harness that sets ``TRINO_TPU_RESULT_CACHE=0``
 turns the result tier off in each).
 """
@@ -38,6 +43,29 @@ class Knob:
 
 
 _DECLARATIONS = (
+    Knob("TRINO_TPU_ADAPTIVE", "enum", "auto",
+         "Adaptive query execution (runtime join-distribution switching, "
+         "skew-aware repartitioning); 0 is bit-for-bit legacy.",
+         choices=("auto", "1", "0")),
+    Knob("TRINO_TPU_BLACKLIST_PATH", "path", "",
+         "Shared durable cluster-blacklist file (append-only JSONL).  When "
+         "set, every coordinator in the fleet appends its strikes here and "
+         "merges peers' entries on read (TTL-decayed) instead of keeping "
+         "process-local state; unset keeps the per-coordinator journal "
+         "persistence."),
+    Knob("TRINO_TPU_BLACKLIST_THRESHOLD", "float", "2",
+         "Failure score at or above which a worker enters the cross-query "
+         "cluster blacklist."),
+    Knob("TRINO_TPU_BLACKLIST_TTL_S", "float", "300",
+         "Cluster-blacklist entry TTL; scores decay to zero over this "
+         "window."),
+    Knob("TRINO_TPU_BROADCAST_ROW_LIMIT", "int", "2000000",
+         "Static planner threshold: a join build side estimated at or "
+         "below this many rows is broadcast instead of repartitioned."),
+    Knob("TRINO_TPU_BROADCAST_THRESHOLD_BYTES", "int", "33554432",
+         "Adaptive activation-barrier threshold: observed build bytes "
+         "below this flip a repartitioned join to broadcast (and above, "
+         "the reverse)."),
     Knob("TRINO_TPU_EXCHANGE_STALL_S", "float", "1800",
          "Exchange take() stall watchdog: a source that produces nothing "
          "for this long fails the take with PAGE_TRANSPORT_TIMEOUT."),
@@ -53,6 +81,16 @@ _DECLARATIONS = (
          "Whole-stage compilation of PARTIAL->shuffle->FINAL seams; 0 is "
          "the per-operator and collective-exchange path.",
          choices=("auto", "1", "0")),
+    Knob("TRINO_TPU_HBO", "enum", "auto",
+         "History-based optimization: the cost model prefers journaled "
+         "per-fingerprint observed stats (rows, build bytes, partial-agg "
+         "groups) over estimate_rows, and queries record plan_stats at "
+         "completion; 0 disables both sides bit-for-bit.",
+         choices=("auto", "1", "0")),
+    Knob("TRINO_TPU_HBO_ROWS_PER_TASK", "int", "250000",
+         "History-driven task fan-out: observed fragment rows divided by "
+         "this sets the task count (capped at the worker count) for "
+         "fragments whose fingerprint has history."),
     Knob("TRINO_TPU_JOURNAL", "bool", "1",
          "Durable query journal (JSONL EventListener); 0 disables."),
     Knob("TRINO_TPU_JOURNAL_DIR", "path", "",
@@ -77,6 +115,12 @@ _DECLARATIONS = (
          choices=("off", "default", "full")),
     Knob("TRINO_TPU_PROFILE_RING", "int", "4096",
          "Per-thread profiler event-ring capacity."),
+    Knob("TRINO_TPU_QUERY_STATE", "bool", "1",
+         "Write-ahead query-state log for retry_policy=TASK queries "
+         "(coordinator crash recovery); 0 disables logging and recovery."),
+    Knob("TRINO_TPU_QUERY_STATE_DIR", "path", "",
+         "Query-state WAL directory; unset uses a per-uid tempdir next to "
+         "the query journal."),
     Knob("TRINO_TPU_RESIDENT_MAX_FRAGMENTS", "int", "8",
          "Largest fragment count one resident-plan program may absorb; "
          "bigger coalesced subtrees stay on the fused or per-operator "
@@ -90,6 +134,25 @@ _DECLARATIONS = (
          "lookup)."),
     Knob("TRINO_TPU_RESULT_CACHE_BYTES", "int", "67108864",
          "Result-cache LRU byte budget."),
+    Knob("TRINO_TPU_SKEW_FACTOR", "float", "2.0",
+         "Adaptive skew threshold: a join key heavier than this multiple "
+         "of the mean partition weight is split across probe tasks."),
+    Knob("TRINO_TPU_SPECULATION", "bool", "0",
+         "Leaf-stage straggler speculation for retry_policy=QUERY "
+         "streaming queries."),
+    Knob("TRINO_TPU_SPECULATION_NONLEAF", "bool", "0",
+         "Extend streaming straggler speculation to non-leaf stages by "
+         "teeing producer pages into the durable spool (requires "
+         "speculation on)."),
+    Knob("TRINO_TPU_SPOOL_DIR", "path", "",
+         "Base directory for durable FTE spool roots; unset uses the "
+         "system tempdir."),
+    Knob("TRINO_TPU_SPOOL_MAX_BYTES", "int", "1073741824",
+         "Spool retention byte budget: the GC reclaims expired/leaked "
+         "roots oldest-first once retained spools exceed this."),
+    Knob("TRINO_TPU_SPOOL_TTL_S", "float", "3600",
+         "Retention TTL for unreleased spool roots (crashed or abandoned "
+         "queries); the boot sweep reclaims roots idle past this."),
 )
 
 KNOBS: dict = {k.name: k for k in _DECLARATIONS}

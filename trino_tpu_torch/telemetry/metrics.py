@@ -28,11 +28,12 @@ tools/lint_metric_names.py over this file): Prometheus-legal
 The families registered here are those a single-node run records: scan
 ingest, host syncs and the padded expand, compressed execution, the query
 lifecycle, the iterative optimizer, the device memory watermark, the
-flight recorder (profiler and journal), the three cache tiers and the
-compiled stages (fused seams and resident plans).  The rest of the
-distributed plane's families (fault-tolerant execution, HA, exchange,
-resilience, adaptive execution, resource groups, HBO) come with the
-modules that record them.
+flight recorder (profiler and journal), the three cache tiers, the
+compiled stages (fused seams and resident plans), resilience (query
+retry, speculation, the cluster blacklist), fault-tolerant execution,
+the adaptive plane and HBO.  The rest of the distributed plane's
+families (HA, the HTTP exchange, resource groups) come with the modules
+that record them.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from typing import Optional
 __all__ = [
     "Counter", "Gauge", "Distribution", "MetricsRegistry", "REGISTRY",
     "observe_scan", "observe_sync", "observe_encoding", "observe_fused",
-    "observe_resident",
+    "observe_resident", "observe_resilience", "observe_adaptive",
     "update_device_memory_watermark", "merge_snapshot",
     "render_snapshot_prometheus",
 ]
@@ -454,7 +455,8 @@ CACHE_RESULT_ENTRIES = REGISTRY.gauge(
 CACHE_RESULT_BYTES = REGISTRY.gauge(
     "trino_cache_result_bytes", "result cache resident bytes")
 
-# iterative rule-engine optimizer (planner/iterative/)
+# iterative rule-engine optimizer (planner/iterative/) and history-based
+# optimization (planner/history.py): the runtime-truth -> planning loop
 OPTIMIZER_RUNS = REGISTRY.counter(
     "trino_optimizer_runs_total",
     "queries planned by the iterative rule-engine optimizer")
@@ -464,6 +466,47 @@ OPTIMIZER_RULE_FIRINGS = REGISTRY.counter(
 OPTIMIZER_PLANNING_MS = REGISTRY.counter(
     "trino_optimizer_planning_ms_total",
     "wall milliseconds spent inside the iterative optimizer phases")
+HBO_PLAN_LOOKUPS = REGISTRY.counter(
+    "trino_hbo_plan_lookups_total",
+    "plan-node fingerprint lookups against the history table at plan time")
+HBO_PLAN_HITS = REGISTRY.counter(
+    "trino_hbo_plan_hits_total",
+    "plan-time fingerprint lookups answered by journaled observed stats")
+HBO_RECORDS = REGISTRY.counter(
+    "trino_hbo_records_total",
+    "plan_stats journal records written at query completion")
+HBO_RECORD_ERRORS = REGISTRY.counter(
+    "trino_hbo_record_errors_total",
+    "plan_stats recording attempts that failed (swallowed, query unaffected)")
+HBO_FANOUT_ADJUSTED = REGISTRY.counter(
+    "trino_hbo_fanout_adjusted_total",
+    "stages whose task count was shrunk from history-observed input rows")
+
+# adaptive execution plane (execution/adaptive.py): phased activation,
+# runtime join-distribution switching, skew-aware repartitioning
+ADAPTIVE_DECISIONS = REGISTRY.counter(
+    "trino_adaptive_decisions_total",
+    "adaptive decision points evaluated at stage activation barriers")
+ADAPTIVE_BROADCAST_FLIPS = REGISTRY.counter(
+    "trino_adaptive_flips_to_broadcast_total",
+    "partitioned joins flipped to broadcast on observed build size")
+ADAPTIVE_PARTITION_FLIPS = REGISTRY.counter(
+    "trino_adaptive_flips_to_partitioned_total",
+    "broadcast joins flipped to partitioned on observed build size")
+ADAPTIVE_SKEW_SPLITS = REGISTRY.counter(
+    "trino_adaptive_skew_splits_total",
+    "heavy-hitter keys split across multiple probe tasks")
+ADAPTIVE_STAGE_ACTIVATIONS = REGISTRY.counter(
+    "trino_adaptive_stage_activations_total",
+    "stages activated by the phased bottom-up scheduler")
+ADAPTIVE_MEMO_HITS = REGISTRY.counter(
+    "trino_adaptive_memo_hits_total",
+    "adaptive decisions replayed from the runtime-stat-keyed memo")
+ADAPTIVE_SKEW_IMBALANCE = REGISTRY.gauge(
+    "trino_adaptive_skew_imbalance_ratio",
+    "sketch-estimated max partition weight before the last skew split "
+    "divided by after; the load-balance win a parallel host realises")
+
 
 # compressed execution (spi/batch.py encodings + encoding-aware operators)
 ENCODING_RLE_BATCHES = REGISTRY.counter(
@@ -504,6 +547,72 @@ ENCODING_RLE_AGG_ROWS = REGISTRY.counter(
     "trino_encoding_rle_agg_rows_total",
     "input rows aggregated arithmetically from RLE runs (value * "
     "run_count) without expansion")
+
+# resilience (retry_policy=QUERY loop, heartbeats, exchange backoff)
+RES_QUERY_RETRIES = REGISTRY.counter(
+    "trino_resilience_query_retries_total", "query-level retry attempts")
+RES_BACKOFF_WAITS = REGISTRY.counter(
+    "trino_resilience_backoff_waits_total", "retry backoff sleeps")
+RES_BACKOFF_SECONDS = REGISTRY.counter(
+    "trino_resilience_backoff_seconds_total", "total retry backoff time")
+RES_BLACKLISTED = REGISTRY.counter(
+    "trino_resilience_blacklisted_workers_total",
+    "workers blacklisted by the query retry loop")
+RES_REPLACEMENTS = REGISTRY.counter(
+    "trino_resilience_worker_replacements_total",
+    "GONE workers replaced by respawn")
+RES_HEARTBEAT_TRANSITIONS = REGISTRY.counter(
+    "trino_resilience_heartbeat_transitions_total",
+    "worker heartbeat state transitions")
+RES_EXCHANGE_FETCH_FAILURES = REGISTRY.counter(
+    "trino_resilience_exchange_fetch_failures_total",
+    "transient exchange fetch failures")
+RES_EXCHANGE_BACKOFF_TRIPS = REGISTRY.counter(
+    "trino_resilience_exchange_backoff_trips_total",
+    "exchange sources declared failed past the failure-duration budget")
+
+# streaming straggler speculation + graceful drain (execution/speculation.py)
+SPECULATIVE_STARTS = REGISTRY.counter(
+    "trino_speculative_starts_total",
+    "speculative twin tasks launched for streaming stragglers")
+SPECULATIVE_WINS = REGISTRY.counter(
+    "trino_speculative_wins_total",
+    "speculative twins that won the first-commit race")
+DRAINS = REGISTRY.counter(
+    "trino_drains_total", "coordinator-driven worker drains started")
+BLACKLISTED_WORKERS = REGISTRY.gauge(
+    "trino_blacklisted_workers",
+    "workers currently blacklisted by the cluster blacklist")
+
+# fault-tolerant execution (execution/fte.py + query_state.py + spool_gc.py)
+FTE_ATTEMPT_STARTS = REGISTRY.counter(
+    "trino_fte_attempt_starts_total", "FTE task attempts started")
+FTE_ATTEMPT_RETRIES = REGISTRY.counter(
+    "trino_fte_attempt_retries_total",
+    "FTE task attempts that were retries of a failed attempt")
+FTE_SPECULATIVE_STARTS = REGISTRY.counter(
+    "trino_fte_speculative_starts_total",
+    "speculative FTE attempt chains launched against stragglers")
+FTE_SPECULATIVE_WINS = REGISTRY.counter(
+    "trino_fte_speculative_wins_total",
+    "speculative FTE attempts that committed first")
+FTE_STAGES_RESUMED = REGISTRY.counter(
+    "trino_fte_stages_resumed_total",
+    "stage tasks skipped on recovery because a prior coordinator "
+    "already committed them")
+FTE_QUERY_RECOVERIES = REGISTRY.counter(
+    "trino_fte_query_recoveries_total",
+    "in-flight FTE queries rehydrated from the query-state WAL after "
+    "a coordinator restart")
+FTE_SPOOL_CORRUPTIONS = REGISTRY.counter(
+    "trino_fte_spool_corruptions_total",
+    "committed spool attempts discarded on CRC mismatch / torn frames")
+FTE_SPOOL_BYTES_LIVE = REGISTRY.gauge(
+    "trino_fte_spool_bytes_live",
+    "bytes currently retained under leased spool roots")
+FTE_SPOOL_BYTES_RECLAIMED = REGISTRY.counter(
+    "trino_fte_spool_bytes_reclaimed_total",
+    "spool bytes reclaimed by release/TTL/budget/boot-sweep GC")
 
 # whole-stage compilation (execution/stage_compiler.py)
 FUSED_STAGES = REGISTRY.counter(
@@ -619,6 +728,32 @@ def observe_resident(rs) -> None:
     RESIDENT_BATCHES.inc(rs.batches)
     RESIDENT_JIT_CALLS.inc(rs.jit_calls)
     RESIDENT_FALLBACKS.inc(rs.fallbacks)
+
+
+def observe_resilience(res) -> None:
+    """Fold a ResilienceStats delta (exec/stats.py)."""
+    if res is None or not res.any:
+        return
+    RES_QUERY_RETRIES.inc(res.query_retries)
+    RES_BACKOFF_WAITS.inc(res.backoff_waits)
+    RES_BACKOFF_SECONDS.inc(res.backoff_wait_s)
+    RES_BLACKLISTED.inc(res.blacklisted_workers)
+    RES_REPLACEMENTS.inc(res.worker_replacements)
+    RES_HEARTBEAT_TRANSITIONS.inc(res.heartbeat_transitions)
+    RES_EXCHANGE_FETCH_FAILURES.inc(res.exchange_fetch_failures)
+    RES_EXCHANGE_BACKOFF_TRIPS.inc(res.exchange_backoff_trips)
+
+
+
+def observe_adaptive(st) -> None:
+    """Fold an AdaptiveStats roll-up (exec/stats.py).  ``decisions`` and the
+    per-kind counters are recorded at decision time by execution/adaptive.py;
+    here only the per-query activation count folds in, so a re-run of the
+    same query never double-counts flips."""
+    if st is None or not st.any:
+        return
+    ADAPTIVE_STAGE_ACTIVATIONS.inc(st.activations)
+
 
 
 def update_device_memory_watermark(device=None) -> Optional[int]:
