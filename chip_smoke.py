@@ -4,9 +4,9 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10-21, 6, 9, so the kernel phase holds the staged,
-surface, window, nested, parallel, distributed, compiled and
-fault-tolerant paths' calls too; every phase but 21 runs with
+the order 1-5, 7, 8, 10-22, 6, 9, so the kernel phase holds the staged,
+surface, window, nested, parallel, distributed, compiled,
+fault-tolerant and serving paths' calls too; every phase but 21 runs with
 TRINO_TPU_HBO=0 and TRINO_TPU_ADAPTIVE=0).  The
 tpch path
 runs the runner's default scan: dynamic filters, split prefetch threads,
@@ -178,8 +178,23 @@ default optimizer, the iterative one:
      of a signature, merges, warm ms and device-to-host bytes of the
      cold run; kernel launches per accumulate call (a batch of a warm
      run of Q1 and of Q3 through its sink again under torch.profiler); Q1 and Q3 under SG.forbidden(cuda_sync_debug=True)
-     with no hot-loop sync; Q1, Q3, Q10 default / =0 / =0 / default.
-     Its launches are ``launches_compiled``.
+     with no hot-loop sync; Q1, Q3 default / =0 / =0 / default.
+     Its launches are ``launches_compiled``;
+ 21. resilient: HBO, the adaptive plane and fault-tolerant execution
+     (``resilient()``); its launches are ``launches_fault_tolerant`` and
+     ``launches_adaptive``;
+ 22. serving: the statement server over a ProcessDistributedQueryRunner
+     with two worker processes on the card, SF 1 (``serving()``): Q1,
+     Q3, Q12, R1 through the client (rows equal phase 3's, walls beside
+     phase 19's, HTTP exchange pages and bytes, the workers' kernel
+     launches from their /v1/info), three concurrent Q6 under a
+     one-slot resource-group tree, kill -9 of a worker under QUERY
+     retry, PROCESS_EXIT under TASK retry, a graceful drain, and a
+     server restart that resumes a TASK query from the WAL.  Its
+     launches, summed over the workers, are ``launches_serving``.  Phase
+     6 captures Q3's, Q12's and R1's calls from the same runner with its
+     two workers' TaskServers in this process (a worker process's calls
+     are out of reach) and labels them "serving".
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -2257,6 +2272,7 @@ def engine(torch, GK, StandaloneQueryRunner, staged_cat, tpch_runner,
 STORAGE_TABLES = ("customer", "orders", "lineitem")
 # Q18 over the file tables was cut to make room for phase 20
 STORAGE_QUERIES = ("Q1", "Q3", "Q12", "R1")
+STORAGE_WARM = ("Q1", "Q3")  # Q12, R1 cold only (cut for phase 22)
 STORAGE_REQUIRED = {"Q3": ["hash_insert"], "Q12": ["hash_probe"],
                     "R1": ["masked_segment_sum_f32"]}
 DISK_LIMIT = 64 << 20  # spill_to_disk_bytes of (b)'s first two queries
@@ -2373,18 +2389,22 @@ def _storage(torch, GK, StandaloneQueryRunner, default_catalog, tpch_runner,
         for name in STORAGE_QUERIES:
             before = dict(GK.LAUNCHES)
             st0 = dataclasses.replace(files.read_stats)
-            _, cold = run(runner, sqls[name])
+            cold_rows, cold = run(runner, sqls[name])
             st = files.read_stats
             read = {k: getattr(st, k) - getattr(st0, k)
                     for k in ("frames", "bytes_read", "bytes_inflated",
                               "read_s", "inflate_s", "decode_s")}
             u0 = dict(unify)
-            rows_of[name], warm = run(runner, sqls[name])
-            u_file = {k: unify[k] - u0[k] for k in unify}
-            u0 = dict(unify)
-            run(tpch_runner, sqls[name])
-            u_tpch = {k: unify[k] - u0[k] for k in unify}
-            walls[name] = warm
+            if name in STORAGE_WARM:
+                rows_of[name], warm = run(runner, sqls[name])
+                u_file = {k: unify[k] - u0[k] for k in unify}
+                u0 = dict(unify)
+                run(tpch_runner, sqls[name])
+                u_tpch = {k: unify[k] - u0[k] for k in unify}
+                walls[name] = warm
+            else:
+                rows_of[name] = cold_rows
+                warm, u_file, u_tpch = None, None, None
             per_query[name] = {k: GK.LAUNCHES[k] - before[k]
                                for k in GK.LAUNCHES}
             real = name in REAL_QUERIES
@@ -2397,19 +2417,22 @@ def _storage(torch, GK, StandaloneQueryRunner, default_catalog, tpch_runner,
                           f"{label} (a) {name} vs numpy",
                           KERNEL_VS_F64_RTOL if real else DOUBLE_RTOL)
                 msg = " and the numpy evaluation"
+            unified = ("no warm run" if u_file is None else
+                       f"warm dictionary unification: file path "
+                       f"{u_file['calls']} calls, {u_file['merges']} merges, "
+                       f"{u_file['s'] * 1e3:.1f} ms, tpch path "
+                       f"{u_tpch['calls']} calls, {u_tpch['merges']} merges, "
+                       f"{u_tpch['s'] * 1e3:.1f} ms")
+            warm_ms = "not run" if warm is None else f"{warm:.1f} ms"
             log(f"{label} (a) {name} over file tables: {len(rows_of[name])} "
                 f"rows equal the tpch path's{msg} (largest float rel diff "
-                f"{worst:.3g}); cold {cold:.1f} ms, warm {warm:.1f} ms; cold "
+                f"{worst:.3g}); cold {cold:.1f} ms, warm {warm_ms}; cold "
                 f"run read {read['frames']} pages, {read['bytes_read']} "
                 f"bytes, inflated to {read['bytes_inflated']}; read "
                 f"{read['read_s'] * 1e3:.1f} ms, inflate "
                 f"{read['inflate_s'] * 1e3:.1f} ms, decode "
                 f"{read['decode_s'] * 1e3:.1f} ms (summed over the prefetch "
-                f"threads); warm dictionary unification: file path "
-                f"{u_file['calls']} calls, {u_file['merges']} merges, "
-                f"{u_file['s'] * 1e3:.1f} ms, tpch path {u_tpch['calls']} "
-                f"calls, {u_tpch['merges']} merges, {u_tpch['s'] * 1e3:.1f} "
-                f"ms; launches {per_query[name]} [{smi}]")
+                f"threads); {unified}; launches {per_query[name]} [{smi}]")
     finally:
         restore()
     for name, kernels in STORAGE_REQUIRED.items():
@@ -3108,7 +3131,8 @@ def distributed(torch, GK, default_catalog, tpch_runner, sqls: dict,
     DistinctLimit plan.  (c) the fused Q1 program on make_q1_inputs(1):
     q1_step and q1_spmd over a 4-shard mesh against q1_numpy (counts
     exact, sums rtol 1e-9), warm ms, input rows/s, launches.  Returns the
-    phase's launches, the runner and the Q1 batch for phase 6's cases."""
+    phase's launches, the runner, the Q1 batch for phase 6's cases and
+    the cold walls by query (phase 22 prints its walls beside them)."""
     t_phase = time.perf_counter()
     from trino_tpu_torch.bench_kernels import (make_q1_inputs, q1_numpy,
                                                q1_spmd, q1_step)
@@ -3262,7 +3286,7 @@ def distributed(torch, GK, default_catalog, tpch_runner, sqls: dict,
     launches = dict(GK.LAUNCHES)
     log(f"distributed launches: {launches}")
     log(f"distributed: {time.perf_counter() - t_phase:.1f} s for phase 19")
-    return launches, dist, b
+    return launches, dist, b, cold_ms
 
 
 # ---------------------------------------------------------------------------
@@ -3276,7 +3300,11 @@ COMPILED_QUERIES = ("Q1", "Q2", "Q3", "Q4", "Q5", "Q9", "Q10", "Q11", "Q13",
                     "Q15", "Q17", "Q18", "Q20", "Q21", "R1", "R2")
 COMPILED_PROFILED = ("Q1", "Q3")  # launches per accumulate call
 COMPILED_SYNC = ("Q1", "Q3")  # under SG.forbidden(cuda_sync_debug=True)
-COMPILED_TURNS = ("Q1", "Q3", "Q10")  # default / =0 / =0 / default
+# default / =0 / =0 / default (Q10 cut to make room for phase 22)
+COMPILED_TURNS = ("Q1", "Q3")
+# the seven queries that fall back run cold only (cut to make room for
+# phase 22)
+COMPILED_COLD_ONLY = ("Q2", "Q10", "Q13", "Q15", "Q17", "Q18", "Q20")
 COMPILED_CAPTURE = ("Q1", "Q3")  # phase 6's "compiled" cases
 COMPILED_REQUIRED = ("hash_insert", "hash_probe")
 COMPILED_OFF = (("TRINO_TPU_FUSED_STAGE", "0"),
@@ -3385,7 +3413,8 @@ def compiled(torch, GK, default_catalog, sqls: dict, path_rows: dict,
     connector, DistributedQueryRunner(worker_count=4) at the default knobs
     (fused seams and resident plans on, TRINO_TPU_FUSED_CAP 8192).  (a)
     The 16 queries whose plan carries a fused seam or a resident plan,
-    cold and warm: rows equal phase 3's; per query the fused seams,
+    cold and warm (COMPILED_COLD_ONLY cold only): rows equal phase 3's;
+    per query the fused seams,
     resident plans, fallbacks (with the reason), batches, program calls,
     first calls of a signature, merges, warm ms and the device-to-host
     bytes of the cold run (traced); hash_insert and hash_probe must
@@ -3393,8 +3422,8 @@ def compiled(torch, GK, default_catalog, sqls: dict, path_rows: dict,
     one warm run of Q1 and of Q3 through its sink again (torch.profiler).  (c) Q1 and Q3 once more under
     SG.forbidden(cuda_sync_debug=True) on a runner whose tasks share one
     time-sharing worker and scan synchronously (no other thread touches
-    the card while a hot region runs): no hot-loop sync.  (d) Q1, Q3 and
-    Q10 warm in turns, default / =0 / =0 / default.  Returns the phase's
+    the card while a hot region runs): no hot-loop sync.  (d) Q1 and Q3
+    warm in turns, default / =0 / =0 / default.  Returns the phase's
     launches and the runner for phase 6's "compiled" cases."""
     t_phase = time.perf_counter()
     from trino_tpu_torch.exec import syncguard as SG
@@ -3426,11 +3455,14 @@ def compiled(torch, GK, default_catalog, sqls: dict, path_rows: dict,
         cold_rows = res.rows()
         cold_st, cold_fb = _compiled_stats(dist), dist.last_fallback
         s0 = SG.snapshot()
-        warm, res = _timed(torch, dist, sql)
+        if name in COMPILED_COLD_ONLY:
+            warm, st, fb, rows = None, cold_st, cold_fb, cold_rows
+        else:
+            warm, res = _timed(torch, dist, sql)
+            st, fb = _compiled_stats(dist), dist.last_fallback
+            rows = res.rows()
+            warm_ms[name] = warm
         sync = SG.take_delta(s0)
-        st, fb = _compiled_stats(dist), dist.last_fallback
-        rows = res.rows()
-        warm_ms[name] = warm
         launched = {k: GK.LAUNCHES[k] - before[k] for k in GK.LAUNCHES}
         rtol = REAL_PARITY_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
         _same_dist(cold_rows, path_rows[name], sql,
@@ -3447,13 +3479,16 @@ def compiled(torch, GK, default_catalog, sqls: dict, path_rows: dict,
             f"{st['seams']}, resident plans {st['plans']} "
             f"({st['code_seams']} code-seam columns); fallback "
             f"{'none' if fb is None else repr(fb)}"
-            f"{'' if cold_fb == fb else f' (cold: {cold_fb!r})'}; warm: "
+            f"{'' if cold_fb == fb else f' (cold: {cold_fb!r})'}; "
+            f"{'cold' if warm is None else 'warm'}: "
             f"{st['batches']} batches in {st['calls']} program calls, "
             f"{st['first']} first calls of a signature / {st['hits']} "
             f"repeats, {st['merges']} merges; cold: {cold_st['first']} "
             f"first calls of {cold_st['calls']}; cold {cold:.1f} ms "
-            f"(traced), warm {warm:.1f} ms ({smi}); launches (cold + warm) "
-            f"{launched}; warm host syncs {sync.host_syncs} "
+            f"(traced), warm "
+            f"{'not run' if warm is None else f'{warm:.1f} ms'} ({smi}); "
+            f"launches (cold + warm) {launched}; warm host syncs "
+            f"{sync.host_syncs} "
             f"{dict(sorted(sync.by_tag.items()))}; device-to-host bytes of "
             f"the cold run {_dtoh(copies)}")
     launches = dict(GK.LAUNCHES)
@@ -4051,6 +4086,525 @@ def resilient(torch, GK, default_catalog, sqls: dict, path_rows: dict,
     return ft_launches, adaptive_launches, fte
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the control plane and the serving path: the statement server
+# over a ProcessDistributedQueryRunner whose tasks run in worker processes
+# on the card
+
+
+SERVE_WORKERS = 2  # the reference's own test shape; keeps boots in budget
+SERVE_QUERIES = ("Q1", "Q3", "Q12", "R1")
+SERVE_REQUIRED = {"Q3": ("hash_insert",), "Q12": ("hash_probe",),
+                  "R1": ("masked_segment_sum_f32",)}
+# one slot at the root, two subgroups weighted 3:1; the selector routes a
+# statement by the alias of its sum
+SERVE_GROUPS = {
+    "root": {"name": "global", "hard_concurrency_limit": 1,
+             "scheduling_policy": "weighted_fair",
+             "subgroups": [{"name": "heavy", "weight": 3},
+                           {"name": "light", "weight": 1}]},
+    "selectors": [{"sql": "revenue_light", "group": "light"},
+                  {"group": "heavy"}]}
+SERVE_ADMISSION = ("revenue_heavy_1", "revenue_heavy_2", "revenue_light")
+SERVE_CLIENT_S = 300.0  # the client's bound per statement
+SERVE_WAIT_S = 120.0  # every other wait of the phase
+SERVE_RESTART_ID = "p22_restart"
+SERVE_CAPTURE = ("Q3", "Q12", "R1")  # phase 6's "serving" cases
+
+
+def _fleet_launches(runner) -> dict:
+    """worker url -> its kernel launches since boot (``/v1/info``): the
+    coordinator's own counts cannot see another process's launches."""
+    return {w.url: w.info()["launches"] for w in runner.workers
+            if w.alive()}
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    out = {k: 0 for k in SOURCES}
+    for url, counts in after.items():
+        for k, n in counts.items():
+            out[k] += n - before.get(url, {}).get(k, 0)
+    return out
+
+
+def _exchange_totals(runner) -> tuple:
+    """(pages, bytes) moved over HTTP: the coordinator's fetches of the
+    root fragment plus every worker's fetches from its producers."""
+    from trino_tpu_torch.execution.remote import _http
+    from trino_tpu_torch.telemetry import metrics as tm
+
+    pages, nbytes = tm.EXCHANGE_PAGES.value(), tm.EXCHANGE_BYTES.value()
+    for w in runner.workers:
+        if not w.alive():
+            continue
+        with _http("GET", f"{w.url}/v1/metrics?format=json",
+                   timeout=10.0) as resp:
+            snap = json.loads(resp.read())
+        pages += snap["trino_exchange_pages_total"]["value"]
+        nbytes += snap["trino_exchange_bytes_total"]["value"]
+    return int(pages), int(nbytes)
+
+
+def _json_rows(rows: list) -> list:
+    """Rows as the statement protocol sends them (decimals and dates as
+    strings, NaN as "NaN")."""
+    from trino_tpu_torch.server.protocol import _json_value
+
+    return [[_json_value(v) for v in r] for r in rows]
+
+
+def _compute_apps() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().replace("\n", "; ")
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"unavailable ({type(e).__name__})"
+
+
+def _post(base: str, sql: str, qid: str) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(f"{base}/v1/statement", data=sql.encode(),
+                                 method="POST",
+                                 headers={"X-Trino-Tpu-Query-Id": qid})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.load(resp)
+
+
+def _reattach(base: str, qid: str) -> tuple:
+    """A client that survived the server's restart polls the query's
+    first page again and follows nextUri: (state, rows)."""
+    import urllib.request
+
+    rows: list = []
+    url = f"{base}/v1/statement/{qid}/0"
+    deadline = time.monotonic() + SERVE_CLIENT_S
+    while True:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            payload = json.load(resp)
+        rows.extend(payload.get("data", []))
+        state = payload["stats"]["state"]
+        if not payload.get("nextUri"):
+            if state == "FAILED":
+                raise AssertionError(f"serving restart: {payload}")
+            return state, rows
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serving restart: still {state}")
+        url = base + payload["nextUri"]
+
+
+def _heal(runner, n: int, spare=None) -> None:
+    """Drop dead workers from the fleet and bring it back to ``n``:
+    ``spare`` (a worker booted ahead of time) first, then new ones."""
+    for w in [w for w in runner.workers if not w.alive()]:
+        runner.failure_detector.unmonitor(w.url)
+        runner.workers.remove(w)
+    while len(runner.workers) < n:
+        runner.add_worker(spare)
+        spare = None
+
+
+class _LocalWorker:
+    """A worker's TaskServer served on a thread of this process, in the
+    slot of a worker process: its tasks run the serving path's code at
+    its split, and capture_calls sees their wrapper calls, which it
+    cannot see in another process."""
+
+    def __init__(self, device: str):
+        import threading
+
+        from trino_tpu_torch.execution.worker import TaskServer
+
+        self.server = TaskServer(0, device)
+        self.url = f"http://127.0.0.1:{self.server.port}"
+        self.boot_s = 0.0
+        self.proc = self  # poll / wait / kill, as the runner calls them
+        self.pid = os.getpid()
+        self.returncode = None
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def poll(self):
+        return self.returncode
+
+    def wait(self, timeout=None):
+        return self.returncode
+
+    def alive(self) -> bool:
+        return self.returncode is None
+
+    def info(self) -> dict:
+        from trino_tpu_torch.execution.remote import _http
+
+        with _http("GET", f"{self.url}/v1/info", timeout=10.0) as resp:
+            return json.loads(resp.read())
+
+    def shutdown(self) -> None:
+        if self.returncode is None:
+            self.returncode = 0
+            self.server.httpd.shutdown()
+            self.server.httpd.server_close()
+
+    kill = shutdown
+
+
+def serving_fleet(device: str = "cuda"):
+    """Phase 22's runner (two workers, the session of its queries) with
+    each worker's TaskServer in this process: phase 6 captures the
+    serving path's kernel calls from it."""
+    from trino_tpu_torch.execution.remote import ProcessDistributedQueryRunner
+    from trino_tpu_torch.runner import Session
+
+    class LocalFleet(ProcessDistributedQueryRunner):
+        def _spawn(self):
+            return _LocalWorker(str(self.device))
+
+    spec = {"factory": "trino_tpu_torch.connectors.catalog:default_catalog",
+            "kwargs": {"scale_factor": PATH_SF}}
+    return LocalFleet(spec, worker_count=SERVE_WORKERS, device=device,
+                      session=Session(node_count=SERVE_WORKERS))
+
+
+def same_split(captured: dict, by_query: dict) -> None:
+    """Log, per serving query, the wrapper calls captured in the
+    in-process fleet beside the worker processes' launches in phase 22
+    (a): equal counts mean the same split."""
+    for name in SERVE_CAPTURE:
+        calls = {k: len(captured.get((f"serving {name}", k), []))
+                 for k in SOURCES}
+        log(f"serving {name}: wrapper calls in the in-process fleet "
+            f"{calls}, launches in the worker processes {by_query[name]} "
+            f"({'equal' if calls == by_query[name] else 'differ'})")
+
+
+def serving(torch, GK, sqls: dict, path_rows: dict, dist_cold: dict,
+            smi: str, device: str = "cuda",
+            required: dict = SERVE_REQUIRED) -> dict:
+    """Phase 22: the control plane and the serving path at SF 1 on the
+    tpch connector: a ProcessDistributedQueryRunner with two worker
+    processes on ``device`` (the coordinator's; the kernel library is
+    built before they boot and only bound by them) behind the statement
+    server, driven by the protocol's client.  (a) Q1, Q3, Q12 and R1
+    through the client: rows equal phase 3's, each wall beside phase 19's
+    cold wall, exchange pages and bytes over HTTP, and the kernel
+    launches summed over the workers (``/v1/info``): Q3 must launch
+    hash_insert, Q12 hash_probe, R1 the segment sum.  (b) admission: a
+    resource-group tree with one slot at the root and two subgroups
+    weighted 3:1; three concurrent Q6 statements each pass QUEUED, then
+    RUNNING, then FINISHED in the dispatcher's state machine, at least
+    two with queued_time_ms above 0; the resource_groups rows.  (c)
+    faults: kill -9 of a worker during Q3 under retry_policy=QUERY (the
+    worker is replaced, rows equal), PROCESS_EXIT injected into one Q3
+    task under retry_policy=TASK (recovered from the spool, rows equal),
+    a graceful drain between two queries (exit code 0), and the server
+    stopped and restarted while a TASK query is in flight (the restart
+    resumes it from the write-ahead log under its original id and the
+    client reattaches and gets the rows).  Returns the launches of (a)
+    and (b), summed over the workers, and (a)'s launches by query."""
+    t_phase = time.perf_counter()
+    import signal
+    import threading
+
+    from trino_tpu_torch.execution import control, query_state, spool_gc
+    from trino_tpu_torch.execution.failure_injector import (
+        PROCESS_EXIT, TASK_FAILURE, FailureInjector)
+    from trino_tpu_torch.execution.remote import (
+        ProcessDistributedQueryRunner, WorkerProcess)
+    from trino_tpu_torch.execution.resource_manager import (
+        build_dispatch_manager)
+    from trino_tpu_torch.runner import Session
+    from trino_tpu_torch.server import Client, TrinoTpuServer
+
+    spec = {"factory": "trino_tpu_torch.connectors.catalog:default_catalog",
+            "kwargs": {"scale_factor": PATH_SF}}
+    base_dir = tempfile.mkdtemp(prefix="chip-smoke-p22-", dir="build")
+    launches = {k: 0 for k in SOURCES}
+    by_query: dict = {}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_env_scope("TRINO_TPU_SPOOL_DIR",
+                                       os.path.join(base_dir, "spool"))())
+        stack.enter_context(_env_scope("TRINO_TPU_QUERY_STATE_DIR",
+                                       os.path.join(base_dir, "state"))())
+        stack.callback(shutil.rmtree, base_dir, True)
+        t0 = time.perf_counter()
+        runner = ProcessDistributedQueryRunner(
+            spec, worker_count=SERVE_WORKERS, device=device,
+            session=Session(node_count=SERVE_WORKERS))
+        stack.callback(runner.close)
+        server = TrinoTpuServer(runner).start()
+        stack.callback(server.stop)
+        host, port = server.address
+        base = f"http://{host}:{port}"
+        client = Client(host, port, timeout=SERVE_CLIENT_S)
+        infos = [w.info() for w in runner.workers]
+        log(f"serving: {SERVE_WORKERS} worker processes on {device} "
+            f"({smi}), up in {time.perf_counter() - t0:.1f} s; boot s "
+            f"{[round(w.boot_s, 2) for w in runner.workers]}; devices "
+            f"{[(i['device'], i['device_name']) for i in infos]}; compute "
+            f"apps (pid, memory): {_compute_apps()}")
+
+        # -- (a) the queries through the server ---------------------------
+        for name in SERVE_QUERIES:
+            sql = sqls[name]
+            before = _fleet_launches(runner)
+            ex0 = _exchange_totals(runner)
+            t0 = time.perf_counter()
+            columns, rows = client.execute(sql)
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = _launch_delta(before, _fleet_launches(runner))
+            ex1 = _exchange_totals(runner)
+            rtol = REAL_PARITY_RTOL if name in REAL_QUERIES else DOUBLE_RTOL
+            worst = _same_dist(rows, _json_rows(path_rows[name]), sql,
+                               f"serving {name}", rtol)
+            for k in required.get(name, ()):
+                if launched[k] <= 0:
+                    raise AssertionError(f"serving {name}: the workers "
+                                         f"launched no {k}: {launched}")
+            for k, n in launched.items():
+                launches[k] += n
+            by_query[name] = launched
+            log(f"serving {name}: {len(rows)} rows equal phase 3's "
+                f"(largest float rel diff {worst:.3g}); wall {ms:.1f} ms "
+                f"through the server and two worker processes, phase 19 "
+                f"(in-process, {DIST_WORKERS} tasks, cold) "
+                f"{dist_cold.get(name, float('nan')):.1f} ms ({smi}); "
+                f"exchange over HTTP {ex1[0] - ex0[0]} pages, "
+                f"{ex1[1] - ex0[1]} bytes; worker launches {launched}; "
+                f"columns {[c['type'] for c in columns]}")
+        log(f"serving: compute apps after (a) (pid, memory): "
+            f"{_compute_apps()}; cluster memory view "
+            f"{runner.memory_manager.cluster_reserved_bytes()} bytes "
+            "reserved")
+
+        # -- (b) admission ------------------------------------------------
+        t_part = time.perf_counter()
+        states: dict = {}
+
+        class Recording(control.QueryStateMachine):
+            def __init__(self, query_id):
+                super().__init__(query_id)
+                states[query_id] = ["QUEUED"]
+
+            def set(self, new_state):
+                ok = super().set(new_state)
+                if ok and states[self.query_id][-1] != new_state:
+                    states[self.query_id].append(new_state)
+                return ok
+
+        with _env_scope("TRINO_TPU_RESOURCE_GROUPS",
+                        json.dumps(SERVE_GROUPS))():
+            runner.dispatcher = build_dispatch_manager(runner.session)
+        orig_fsm = control.QueryStateMachine
+        control.QueryStateMachine = Recording
+        results: dict = {}
+        before = _fleet_launches(runner)
+        try:
+            def go(alias):
+                c = Client(host, port, timeout=SERVE_CLIENT_S)
+                results[alias] = c.execute(
+                    sqls["Q6"].replace("as revenue", f"as {alias}"))
+
+            threads = [threading.Thread(target=go, args=(a,), daemon=True)
+                       for a in SERVE_ADMISSION]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(SERVE_CLIENT_S)
+        finally:
+            control.QueryStateMachine = orig_fsm
+        for k, n in _launch_delta(before, _fleet_launches(runner)).items():
+            launches[k] += n
+        if sorted(results) != sorted(SERVE_ADMISSION):
+            raise AssertionError(f"serving admission: {sorted(results)}")
+        for alias, (_cols, rows) in results.items():
+            _same_dist(rows, _json_rows(path_rows["Q6"]), sqls["Q6"],
+                       f"serving admission {alias}", DOUBLE_RTOL)
+        infos = {i.sql: i for i in runner.dispatcher.queries()}
+        order = ("QUEUED", "RUNNING", "FINISHED")
+        seqs = {}
+        for alias in SERVE_ADMISSION:
+            info = next(i for s, i in infos.items() if alias in s)
+            seq = states[info.query_id]
+            if [s for s in seq if s in order] != list(order):
+                raise AssertionError(f"serving admission {alias}: {seq}")
+            seqs[alias] = (info.resource_group, seq)
+        _cols, qrows = client.execute(
+            "select query_id, queued_time_ms, resource_group, sql "
+            "from system.runtime.queries")
+        # the statements' own records (the dispatcher's state machines
+        # show up there too, under their q_N ids, with no queue time)
+        fsm_ids = {i.query_id for i in infos.values()}
+        queued = {a: r[1] for r in qrows for a in SERVE_ADMISSION
+                  if a in r[3] and r[0] not in fsm_ids}
+        if len(queued) != len(SERVE_ADMISSION) or \
+                sum(1 for v in queued.values() if v > 0) < 2:
+            raise AssertionError(f"serving admission: queued ms {queued}")
+        _cols, grows = client.execute(
+            "select * from system.runtime.resource_groups")
+        runner.dispatcher = build_dispatch_manager(runner.session)
+        log(f"serving admission: three concurrent Q6 under one slot, "
+            f"weighted 3:1 ({smi}): rows equal phase 3's; groups and "
+            f"state sequences {seqs}; queued_time_ms {queued}; "
+            f"resource_groups {grows}; (b) took "
+            f"{time.perf_counter() - t_part:.1f} s")
+
+        # -- (c) faults ---------------------------------------------------
+        t_part = time.perf_counter()
+        # the drain needs two workers after PROCESS_EXIT took one: a spare
+        # boots meanwhile, so the drill waits for no boot
+        spare: dict = {}
+        booting = threading.Thread(
+            target=lambda: spare.setdefault("w", WorkerProcess(device=device)),
+            daemon=True)
+        booting.start()
+
+        def kill_spare():
+            booting.join(SERVE_WAIT_S)
+            if "w" in spare:
+                spare.pop("w").kill()
+
+        stack.callback(kill_spare)
+        sql = sqls["Q3"]
+        want = _json_rows(path_rows["Q3"])
+        # kill -9 of a worker mid-query under retry_policy=QUERY
+        runner.session = Session(node_count=SERVE_WORKERS,
+                                 retry_policy="QUERY",
+                                 retry_initial_delay_s=0.05,
+                                 properties={"heartbeat_interval_s": 0.2})
+        victim = runner.workers[-1]
+        tasks0 = victim.info()["tasks"]
+        retries0 = runner.resilience.query_retries
+        replaced0 = runner.resilience.worker_replacements
+        out: dict = {}
+        th = threading.Thread(
+            target=lambda: out.setdefault("rows", client.execute(sql)[1]),
+            daemon=True)
+        t0 = time.perf_counter()
+        th.start()
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while victim.info()["tasks"] == tasks0:
+            if time.monotonic() > deadline or not th.is_alive():
+                raise AssertionError("serving kill -9: Q3 placed no task "
+                                     "on the victim")
+            time.sleep(0.02)
+        os.kill(victim.proc.pid, signal.SIGKILL)
+        th.join(SERVE_CLIENT_S)
+        ms = (time.perf_counter() - t0) * 1e3
+        if "rows" not in out:
+            raise AssertionError("serving kill -9: Q3 did not finish")
+        _same_dist(out["rows"], want, sql, "serving kill -9", DOUBLE_RTOL)
+        if runner.resilience.query_retries <= retries0 or \
+                runner.resilience.worker_replacements != replaced0 + 1 \
+                or victim.alive():
+            raise AssertionError(f"serving kill -9: {runner.resilience}; "
+                                 f"{runner.resilience_events[-6:]}")
+        log(f"serving kill -9: worker {victim.url} (pid {victim.proc.pid}) "
+            f"killed during Q3 under retry_policy=QUERY; replaced and "
+            f"re-run in {ms:.1f} ms ({smi}); rows equal phase 3's; events "
+            f"{runner.resilience_events[-4:]}")
+        # PROCESS_EXIT into one Q3 task under retry_policy=TASK
+        inj = FailureInjector()
+        runner.session = Session(node_count=SERVE_WORKERS,
+                                 retry_policy="TASK", failure_injector=inj)
+        leaf = runner.create_subplan(sql).all_fragments()[0]
+        inj.inject(PROCESS_EXIT, fragment_id=leaf.id, task_index=0,
+                   attempt=0)
+        t0 = time.perf_counter()
+        _cols, rows = client.execute(sql)
+        ms = (time.perf_counter() - t0) * 1e3
+        _same_dist(rows, want, sql, "serving PROCESS_EXIT", DOUBLE_RTOL)
+        alive = sum(w.alive() for w in runner.workers)
+        if alive != SERVE_WORKERS - 1:
+            raise AssertionError(f"serving PROCESS_EXIT: {alive} workers "
+                                 "alive; the injected exit killed none")
+        log(f"serving PROCESS_EXIT: leaf task f{leaf.id}.t0's worker "
+            f"exited (17) under retry_policy=TASK; fault-tolerant "
+            f"execution recovered from the spool in {ms:.1f} ms ({smi}); "
+            "rows equal phase 3's")
+        booting.join(SERVE_WAIT_S)
+        if "w" not in spare:
+            raise AssertionError("serving: the spare worker did not boot")
+        _heal(runner, SERVE_WORKERS, spare.pop("w"))
+        # a graceful drain between two queries
+        runner.session = Session(node_count=SERVE_WORKERS)
+        _cols, first = client.execute(sqls["Q6"])
+        drained = runner.workers[-1]
+        summary = runner.drain_worker(drained, timeout_s=60, replace=False)
+        _cols, second = client.execute(sqls["Q6"])
+        for rows in (first, second):
+            _same_dist(rows, _json_rows(path_rows["Q6"]), sqls["Q6"],
+                       "serving drain", DOUBLE_RTOL)
+        if summary["exit_code"] != 0 or summary["escalated"]:
+            raise AssertionError(f"serving drain: {summary}")
+        log(f"serving drain: {summary['worker']} drained between two Q6, "
+            f"exit code {summary['exit_code']}; the second ran on the "
+            "remaining worker; rows equal phase 3's")
+        # the server stopped and restarted while a TASK query is in flight
+        inj = FailureInjector()
+        runner.session = Session(node_count=SERVE_WORKERS,
+                                 retry_policy="TASK", failure_injector=inj,
+                                 fte_speculative=False,
+                                 task_retry_attempts=1)
+        last = [f.id for f in runner.create_subplan(sql).all_fragments()
+                if f.source_fragments][-1]
+        inj.inject(TASK_FAILURE, fragment_id=last, task_index=None,
+                   attempt=None, times=10)
+        with contextlib.ExitStack() as crash:
+            # what a stopped coordinator leaves: no terminal WAL record,
+            # the spool root not released
+            crash.callback(setattr, query_state.QueryStateLog, "end",
+                           query_state.QueryStateLog.end)
+            crash.callback(setattr, spool_gc, "release", spool_gc.release)
+            query_state.QueryStateLog.end = lambda self, *a, **kw: None
+            spool_gc.release = lambda root: 0
+            payload = _post(base, sql, SERVE_RESTART_ID)
+            deadline = time.monotonic() + SERVE_WAIT_S
+            while not any(pq.query_id == SERVE_RESTART_ID and pq.committed
+                          for pq in query_state.pending()):
+                if time.monotonic() > deadline:
+                    raise AssertionError("serving restart: no commit")
+                time.sleep(0.02)
+            server.stop()
+            q = server.dispatcher.get(SERVE_RESTART_ID)
+            if not q.done.wait(SERVE_CLIENT_S):
+                raise AssertionError("serving restart: the first run hung")
+        pending = [pq for pq in query_state.pending()
+                   if pq.query_id == SERVE_RESTART_ID]
+        if len(pending) != 1:
+            raise AssertionError(f"serving restart: pending {pending}")
+        starts = dict(pending[0].attempt_counts)
+        committed = dict(pending[0].committed)
+        runner.session = Session(node_count=SERVE_WORKERS,
+                                 retry_policy="TASK")
+        t0 = time.perf_counter()
+        server = TrinoTpuServer(runner, port=port).start()
+        stack.callback(server.stop)
+        if server.dispatcher.recovered_query_ids != [SERVE_RESTART_ID]:
+            raise AssertionError(f"serving restart: recovered "
+                                 f"{server.dispatcher.recovered_query_ids}")
+        state, rows = _reattach(base, SERVE_RESTART_ID)
+        ms = (time.perf_counter() - t0) * 1e3
+        _same_dist(rows, want, sql, "serving restart", DOUBLE_RTOL)
+        final = query_state.load(pending[0].path)
+        rerun = [k for k in committed
+                 if final.attempt_counts.get(k, 0) != starts.get(k, 0)]
+        if state != "FINISHED" or final.ended != "FINISHED" or rerun:
+            raise AssertionError(f"serving restart: {state}, "
+                                 f"{final.ended}, re-executed {rerun}")
+        log(f"serving restart: server stopped with Q3 in flight "
+            f"({payload['stats']['state']} at post; the first run ended "
+            f"{q.state} with {len(committed)} committed attempts); the "
+            f"restarted server resumed {SERVE_RESTART_ID} from the "
+            f"write-ahead log and the client reattached and got the rows "
+            f"in {ms:.1f} ms ({smi}); no committed attempt re-executed; "
+            f"(c) took {time.perf_counter() - t_part:.1f} s")
+    log(f"serving launches (workers, (a) and (b)): {launches}")
+    log(f"serving: {time.perf_counter() - t_phase:.1f} s for phase 22")
+    return launches, by_query
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -4162,6 +4716,17 @@ def kernel_cases(torch, GK, captured) -> list:
         ("masked_segment_sum_f32", "fault-tolerant: R1 REAL sum of a task "
          "attempt", pick("fault-tolerant R1", "masked_segment_sum_f32",
                          lambda c: True)),
+    ]
+    # the serving path (phase 22): a worker task's largest insert of Q3,
+    # probe of Q12 and REAL sum of R1, at its two-task split
+    cases += [
+        ("hash_insert", f"serving: Q3 largest insert of a worker task "
+         f"({SERVE_WORKERS} tasks)", pick("serving Q3", "hash_insert",
+                                          lambda c: True)),
+        ("hash_probe", "serving: Q12 largest probe of a worker task",
+         pick("serving Q12", "hash_probe", lambda c: True)),
+        ("masked_segment_sum_f32", "serving: R1 REAL sum of a worker task",
+         pick("serving R1", "masked_segment_sum_f32", lambda c: True)),
     ]
     return cases
 
@@ -4373,7 +4938,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
     # on the per-operator path, as PR 15 measured it (phase 20 takes the
     # compiled stages, the default)
     with _compiled_off():
-        distributed_launches, dist, q1_batch = distributed(
+        distributed_launches, dist, q1_batch, dist_cold = distributed(
             torch, GK, default_catalog, runner, sqls, path_rows, smi)
     progress("19 (distributed)")
 
@@ -4387,12 +4952,19 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
         torch, GK, default_catalog, sqls, path_rows, smi)
     progress("21 (resilient)")
 
+    # -- 22. the control plane and the serving path: the statement server,
+    # worker processes over HTTP
+    serving_launches, serving_by_query = serving(torch, GK, sqls, path_rows,
+                                                 dist_cold, smi)
+    progress("22 (serving)")
+
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
     # kept apart from the path runs so the held tensors do not inflate
     # their peak memory, and its launches are not the paths'.
     staged.execute(f"create table {ANALYZE_CASE} as "
                    "select l_extendedprice from lineitem")
+    fleet = serving_fleet()
     captured = capture_calls(GK, [
         (f"{prefix}{name}", r, sqls[name]) for prefix, r in
         (("", runner), ("staged ", staged)) for name in CAPTURE_QUERIES]
@@ -4410,8 +4982,11 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
            for name in COMPILED_CAPTURE]
         + [(f"fault-tolerant {name}", fte_dist, sqls[name])
            for name in P21_CAPTURE]
+        + [(f"serving {name}", fleet, sqls[name]) for name in SERVE_CAPTURE]
         + [("distributed q1_step",
             _Program(lambda: bench_q1_step(q1_batch)), None)])
+    fleet.close()
+    same_split(captured, serving_by_query)
     staged.execute(f"drop table {ANALYZE_CASE}")
     cases = kernel_cases(torch, GK, captured)
     log(library_read_rate(torch, cases[7][2][0]))
@@ -4464,6 +5039,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
             "launches_compiled": compiled_launches[kernel],
             "launches_fault_tolerant": ft_launches[kernel],
             "launches_adaptive": adaptive_launches[kernel],
+            "launches_serving": serving_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],
@@ -4473,7 +5049,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
         entry["max_abs_err"] = max(entry["max_abs_err"], res["err"])
         entry["cases"].append(case)
     del captured, cases, args, res, staged, staged_cat, runner, parallel
-    del dist, q1_batch, compiled_dist, fte_dist
+    del dist, q1_batch, compiled_dist, fte_dist, fleet
     torch.cuda.empty_cache()
     progress("6 (kernels)")
 

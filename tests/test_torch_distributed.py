@@ -352,21 +352,132 @@ def test_unported_properties_raise(prop, value):
     _same(port.execute(sql).rows(), ref.execute(sql).rows(), True)
 
 
-def test_unported_methods_raise():
-    """What stays refused names its ROADMAP queue item: worker drains (the
-    control plane, item 4) and PROCESS_EXIT injection (worker processes,
-    item 5)."""
+def _drain_script(runner) -> list:
+    out = [runner.active_worker_count]
+    out.append(runner.drain_worker("worker-1"))
+    out.append(runner.active_worker_count)
+    out.append([(w, s) for w, s, *_ in runner.execute(
+        "select * from system.runtime.workers").rows()])
+    out.append(runner.execute("select count(*) from nation").rows())
+    runner.restore_worker("worker-1")
+    out.append(runner.active_worker_count)
+    out.append([e for e in runner.resilience_events if e[0] == "drain"])
+    return out
+
+
+def test_drain_and_restore_worker_match_reference():
+    """An in-process drain marks the slot draining in discovery, so the
+    next query's placement leaves it out; a restore takes it back.  Counts,
+    events and ``system.runtime.workers`` rows equal the reference's."""
+    port = DistributedQueryRunner(default_catalog(SF), worker_count=3,
+                                  device="cpu")
+    ref = RefDist(ref_catalog(scale_factor=SF), worker_count=3)
+    got, want = _drain_script(port), _drain_script(ref)
+    assert got == want
+    assert want[0] == 3 and want[2] == 2 and want[5] == 3
+    assert ("worker-1", "SHUTTING_DOWN") in want[3]
+
+
+def test_failure_detector_sheds_a_dead_pinger():
+    """The in-process failure detector drives ``active_worker_count``: a
+    worker whose ping fails leaves placement at the next query, reports
+    GONE in ``system.runtime.workers`` and comes back when it answers."""
+    outs = []
+    for runner in (DistributedQueryRunner(default_catalog(SF),
+                                          worker_count=3, device="cpu"),
+                   RefDist(ref_catalog(scale_factor=SF), worker_count=3)):
+        up = {"ok": False}
+        runner.failure_detector.monitor("worker-0", lambda: up["ok"])
+        out = [runner.active_worker_count, sorted(
+            (w, s) for w, s, *_ in runner.execute(
+                "select * from system.runtime.workers").rows())]
+        up["ok"] = True
+        out.append(runner.active_worker_count)
+        outs.append(out)
+    assert outs[0] == outs[1]
+    assert outs[1][0] == 2 and ("worker-0", "GONE") in outs[1][1]
+    assert outs[1][2] == 3
+
+
+def test_process_exit_injection_is_accepted():
+    """PROCESS_EXIT is a rule like any other: it travels in a worker
+    task's descriptor (the same wire form as the reference's), and the
+    in-process runner's tasks never reach the point where a worker process
+    exits, so a query there gives the reference's rows."""
+    from trino_tpu.execution import failure_injector as RFI
     from trino_tpu_torch.execution.failure_injector import (
         PROCESS_EXIT, FailureInjector)
 
+    wire = []
+    for fi in (FailureInjector(), RFI.FailureInjector()):
+        fi.inject(PROCESS_EXIT, fragment_id=1, task_index=0, attempt=0)
+        wire.append((fi.consume_for(1, 1, 0), fi.consume_for(1, 0, 0),
+                     fi.consume_for(1, 0, 0)))
+    assert wire[0] == wire[1]
+    assert wire[1][0] == [] and wire[1][2] == []
+    assert [r["kind"] for r in wire[1][1]] == [PROCESS_EXIT]
+    inj = FailureInjector()
+    port = DistributedQueryRunner(
+        default_catalog(SF), worker_count=2, device="cpu",
+        session=Session(node_count=2, failure_injector=inj))
+    inj.inject(PROCESS_EXIT)
+    ref = RefDist(ref_catalog(scale_factor=SF), worker_count=2)
+    sql = "select n_regionkey, count(*) from nation group by 1 order by 1"
+    _same(port.execute(sql).rows(), ref.execute(sql).rows(), True)
+
+
+def test_descriptors_hold_no_tensor():
+    """A worker task's descriptor is a pickle of the port's plan fragment
+    and control fields; pages cross as the wire format.  Every fragment
+    of the 24 queries encodes, and a descriptor holding a tensor is
+    refused."""
+    from trino_tpu_torch.execution.worker import (decode_descriptor,
+                                                  encode_descriptor)
+
     port = DistributedQueryRunner(default_catalog(SF), worker_count=2,
                                   device="cpu")
-    for call in (lambda: port.drain_worker("worker-0"),
-                 lambda: port.restore_worker("worker-0")):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            call()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        FailureInjector().inject(PROCESS_EXIT, fragment_id=1)
+    n = 0
+    for _name, sql, _ in CASES:
+        for f in port.create_subplan(sql).all_fragments():
+            desc = {"fragment": f, "task_index": 0, "task_count": 2,
+                    "num_partitions": 2, "attempt": 0, "query_id": "pq1",
+                    "upstream": {src: {"uris": ["http://127.0.0.1:1/v1/"
+                                                "task/x"], "merge": False}
+                                 for src in f.source_fragments},
+                    "catalog": {"factory": "trino_tpu_torch.connectors."
+                                "catalog:default_catalog",
+                                "kwargs": {"scale_factor": SF}},
+                    "failure_rules": []}
+            back = decode_descriptor(encode_descriptor(desc))
+            assert plan_text(back["fragment"].root) == plan_text(f.root)
+            n += 1
+    assert n > 24
+    with pytest.raises(TypeError, match="no tensor"):
+        encode_descriptor({"fragment": None, "x": [torch.zeros(3)]})
+
+
+def test_worker_refuses_cuda_without_a_card():
+    """The coordinator passes its own device to every worker and nothing
+    falls back: a worker told ``--device cuda`` on a host without CUDA
+    exits before LISTENING, and WorkerProcess raises REMOTE_HOST_GONE
+    with the worker's stderr tail.  A process runner on ``cuda`` raises
+    before it spawns anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from trino_tpu_torch.execution.remote import (
+        ProcessDistributedQueryRunner, WorkerProcess)
+    from trino_tpu_torch.spi.errors import TrinoError
+
+    with pytest.raises(TrinoError) as ei:
+        WorkerProcess(env_overrides={"OMP_NUM_THREADS": "1"},
+                      boot_timeout_s=60.0, device="cuda")
+    assert ei.value.code.name == "REMOTE_HOST_GONE"
+    assert "CUDA is not available" in str(ei.value)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ProcessDistributedQueryRunner(
+            {"factory": "trino_tpu_torch.connectors.catalog:"
+             "default_catalog", "kwargs": {"scale_factor": SF}},
+            worker_count=2)
 
 
 def test_cuda_without_a_card_raises():

@@ -1140,3 +1140,61 @@ def test_spool_reads_land_on_card(cuda, tmp_path):
     snap = query_state.decode_plan(query_state.encode_plan(
         {"t": torch.arange(3, device="cuda")})[0])
     assert snap["t"].device.type == "cpu" and snap["t"].tolist() == [0, 1, 2]
+
+
+SERVED_REAL = ("select l_linenumber, sum(cast(l_quantity as real)), "
+               "sum(cast(l_extendedprice as real)) from lineitem "
+               "group by l_linenumber order by l_linenumber")
+
+
+@pytest.mark.gpu
+def test_worker_processes_launch_kernels_on_card(cuda, monkeypatch,
+                                                 tmp_path):
+    """Q3, Q12 and R1 at SF 0.1 through two worker processes on the card
+    equal the same runner on the CPU, and the workers' own launch counts
+    (``/v1/info``, summed over the fleet) show the kernel each query
+    reaches: hash_insert for Q3, hash_probe for Q12, the segment sum for
+    R1.  The coordinator's counts cannot see them: they are another
+    process's."""
+    import math
+
+    from trino_tpu_torch.execution.remote import (
+        ProcessDistributedQueryRunner)
+    from trino_tpu_torch.runner import Session
+
+    spec = {"factory": "trino_tpu_torch.connectors.catalog:default_catalog",
+            "kwargs": {"scale_factor": 0.1}}
+    cases = [("Q3", QUERIES[3], "hash_insert"),
+             ("Q12", QUERIES[12], "hash_probe"),
+             ("R1", SERVED_REAL, "masked_segment_sum_f32")]
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        _fresh_journal(monkeypatch, tmp_path / dev)
+        dist = ProcessDistributedQueryRunner(
+            spec, worker_count=2, session=Session(node_count=2),
+            env_overrides={"TRINO_TPU_JOURNAL_DIR": str(tmp_path / dev)},
+            device=dev)
+        try:
+            for name, sql, kernel in cases:
+                before = [w.info()["launches"] for w in dist.workers]
+                rows[(dev, name)] = dist.execute(sql).rows()
+                after = [w.info()["launches"] for w in dist.workers]
+                n = sum(a[kernel] - b[kernel]
+                        for a, b in zip(after, before))
+                if dev == "cuda":
+                    assert n > 0, f"{name}: workers launched no {kernel}"
+                    assert all(w.info()["device"] == "cuda"
+                               for w in dist.workers)
+                else:
+                    assert n == 0
+        finally:
+            dist.close()
+    for name, _, _ in cases:
+        got, want = rows[("cuda", name)], rows[("cpu", name)]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(b, float):
+                    assert math.isclose(a, b, rel_tol=1e-4), (name, g, w)
+                else:
+                    assert a == b, (name, g, w)

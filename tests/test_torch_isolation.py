@@ -52,7 +52,15 @@ def test_port_imports_neither_jax_nor_the_reference():
     imported = set(result["imported"])
     for module in ("chip_smoke", "trino_tpu_torch.runner",
                    "trino_tpu_torch.spi.security",
+                   "trino_tpu_torch.spi.session",
                    "trino_tpu_torch.execution.transaction",
+                   "trino_tpu_torch.execution.control",
+                   "trino_tpu_torch.execution.resource_manager",
+                   "trino_tpu_torch.execution.worker",
+                   "trino_tpu_torch.execution.remote",
+                   "trino_tpu_torch.server",
+                   "trino_tpu_torch.server.protocol",
+                   "trino_tpu_torch.server.client",
                    "trino_tpu_torch.caching.plan_cache",
                    "trino_tpu_torch.caching.result_cache"):
         assert module in imported

@@ -9,8 +9,9 @@ cases of tests/test_spool_gc.py (CRC framing, the spool writer's v2
 header, leases, sweep rules, the byte budget) run on the port.  The WAL
 a port query writes is read by the reference's loader to the same
 committed map and attempt counts, and the port's resumed query gives the
-rows the reference's FTE run gives.  The dispatcher's boot recovery and
-the kill -9 drills wait for worker processes (ROADMAP queue 1 item 5).
+rows the reference's FTE run gives.  The dispatcher's boot recovery is
+held in tests/test_torch_server.py, the worker-process kills in
+tests/test_torch_process_faults.py.
 """
 
 import json

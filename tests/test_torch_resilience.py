@@ -7,10 +7,9 @@ detector's state machine (execution/failure_detector.py) and streaming
 speculation.
 
 The reference's tests/test_resilience.py cases that need no worker
-process run on the port; those that boot worker processes or reach them
-over HTTP (the boot failure, ``/v1/status``, PROCESS_EXIT recovery, the
-exchange client's backoff trip and poll timeout, worker replacement) wait
-for worker processes (ROADMAP queue 1 item 5).  The repaired
+process run here; those that boot worker processes (the boot failure,
+``/v1/status``, PROCESS_EXIT recovery, USER errors across the wire, the
+replacement cap) are in tests/test_torch_process_faults.py.  The repaired
 classification of a memory-limit error is held here: ``classify`` gives
 the reference's code and retryability, and a query that fails on its
 memory limit reports the reference's ``error_code`` in its completed

@@ -637,15 +637,14 @@ def test_reference_only_properties_are_stored():
     "query_max_memory_bytes", "failure_injector", "fte_spool_dir"])
 def test_unread_session_fields_are_refused(name):
     """The reference's Session fields that SQL cannot set: SET SESSION
-    refuses them in both packages.  Those the port does not read are no
-    fields of its Session (passing one is an error); the failure injector
-    and the spool directory are, since fault-tolerant execution reads
-    them."""
-    if name in ("failure_injector", "fte_spool_dir"):
-        assert getattr(Session(**{name: 1}), name) == 1
-    else:
-        with pytest.raises(TypeError):
-            Session(**{name: 1})
+    refuses them in both packages.  Each is a field of the port's Session
+    (the control plane reads the selector's ``source``, the priority, the
+    admission wait and the memory cap; fault-tolerant execution the
+    failure injector and the spool directory), with the reference's
+    default."""
+    assert getattr(Session(**{name: 1}), name) == 1
+    if name not in ("failure_injector", "fte_spool_dir"):
+        assert getattr(Session(), name) == getattr(RefSession(), name)
     ref, port = _runners()
     assert _outcome(port, f"set session {name} = 1") == (
         _outcome(ref, f"set session {name} = 1")) == ("raises", "KeyError")

@@ -27,9 +27,10 @@ identity of its first argument (a dictionary) and the rest; the entry
 holds no reference to that argument and is dropped when it is freed, so
 a memo keeps no per-query dictionary alive.
 
-The reference also journals memo keys for a worker to replay at boot; the
-port has no worker boot path yet (ROADMAP queue 1 items 5-6), so it keeps
-no warm journal.  XLA's persistent compile cache has no counterpart:
+The reference also journals memo keys for a worker to replay at boot.
+The port journals none, so its worker boot path (execution/worker.py)
+only binds the kernel library and replays nothing (ROADMAP queue 1
+item 6).  XLA's persistent compile cache has no counterpart:
 :func:`init_compile_cache` only reports the directory nvcc's library
 lives in.
 
@@ -300,3 +301,4 @@ def init_compile_cache() -> Optional[str]:
 
     d = str(GK._BUILD_DIR)
     return d if os.path.isdir(d) else None
+

@@ -9,13 +9,19 @@ and the cache plane (caching/), served through the ordinary Connector SPI,
 so every planner and executor layer treats them like any other table.
 The eight tables and their schemas are the reference's.
 
-A standalone runner has no dispatcher, worker fleet or coordinator fleet,
-so those tables give what the reference's standalone runner gives:
-``runtime.resource_groups`` and ``runtime.workers`` are empty,
-``runtime.tasks`` holds what the task registry holds (nothing, until a
-distributed runner records tasks), and ``runtime.coordinators`` is the
-one local coordinator.  ``data_version`` is None for every table, so a
-system read is never result-cached.
+A distributed runner attaches itself: ``runtime.resource_groups`` is its
+dispatcher's group tree, ``runtime.workers`` its worker fleet (the
+process runner's heartbeat sweep, or the in-process runner's discovery
+and failure detector: a drained slot is SHUTTING_DOWN, a failed pinger
+GONE), and ``runtime.queries`` adds the dispatcher's queries that no
+query record covers.  A standalone runner has no dispatcher, worker fleet
+or coordinator fleet, so there those tables give what the reference's
+standalone runner gives: ``runtime.resource_groups`` and
+``runtime.workers`` are empty.  ``runtime.tasks`` holds what the task
+registry holds, and ``runtime.coordinators`` is the one local
+coordinator (the HA fleet's table comes with the HA modules).
+``data_version`` is None for every table, so a system read is never
+result-cached.
 
 Tables are schema-qualified (``runtime.queries`` etc.);
 ``Catalog.resolve_table`` resolves ``system.runtime.queries`` by trying the
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import os
 import socket
+import time
 import weakref
 from typing import Optional, Sequence
 
@@ -166,15 +173,39 @@ class SystemConnector(Connector):
         from ..telemetry import metrics, runtime
 
         if table == "runtime.queries":
-            return [
+            out = [
                 (q.query_id, q.state, q.user, q.sql, q.wall_ms, q.cpu_ms,
                  q.output_rows, q.input_rows, q.input_bytes, q.retry_count,
                  q.peak_memory_bytes, q.error, q.queued_ms, q.resource_group,
                  q.adaptive_decisions)
                 for q in runtime.queries()
             ]
-        if table in ("runtime.resource_groups", "runtime.workers"):
-            return []  # a standalone runner has no dispatcher, no workers
+            # dispatcher-tracked queries (control.py FSM) that predate or
+            # bypass run_with_query_events show up with their FSM state
+            dispatcher = getattr(self._attached(), "dispatcher", None)
+            if dispatcher is not None:
+                seen = {r[0] for r in out}
+                for info in dispatcher.queries():
+                    if info.query_id not in seen:
+                        out.append((info.query_id, info.state, "", info.sql,
+                                    0.0, 0.0, -1, 0, 0, 0, 0, None, 0.0,
+                                    info.resource_group, ""))
+            return out
+        if table == "runtime.resource_groups":
+            dispatcher = getattr(self._attached(), "dispatcher", None)
+            if dispatcher is None:
+                return []
+            return [
+                (g.name, g.scheduling_policy, g.weight,
+                 g.soft_concurrency_limit
+                 if g.soft_concurrency_limit is not None
+                 else g.hard_concurrency_limit,
+                 g.hard_concurrency_limit, g.max_queued,
+                 g.running, g.queued, g.memory_usage_bytes, g.cpu_usage_s)
+                for g in dispatcher.groups()
+            ]
+        if table == "runtime.workers":
+            return self._worker_rows()
         if table == "runtime.query_history":
             from ..telemetry import journal as tj
 
@@ -231,3 +262,45 @@ class SystemConnector(Connector):
                     out.append((name, kind, float(snap["value"])))
             return out
         raise KeyError(f"no such system table: {table!r}")
+
+    def _attached(self):
+        return self._runner() if self._runner is not None else None
+
+    def _worker_rows(self) -> list[tuple]:
+        """Per-worker operational view: failure-detector state, cluster
+        blacklist score, task counts, heartbeat age.  Process runners carry
+        a WorkerFailureDetector (worker_rows feed); the in-process runner
+        synthesizes from discovery (control.py NodeManager), where a drained
+        slot reports SHUTTING_DOWN and a failed pinger reports GONE."""
+        runner = self._attached()
+        if runner is None:
+            return []
+        bl = getattr(runner, "cluster_blacklist", None)
+        scores = bl.snapshot() if bl is not None else {}
+        fd = getattr(runner, "failure_detector", None)
+        if hasattr(fd, "worker_rows"):
+            return [
+                (r["worker"], r["state"], float(scores.get(r["worker"], 0.0)),
+                 r["running_tasks"], r["queued_tasks"],
+                 r["last_heartbeat_age_ms"])
+                for r in fd.worker_rows()
+            ]
+        nodes = getattr(runner, "nodes", None)
+        if nodes is None:
+            return []
+        failed = set()
+        try:
+            failed = set(fd.failed_nodes())
+        except Exception:
+            pass
+        now = time.monotonic()
+        out = []
+        for n in nodes.all_nodes():
+            if n.coordinator:
+                continue
+            state = ("GONE" if n.node_id in failed
+                     else "SHUTTING_DOWN" if n.draining else "ACTIVE")
+            out.append((n.node_id, state,
+                        float(scores.get(n.node_id, 0.0)), 0, 0,
+                        (now - n.last_heartbeat) * 1000.0))
+        return out

@@ -63,9 +63,14 @@ logged to a write-ahead query-state log a fresh runner resumes from
 (``pending_fte_recoveries`` / ``resume_fte_query``).  A retried task or
 query runs again on the same device with the same kernels.
 
-Not ported yet, and refused with NotImplementedError: worker drains
-(``drain_worker`` / ``restore_worker``, the control plane, ROADMAP queue 1
-item 4) and worker processes (``PROCESS_EXIT`` injection, item 5).
+Every statement goes through the control plane (execution/control.py,
+execution/resource_manager.py), as in the reference: the dispatcher's
+resource-group admission and query state machine (``dispatcher``), the
+heartbeat-gated membership of the in-process workers (``nodes``,
+``failure_detector``; ``drain_worker`` / ``restore_worker``), and the
+cluster memory manager (``memory_manager``), with which every streaming
+run registers and whose low-memory killer it polls.  Tasks in worker
+processes are execution/remote.py's ``ProcessDistributedQueryRunner``.
 """
 
 from __future__ import annotations
@@ -112,6 +117,7 @@ from ..telemetry import metrics as tm
 from ..telemetry import runtime as rt
 from . import query_state, spool_gc
 from .adaptive import AdaptiveExec, adaptive_mode
+from .control import HeartbeatFailureDetector, NodeManager
 from .collective_exchange import (CollectiveOutputSink,
                                   CollectiveRepartitionExchange,
                                   collectives_available)
@@ -124,6 +130,8 @@ from .fte import fte_task_dir, run_fte_query
 from .plan_compiler import (ResidentBuildHandle, ResidentBuildSinkOperator,
                             ResidentPlanExec, ResidentPlanOverflow,
                             ResidentPlanSinkOperator, plan_resident_plans)
+from .resource_manager import (ClusterMemoryManager,
+                               build_dispatch_manager, find_group)
 from .speculation import (SPECULATIVE, STANDARD, ClusterBlacklist,
                           GatedBuffer, SpeculationLost, SpoolTeeBuffer,
                           StreamingSpeculation, StreamingSpoolTee,
@@ -141,9 +149,6 @@ __all__ = ["DistributedQueryRunner"]
 # Byte budget of each task's output buffer (the reference's default; a
 # full buffer blocks its producer, or parks it under TIME_SHARING).
 SINK_MAX_BYTES = 256 << 20
-
-_ITEM4 = ("is not ported yet (ROADMAP queue 1 item 4: the control plane, "
-          "NodeManager and the failure-detector-driven membership)")
 
 
 @dataclass
@@ -177,6 +182,18 @@ class DistributedQueryRunner:
         self.ingest = ingest if ingest is not None else IngestConfig()
         self.execution_key = (str(self.device), worker_count,
                               dataclasses.astuple(self.ingest))
+        # control plane: discovery (in-process workers announce at boot),
+        # heartbeat-gated membership, resource-group admission and the
+        # query state machine, the cluster memory view and its killer
+        self.nodes = NodeManager()
+        self.nodes.announce("coordinator", coordinator=True)
+        for i in range(worker_count):
+            self.nodes.announce(f"worker-{i}")
+        self.failure_detector = HeartbeatFailureDetector(self.nodes)
+        for i in range(worker_count):
+            self.failure_detector.monitor(f"worker-{i}", lambda: True)
+        self.dispatcher = build_dispatch_manager(self.session)
+        self.memory_manager = ClusterMemoryManager()
         self.tracer = Tracer()
         self.event_listeners = EventListenerManager()
         self.access_control = AccessControlManager()
@@ -259,8 +276,17 @@ class DistributedQueryRunner:
             cached = result_cache.lookup(key)
             if cached is not None:
                 return cached
-            out = self._execute_subplan(
-                fragment_plan(plan_cache.clone(entry.plan)), None)
+
+            def run_cached(fsm):
+                fsm.set("PLANNING")
+                subplan = fragment_plan(plan_cache.clone(entry.plan))
+                fsm.set("STARTING")
+                fsm.set("RUNNING")
+                out = self._execute_subplan(subplan, None)
+                fsm.set("FINISHING")
+                return out
+
+            out = self.dispatcher.submit(sql, self.session, run_cached)
             result_cache.store(key, out, entry.tables)
             return out
         stmt = parse_statement(sql)
@@ -295,15 +321,28 @@ class DistributedQueryRunner:
             self.device)
         if out is not None:
             return out
-        plan = self._plan_stmt(stmt)
-        entry = plan_cache.store(sql, session, self.catalog, plan,
-                                 self.execution_key, flavor="fragmented")
-        # Tier C: the version vector is read BEFORE execution, so a racing
-        # write strands the entry instead of publishing stale rows
-        key = result_cache.result_key(
-            entry, result_cache.version_vector(entry.tables, self.catalog))
-        out = self._execute_subplan(fragment_plan(plan), None)
-        result_cache.store(key, out, entry.tables)
+        store_ctx: dict = {}
+
+        def run(fsm):
+            fsm.set("PLANNING")
+            plan = self._plan_stmt(stmt)
+            entry = plan_cache.store(sql, session, self.catalog, plan,
+                                     self.execution_key, flavor="fragmented")
+            # Tier C: the version vector is read BEFORE execution, so a
+            # racing write strands the entry instead of publishing stale rows
+            store_ctx["key"] = result_cache.result_key(
+                entry,
+                result_cache.version_vector(entry.tables, self.catalog))
+            store_ctx["tables"] = entry.tables
+            subplan = fragment_plan(plan)
+            fsm.set("STARTING")
+            fsm.set("RUNNING")
+            out = self._execute_subplan(subplan, None)
+            fsm.set("FINISHING")
+            return out
+
+        out = self.dispatcher.submit(sql, session, run)
+        result_cache.store(store_ctx["key"], out, store_ctx["tables"])
         return out
 
     def _check_supported(self) -> None:
@@ -347,8 +386,9 @@ class DistributedQueryRunner:
         try:
             for attempt in range(attempts):
                 try:
-                    return self._run_streaming(subplan, stats_sink,
-                                               attempt=attempt)
+                    return self._run_streaming(
+                        subplan, stats_sink, attempt=attempt,
+                        blacklist=frozenset(blacklist))
                 except BaseException as e:  # noqa: BLE001 — classified
                     te = classify(e)
                     if not te.is_retryable() or attempt == attempts - 1:
@@ -387,8 +427,9 @@ class DistributedQueryRunner:
                                                  resilience=delta))
 
     def _prepare_retry(self) -> None:
-        """Hook run between query-retry attempts (a process runner would
-        sweep heartbeats and replace GONE workers here)."""
+        """Hook run between query-retry attempts; the process runner
+        (execution/remote.py) sweeps heartbeats and replaces GONE workers
+        here."""
 
     # ------------------------------------------------- fault-tolerant tasks
     def fte_run_attempt(self, fragment, task_index: int, task_count: int,
@@ -481,19 +522,38 @@ class DistributedQueryRunner:
             pq.query_id, pq.sql, self.session.user, self.event_listeners,
             self.tracer, thunk, device=self.device)
 
-    # ------------------------------------------------------ not ported yet
+    # ----------------------------------------------------------------- drain
     def drain_worker(self, node_id: str) -> dict:
-        raise NotImplementedError(f"worker drains {_ITEM4}")
+        """Coordinator-driven graceful drain of an in-process worker slot:
+        mark it draining in discovery so ``active_worker_count`` (and hence
+        every NEW query's task placement) stops using it.  In-process tasks
+        share the coordinator's address space, so running work simply
+        completes; there is no process to wait on or replace."""
+        tm.DRAINS.inc()
+        self.resilience_events.append(("drain", node_id, "started"))
+        self.nodes.drain(node_id)
+        self.resilience_events.append(("drain", node_id, "drained"))
+        return {"worker": node_id, "escalated": False}
 
     def restore_worker(self, node_id: str) -> None:
-        raise NotImplementedError(f"worker drains {_ITEM4}")
+        """Undo an in-process drain (the rolling-restart drill's stand-in
+        for booting a replacement process)."""
+        self.nodes.restore(node_id)
+        self.resilience_events.append(("drain", node_id, "restored"))
 
     # ------------------------------------------------------------ scheduling
     @property
     def active_worker_count(self) -> int:
-        """Every in-process worker (membership and failure detection are
-        the control plane's, ROADMAP queue 1 item 4)."""
-        return self.worker_count
+        """Live, non-draining workers per discovery + failure detection;
+        falls back to the static count if the control plane sees none
+        (NodeScheduler consulting the FailureDetector).  One heartbeat
+        round runs on demand, so the count is deterministic without the
+        background pinger (``failure_detector.start()`` runs it
+        continuously)."""
+        self.failure_detector.ping_once()
+        alive = [w for w in self.nodes.active_workers()
+                 if w not in self.failure_detector.failed_nodes()]
+        return len(alive) or self.worker_count
 
     def stage_task_counts(self, fragments) -> tuple[dict, dict]:
         """(fragment -> task count, fragment -> consumer task count); the
@@ -561,7 +621,36 @@ class DistributedQueryRunner:
 
     def _run_streaming(self, subplan: SubPlan, stats_sink: Optional[list],
                        attempt: int = 0,
+                       blacklist: frozenset = frozenset(),
                        use_fused: bool = True) -> QueryResult:
+        """Register with the cluster memory manager (the handle carries the
+        low-memory killer's verdict, which the scheduling and drain loops
+        poll; every task's device pool is booked under the query id), then
+        run the subplan.  ``blacklist`` (the query-retry loop's implicated
+        workers) is for the process runner's placement; in-process tasks
+        have no worker to avoid."""
+        qrec = rt.current_record()
+        mem_qid = (qrec.query_id if qrec is not None
+                   else f"q@{id(subplan):x}")
+        handle = self.memory_manager.register_query(
+            mem_qid, priority=self.session.query_priority,
+            group=find_group(self.dispatcher.root,
+                             qrec.resource_group if qrec is not None else ""),
+            max_memory=self._query_max_memory())
+        try:
+            return self._run_streaming_inner(subplan, stats_sink, attempt,
+                                             use_fused, handle, mem_qid)
+        finally:
+            self.memory_manager.unregister_query(mem_qid)
+
+    def _query_max_memory(self) -> Optional[int]:
+        return (self.session.query_max_memory_bytes
+                or knobs.get_int("TRINO_TPU_QUERY_MAX_MEMORY") or None)
+
+    def _run_streaming_inner(self, subplan: SubPlan,
+                             stats_sink: Optional[list], attempt: int,
+                             use_fused: bool, handle,
+                             mem_qid: str) -> QueryResult:
         fragments = subplan.all_fragments()
         if use_fused:
             self.last_fallback = None
@@ -583,7 +672,8 @@ class DistributedQueryRunner:
         adaptive = None
         if self.session.task_scheduler == "TIME_SHARING":
             hung = self._run_time_sharing(fragments, stages, errors,
-                                          stats_sink, edges, attempt)
+                                          stats_sink, edges, attempt,
+                                          handle, mem_qid)
         else:
             mode = adaptive_mode(self.session)
             if mode != "0":
@@ -594,16 +684,23 @@ class DistributedQueryRunner:
                 if mode == "auto" and not adaptive.sites:
                     adaptive = None
             hung = self._run_threads(fragments, stages, errors, stats_sink,
-                                     edges, attempt, adaptive)
+                                     edges, attempt, adaptive, handle,
+                                     mem_qid)
         self.last_adaptive = adaptive
-        if errors or hung:
+        kerr = handle.killed_error()
+        if errors or hung or kerr is not None:
             self._abort(stages, edges, adaptive)
+            if kerr is not None:
+                # the kill verdict wins over secondary task errors: aborted
+                # buffers make tasks fail with cascade exceptions that would
+                # otherwise mask the CLUSTER_OUT_OF_MEMORY cause
+                raise kerr
             if errors:
                 if use_fused and any(isinstance(e, FusedStageOverflow)
                                      for e in errors):
                     self._count_fallback(errors, stats_sink)
-                    return self._run_streaming(subplan, stats_sink, attempt,
-                                               use_fused=False)
+                    return self._run_streaming_inner(
+                        subplan, stats_sink, attempt, False, handle, mem_qid)
                 raise errors[0]
             raise TimeoutError(f"tasks did not complete: {hung}")
         self._roll_compiled_stats(fused, resident, stats_sink)
@@ -631,9 +728,14 @@ class DistributedQueryRunner:
         client = ExchangeClient(root.buffers, 0)
         batches = []
         while not client.is_finished():
+            handle.check()
             b = client.poll(timeout=0.2)
             if b is not None:
                 batches.append(maybe_deserialize(b, self.device))
+        # a kill that lands during FINISHING still fails the query: the
+        # victim must always observe its own kill or the killer's
+        # capacity projection (total -= victim bytes) goes stale
+        handle.check()
         return self._to_result(subplan, batches)
 
     def _plan_edges(self, fragments, stages: dict, task_counts: dict,
@@ -749,7 +851,8 @@ class DistributedQueryRunner:
                                              resident=rroll))
 
     def _run_threads(self, fragments, stages, errors, stats_sink, edges,
-                     attempt: int = 0, adaptive=None) -> list[str]:
+                     attempt: int = 0, adaptive=None, handle=None,
+                     mem_qid: Optional[str] = None) -> list[str]:
         """A thread per task; returns the names of tasks still running at
         the deadline (and, with the adaptive plane, of stages it never
         activated).  With ``speculation`` on, a lagging task of an
@@ -808,7 +911,8 @@ class DistributedQueryRunner:
             th = threading.Thread(
                 target=self._run_task,
                 args=(stages[fid], t, stages, errors, stats_sink, edges,
-                      parent_span, qrec, attempt_no, ctx, adaptive, tee),
+                      parent_span, qrec, attempt_no, ctx, adaptive, tee,
+                      mem_qid),
                 name=(f"task-{fid}.{t}" if ctx is None
                       or ctx["kind"] == STANDARD
                       else f"task-{fid}.{t}-speculative"),
@@ -844,6 +948,7 @@ class DistributedQueryRunner:
         # a polled join, so the adaptive barrier and straggler detection
         # run on the coordinator's cadence
         deadline = time.monotonic() + 2 * STALL_TIMEOUT_S
+        aborted = False
         while ((pending or (adaptive is not None and not adaptive.done()))
                and time.monotonic() < deadline):
             if pending:
@@ -851,14 +956,20 @@ class DistributedQueryRunner:
             else:
                 time.sleep(0.02)
             pending = [th for th in pending if th.is_alive()]
+            if (not aborted and handle is not None
+                    and handle.poll() is not None):
+                # the low-memory killer chose this query: unblock every
+                # task now; the caller raises the kill error
+                aborted = True
+                self._abort(stages, edges, adaptive)
             if adaptive is not None:
-                if errors:
+                if errors or aborted:
                     # a failed task already aborted the buffers; force the
                     # plane done so un-activated groups never spawn
                     adaptive.abort()
                 else:
                     pending.extend(adaptive.advance(spawn_stage))
-            if spec is not None and not errors:
+            if spec is not None and not errors and not aborted:
                 pending.extend(spec.tick(spawn_twin))
         hung = [th.name for th in pending if th.is_alive()]
         if adaptive is not None and not errors:
@@ -883,7 +994,8 @@ class DistributedQueryRunner:
     def _build_task(self, stage: _Stage, task_index: int, stages: dict,
                     stats_sink: Optional[list], edges: dict,
                     attempt: int = 0, spec_ctx: Optional[dict] = None,
-                    adaptive=None, tee=None
+                    adaptive=None, tee=None,
+                    memory_owner: Optional[str] = None
                     ) -> tuple[list, Optional[QueryStats]]:
         f = stage.fragment
         # engine-level fault injection, keyed by (fragment, task, attempt)
@@ -943,6 +1055,11 @@ class DistributedQueryRunner:
             spill_to_disk_bytes=s.spill_to_disk_bytes, ingest=self.ingest,
             task_index=task_index, task_count=stage.task_count,
             remote_clients=clients)
+        if memory_owner is not None:
+            # book this task's device pool under the query id so the
+            # cluster memory manager sees in-process reservations too
+            self.memory_manager.register_pool(memory_owner,
+                                              planner.memory.pool)
         # a fused producer plans only its feed (the chain, the PARTIAL
         # aggregation and the shuffle run in the fused sink's programs); a
         # resident core only the scan feed below its join spine
@@ -997,7 +1114,8 @@ class DistributedQueryRunner:
         return local.pipelines, stats
 
     def _run_time_sharing(self, fragments, stages, errors, stats_sink,
-                          edges, attempt: int = 0) -> list[str]:
+                          edges, attempt: int = 0, handle=None,
+                          mem_qid: Optional[str] = None) -> list[str]:
         """Schedule every task on a bounded MLFQ executor
         (exec/executor.py); returns the names of tasks that never
         finished."""
@@ -1011,7 +1129,8 @@ class DistributedQueryRunner:
                     stage = stages[f.id]
                     for t in range(stage.task_count):
                         pipelines, stats = self._build_task(
-                            stage, t, stages, stats_sink, edges, attempt)
+                            stage, t, stages, stats_sink, edges, attempt,
+                            memory_owner=mem_qid)
                         handles.append(
                             (f, t, executor.submit(pipelines, stats)))
             except BaseException:
@@ -1023,7 +1142,14 @@ class DistributedQueryRunner:
             # at once (as the thread-per-task mode does)
             deadline = time.monotonic() + 2 * STALL_TIMEOUT_S
             pending = list(range(len(handles)))
+            aborted = False
             while pending and time.monotonic() < deadline:
+                if (not aborted and handle is not None
+                        and handle.poll() is not None):
+                    # the low-memory killer's verdict: unblock everything
+                    # now; the caller raises the kill error
+                    aborted = True
+                    self._abort(stages, edges)
                 still = []
                 for i in pending:
                     h = handles[i][2]
@@ -1045,7 +1171,7 @@ class DistributedQueryRunner:
                   edges: dict, parent_span=None,
                   query_record=None, attempt: int = 0,
                   spec_ctx: Optional[dict] = None, adaptive=None,
-                  tee=None) -> None:
+                  tee=None, mem_qid: Optional[str] = None) -> None:
         """One task on its thread, with the task lifecycle's telemetry
         (reference: distributed_runner.py _run_task): the task counters and
         wall distribution, the ``system.runtime.tasks`` record, the
@@ -1073,7 +1199,7 @@ class DistributedQueryRunner:
             try:
                 pipelines, stats = self._build_task(
                     stage, task_index, stages, stats_sink, edges, attempt,
-                    spec_ctx, adaptive, tee)
+                    spec_ctx, adaptive, tee, mem_qid)
                 run_pipelines(pipelines, stats)
             except SpeculationLost:
                 # the other attempt owns the output stream

@@ -19,9 +19,10 @@ announced names), this detector drives real HTTP ``/v1/status`` probes,
 caches each worker's full status payload (node state + per-task states), and
 exposes it so the coordinator's query sweep costs ONE poll per worker instead
 of one per task.  Probes are injectable callables so every transition is
-deterministically testable without sockets.  The port's runner has no
-worker processes yet (ROADMAP queue 1 item 5), so nothing in-process
-probes through it; its state machine is the reference's.
+deterministically testable without sockets.  The process runner
+(execution/remote.py) probes its worker processes through it; the
+in-process runner uses control.py's pinger.  Its state machine is the
+reference's.
 """
 
 from __future__ import annotations

@@ -11,11 +11,11 @@ and fire a bounded number of times.  Kinds mirror the reference's enum
                                  only — the real "node died" case)
 
 Rules travel inside task descriptors to worker processes (the wire form,
-:meth:`FailureInjector.consume_for` / :func:`match_wire_rule`).  The port
-runs every task in-process: worker processes are ROADMAP queue 1 item 5,
-so :meth:`FailureInjector.inject` refuses ``PROCESS_EXIT`` with
-NotImplementedError.  An injected failure never changes the device or the
-kernels a retried task runs on.
+:meth:`FailureInjector.consume_for` / :func:`match_wire_rule`); a worker
+that matches ``PROCESS_EXIT`` calls ``os._exit(17)`` before the task runs
+(execution/worker.py).  The in-process runner's tasks never reach that
+point, as in the reference.  An injected failure never changes the device
+or the kernels a retried task runs on.
 """
 
 from __future__ import annotations
@@ -78,10 +78,6 @@ class FailureInjector:
                task_index: Optional[int] = None,
                attempt: Optional[int] = None, times: int = 1,
                stall_s: float = 0.0) -> None:
-        if kind == PROCESS_EXIT:
-            raise NotImplementedError(
-                "PROCESS_EXIT needs worker processes, which are not ported "
-                "yet (ROADMAP queue 1 item 5)")
         self.rules.append(_Rule(kind, fragment_id, task_index, attempt,
                                 times, stall_s=stall_s))
 

@@ -18,8 +18,8 @@ spi/exchange/ExchangeManager.java:39 spooling):
   streaming pipelined scheduler gives up;
 - engine-level failure injection (execution/failure_injector.py, the
   FailureInjector.java:35 hook) targets task bodies, spool reads and
-  spool bytes on disk (the hosting worker process itself waits for worker
-  processes, ROADMAP queue 1 item 5).
+  spool bytes on disk, and ``PROCESS_EXIT`` kills the hosting worker
+  process (execution/worker.py) under the process runner.
 
 The coordinator is no longer the single point of failure:
 

@@ -28,9 +28,9 @@ tolerant style as telemetry/journal.py:
 
 Recovery (``pending_fte_recoveries`` → ``resume_fte_query`` in
 distributed_runner.py) replays the committed-attempt map and re-runs only
-what is missing.  The dispatcher's boot recovery and clients reattaching
-by query id come with worker processes and the HTTP front end (ROADMAP
-queue 1 item 5).
+what is missing.  At boot the statement server's dispatcher
+(server/protocol.py) resumes every in-flight query under its original
+id, and clients reattach by that id.
 """
 
 from __future__ import annotations

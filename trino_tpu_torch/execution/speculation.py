@@ -35,7 +35,7 @@ the per-query retry blacklist (distributed_runner._run_query_retry) dies
 with the query, so a flaky worker gets one task from EVERY new query.  Here
 each recorded failure scores against the worker with a TTL; once the decayed
 score crosses the threshold the worker stops receiving tasks across queries
-(task placement on worker processes, ROADMAP queue 1 item 5) until its
+(the process runner's task placement, execution/remote.py) until its
 entries expire.  A twin runs on the runner's device with the same kernels
 as its primary.
 """

@@ -15,8 +15,8 @@ lifecycle + its cleanup of abandoned exchange directories):
 - ``sweep()`` is the boot-time / periodic pass over the spool base dir:
   roots whose owner pid is dead (a crashed coordinator) or whose lease
   expired are reclaimed — EXCEPT roots named in ``keep``, which recovery
-  passes for queries it is about to resume (the dispatcher's boot
-  recovery comes with worker processes, ROADMAP queue 1 item 5);
+  passes for queries it is about to resume (the statement server's boot
+  recovery, server/protocol.py ``QueryDispatcher._recover_and_sweep``);
 - ``TRINO_TPU_SPOOL_TTL_S`` bounds how long an unleased/abandoned root may
   linger; ``TRINO_TPU_SPOOL_MAX_BYTES`` is the retention budget — once
   retained roots exceed it the sweep reclaims reclaimable roots

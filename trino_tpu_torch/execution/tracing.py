@@ -235,19 +235,29 @@ class Tracer:
         return self._local.stack
 
     def span(self, name: str, parent: Optional[Span] = None,
+             remote: Optional[tuple[str, str]] = None,
              **attributes) -> _SpanCtx:
         """Open a span.  Default parenting is the current thread's open
         span; ``parent=`` attaches to an explicit span on another thread
         (the distributed runner's task threads nesting under the query
-        span).  The reference's ``remote=`` (a worker's subtree shipped
-        back over HTTP) waits for the worker processes."""
+        span).  ``remote=`` is a (trace_id, parent_span_id) pair from
+        ``parse_traceparent``: the span becomes a local root carrying the
+        remote identity (a worker process's task span), so the coordinator
+        can re-attach the subtree shipped back with the task's status."""
         s = Span(name, dict(attributes), time.perf_counter(),
                  span_id=_new_span_id())
         stack = self._stack()
         if parent is not None:
+            if not parent.trace_id:
+                parent.trace_id = _new_trace_id()
+            if not parent.span_id:
+                parent.span_id = _new_span_id()
             s.trace_id = parent.trace_id
             s.parent_id = parent.span_id
             parent.children.append(s)  # list.append: thread-safe
+        elif remote is not None:
+            s.trace_id, s.parent_id = remote
+            s._remote_root = True
         elif stack:
             s.trace_id = stack[-1].trace_id
             s.parent_id = stack[-1].span_id
@@ -267,9 +277,11 @@ class Tracer:
             stack.pop()
         if stack:
             return
-        # the thread's outermost span closed; one attached to an explicit
-        # cross-thread parent already lives in its parent's subtree
-        if span.parent_id is not None:
+        # the thread's outermost span closed.  One attached to an explicit
+        # cross-thread parent already lives in its parent's subtree;
+        # remote-parented spans ARE local roots
+        if span.parent_id is not None and \
+                not getattr(span, "_remote_root", False):
             return
         with self._lock:
             self.finished.append(span)

@@ -99,16 +99,23 @@ def _run_all(cmds: list) -> list:
     return errs
 
 
+def library_current() -> bool:
+    """Whether ``build/kernels/`` holds a library newer than every
+    source."""
+    out = _BUILD_DIR / _LIB_NAME
+    return out.exists() and all(out.stat().st_mtime >= s.stat().st_mtime
+                                for s in _CSRC.glob("*.cu"))
+
+
 def build_library(verbose: bool = False) -> Path:
     """Compile every ``csrc/*.cu`` into one library under ``build/kernels/``
     (one ``nvcc`` per source, all started together, then one link).  The
     build is skipped when the library is newer than every source.  Returns
     the library path."""
     out = _BUILD_DIR / _LIB_NAME
-    srcs = sorted(_CSRC.glob("*.cu"))
-    if out.exists() and all(out.stat().st_mtime >= s.stat().st_mtime
-                            for s in srcs):
+    if library_current():
         return out
+    srcs = sorted(_CSRC.glob("*.cu"))
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
     objs = [_BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
@@ -127,14 +134,23 @@ def build_library(verbose: bool = False) -> Path:
     return out
 
 
-def _lib():
+def _lib(build: bool = True):
     """The kernel library, built and bound at first use.  The lock is taken
     only until then; ctypes keeps each bound function as an attribute, so a
-    launch afterwards is two attribute reads."""
+    launch afterwards is two attribute reads.  ``build=False`` only binds:
+    a worker process (execution/worker.py) never runs nvcc, since its
+    coordinator builds the library before it spawns workers, and a missing
+    or stale library raises instead."""
     global _LIB, _INSERT_ROWS_PER_BLOCK
     if _LIB is None:
         with _LIB_LOCK:
             if _LIB is None:
+                if not build and not library_current():
+                    raise RuntimeError(
+                        f"the kernel library {_BUILD_DIR / _LIB_NAME} is "
+                        "missing or older than its sources; the "
+                        "coordinator builds it (build_library()) before it "
+                        "spawns workers")
                 lib = ctypes.CDLL(str(build_library()))
                 p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
                 lib.hash_insert_launch.argtypes = [p, i, i64, p, p, i64, p, i,

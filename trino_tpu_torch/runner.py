@@ -137,12 +137,12 @@ class QueryResult:
 # the session
 
 
-# properties of the reference's Session that only parts of its distributed
-# runner the port does not have yet read (the control plane's heartbeats,
-# worker replacement, the HTTP exchange's backoff, admission), with the
-# reference's defaults: SET SESSION accepts them, as the reference's
-# standalone runner does, and keeps the value in ``Session.properties``;
-# nothing in the port reads them
+# properties of the reference's Session that the port keeps in
+# ``Session.properties`` (the control plane's heartbeats, worker
+# replacement and drains, the HTTP exchange's backoff, admission, scaled
+# writers), with the reference's defaults: SET SESSION accepts them, as the
+# reference's runners do, and the distributed and process runners read
+# them through ``Session.get``
 STORED_SESSION_PROPERTIES = {
     "heartbeat_interval_s": 0.5, "heartbeat_failure_threshold": 3,
     "max_worker_replacements": 2, "exchange_backoff_min_s": 0.05,
@@ -191,6 +191,16 @@ class Session:
     query_retry_attempts: int = 2
     retry_initial_delay_s: float = 0.1
     retry_max_delay_s: float = 2.0
+    # multi-tenant serving (execution/resource_manager.py): the selector
+    # workload tag (maps to a resource group via TRINO_TPU_RESOURCE_GROUPS
+    # selectors), the ticket priority under scheduling_policy=query_priority
+    # and the OOM-killer victim ordering, the admission-queue wait budget,
+    # and the per-query reservation cap (0 = TRINO_TPU_QUERY_MAX_MEMORY or
+    # unlimited).  SQL cannot set them, as in the reference.
+    source: str = ""
+    query_priority: int = 0
+    query_queued_timeout_s: float = 300.0
+    query_max_memory_bytes: int = 0
     # active transaction (execution/transaction.py); None = autocommit
     transaction: object = None
     _transaction_manager: object = None

@@ -12,9 +12,10 @@ level and ring (telemetry/profiler.py), the query journal
 optimization (planner/history.py), the adaptive plane
 (execution/adaptive.py, with the planner's broadcast row limit) and
 fault-tolerant execution (the spool, its retention, the query-state log,
-speculation and the cluster blacklist).  Both packages read the same
-variables, so one
-setting reaches both (a harness that sets ``TRINO_TPU_RESULT_CACHE=0``
+speculation and the cluster blacklist), the control plane (resource
+groups, the cluster memory cap and its killer, per-query memory) and
+worker processes (the internal secret, the drain budget).  Both
+packages read the same variables, so one setting reaches both (a harness that sets ``TRINO_TPU_RESULT_CACHE=0``
 turns the result tier off in each).
 """
 
@@ -66,6 +67,12 @@ _DECLARATIONS = (
          "Adaptive activation-barrier threshold: observed build bytes "
          "below this flip a repartitioned join to broadcast (and above, "
          "the reverse)."),
+    Knob("TRINO_TPU_CLUSTER_MEMORY_BYTES", "int", "",
+         "Cluster-wide reserved-memory cap enforced by the low-memory "
+         "killer; unset disables the cap."),
+    Knob("TRINO_TPU_DRAIN_TIMEOUT_S", "float", "300",
+         "Graceful-drain budget: a SHUTTING_DOWN worker abandons "
+         "unfinished tasks and exits with code 9 past this."),
     Knob("TRINO_TPU_EXCHANGE_STALL_S", "float", "1800",
          "Exchange take() stall watchdog: a source that produces nothing "
          "for this long fails the take with PAGE_TRANSPORT_TIMEOUT."),
@@ -91,6 +98,10 @@ _DECLARATIONS = (
          "History-driven task fan-out: observed fragment rows divided by "
          "this sets the task count (capped at the worker count) for "
          "fragments whose fingerprint has history."),
+    Knob("TRINO_TPU_INTERNAL_SECRET", "str", "",
+         "Shared secret authenticating intra-cluster HTTP "
+         "(coordinator<->worker); auto-generated per cluster boot when "
+         "unset."),
     Knob("TRINO_TPU_JOURNAL", "bool", "1",
          "Durable query journal (JSONL EventListener); 0 disables."),
     Knob("TRINO_TPU_JOURNAL_DIR", "path", "",
@@ -103,6 +114,9 @@ _DECLARATIONS = (
          "Mesh-shape override for resident-plan programs (\"8\" or "
          "\"2x4\"); the dimension product caps the mesh width a plan may "
          "claim.  Unset sizes the mesh from the stage task count."),
+    Knob("TRINO_TPU_OOM_POLICY", "enum", "largest_query",
+         "Victim selection policy for the cluster low-memory killer.",
+         choices=("largest_query", "lowest_priority", "youngest")),
     Knob("TRINO_TPU_PLAN_CACHE", "bool", "1",
          "Tier A fingerprinted logical-plan cache; 0 disables (checked "
          "per lookup)."),
@@ -115,6 +129,12 @@ _DECLARATIONS = (
          choices=("off", "default", "full")),
     Knob("TRINO_TPU_PROFILE_RING", "int", "4096",
          "Per-thread profiler event-ring capacity."),
+    Knob("TRINO_TPU_QUERY_DEFAULT_MEMORY", "int", "67108864",
+         "Admission fallback peak-memory estimate for queries with no "
+         "journaled plan-fingerprint history."),
+    Knob("TRINO_TPU_QUERY_MAX_MEMORY", "int", "0",
+         "Per-query reserved-memory ceiling; exceeding it fails the query "
+         "EXCEEDED_MEMORY_LIMIT.  0 = unlimited."),
     Knob("TRINO_TPU_QUERY_STATE", "bool", "1",
          "Write-ahead query-state log for retry_policy=TASK queries "
          "(coordinator crash recovery); 0 disables logging and recovery."),
@@ -129,6 +149,10 @@ _DECLARATIONS = (
          "Whole-query compilation (one program per maximal device-resident "
          "plan); 0 keeps the fused or per-operator path.",
          choices=("auto", "1", "0")),
+    Knob("TRINO_TPU_RESOURCE_GROUPS", "json", "",
+         "Hierarchical resource-group tree (weights, concurrency and "
+         "queue limits, selectors) as JSON; unset uses one flat default "
+         "group."),
     Knob("TRINO_TPU_RESULT_CACHE", "bool", "1",
          "Tier C versioned result cache; 0 disables (checked per "
          "lookup)."),
@@ -177,6 +201,12 @@ def knob(name: str) -> Knob:
 def get_str(name: str) -> str:
     k = knob(name)
     return os.environ.get(k.name, k.default)
+
+
+def is_set(name: str) -> bool:
+    """Whether the variable is set to a non-empty value (the declared
+    default does not count)."""
+    return bool(os.environ.get(knob(name).name, "").strip())
 
 
 def get_int(name: str) -> Optional[int]:

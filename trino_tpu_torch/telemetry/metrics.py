@@ -31,9 +31,9 @@ lifecycle, the iterative optimizer, the device memory watermark, the
 flight recorder (profiler and journal), the three cache tiers, the
 compiled stages (fused seams and resident plans), resilience (query
 retry, speculation, the cluster blacklist), fault-tolerant execution,
-the adaptive plane and HBO.  The rest of the distributed plane's
-families (HA, the HTTP exchange, resource groups) come with the modules
-that record them.
+the adaptive plane, HBO, the control plane (admission, resource groups,
+the cluster memory view and its killer) and the serving path (the HTTP
+dispatcher and exchange).  The HA families come with the HA modules.
 """
 
 from __future__ import annotations
@@ -49,8 +49,9 @@ __all__ = [
     "Counter", "Gauge", "Distribution", "MetricsRegistry", "REGISTRY",
     "observe_scan", "observe_sync", "observe_encoding", "observe_fused",
     "observe_resident", "observe_resilience", "observe_adaptive",
+    "observe_exchange", "resource_group_gauges",
     "update_device_memory_watermark", "merge_snapshot",
-    "render_snapshot_prometheus",
+    "render_snapshot_prometheus", "render_cluster",
 ]
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
@@ -393,6 +394,33 @@ TASKS_FAILED = REGISTRY.counter(
     "trino_tasks_failed_total", "tasks that reached FAILED")
 TASK_WALL_SECONDS = REGISTRY.distribution(
     "trino_task_wall_seconds", "per-task wall time", lo=1e-3)
+DISPATCHER_QUERIES = REGISTRY.counter(
+    "trino_dispatcher_queries_total",
+    "statements admitted through the HTTP dispatcher")
+
+# exchange HTTP plane (execution/remote.py HttpExchangeClient + worker serve)
+EXCHANGE_BYTES = REGISTRY.counter(
+    "trino_exchange_bytes_total", "exchange page bytes moved over HTTP")
+EXCHANGE_PAGES = REGISTRY.counter(
+    "trino_exchange_pages_total", "exchange pages moved over HTTP")
+EXCHANGE_WAIT_SECONDS = REGISTRY.counter(
+    "trino_exchange_wait_seconds_total",
+    "client time spent inside exchange fetches")
+
+# multi-tenant serving plane (execution/resource_manager.py): admission
+# wait, the low-memory killer, and the coordinator's cluster memory view
+ADMISSION_QUEUED_SECONDS = REGISTRY.distribution(
+    "trino_admission_queued_seconds",
+    "time queries wait for admission (group slot or cluster memory)")
+OOM_KILLS = REGISTRY.counter(
+    "trino_oom_kills_total",
+    "queries killed by the cluster low-memory killer")
+CLUSTER_MEMORY_RESERVED = REGISTRY.gauge(
+    "trino_cluster_memory_reserved_bytes",
+    "bytes reserved across all tracked query memory pools")
+CLUSTER_MEMORY_FREE = REGISTRY.gauge(
+    "trino_cluster_memory_free_bytes",
+    "cluster memory capacity minus reservations (0 when uncapped)")
 
 # device memory watermark (the caching allocator of the runner's card)
 DEVICE_MEMORY_IN_USE = REGISTRY.gauge(
@@ -661,6 +689,29 @@ RESIDENT_FALLBACKS = REGISTRY.counter(
 # ------------------------------------------------------------ observe hooks
 
 
+def resource_group_gauges(path: str):
+    """(running, queued) gauge pair for one resource group.  Group trees
+    are operator config, so these names are the one sanctioned DYNAMIC
+    registration: ``trino_resource_group_{running,queued}_<path>`` with the
+    dotted path mangled to a Prometheus-legal suffix.  MetricsRegistry
+    get-or-create semantics make repeated calls cheap and idempotent."""
+    suffix = re.sub(r"[^a-zA-Z0-9_]", "_", path)
+    prefix = "trino_resource_group_"
+    return (
+        REGISTRY.gauge(prefix + "running_" + suffix,
+                       f"queries running in resource group {path}"),
+        REGISTRY.gauge(prefix + "queued_" + suffix,
+                       f"queries queued in resource group {path}"),
+    )
+
+
+def observe_exchange(nbytes: int, pages: int, wait_s: float) -> None:
+    """One exchange fetch/serve observation (HTTP plane)."""
+    EXCHANGE_BYTES.inc(nbytes)
+    EXCHANGE_PAGES.inc(pages)
+    EXCHANGE_WAIT_SECONDS.inc(wait_s)
+
+
 def observe_scan(ingest) -> None:
     """Fold a ScanIngestStats roll-up (exec/stats.py) into the registry."""
     if ingest is None or not ingest.scan_batches:
@@ -835,3 +886,15 @@ def render_snapshot_prometheus(snap: dict, helps: Optional[dict] = None
             lines.append(f"# TYPE {name} {kind}")
             lines.append(f"{name} {_fmt(s['value'])}")
     return "\n".join(lines) + "\n"
+
+
+def render_cluster(remote_snapshots: list[dict]) -> str:
+    """The coordinator's scope=cluster view: local registry snapshot plus
+    every reachable worker's, folded and rendered as one exposition."""
+    merged = REGISTRY.snapshot()
+    for snap in remote_snapshots:
+        if isinstance(snap, dict):
+            merge_snapshot(merged, snap)
+    with REGISTRY._lock:
+        helps = {n: m.help for n, m in REGISTRY._metrics.items()}
+    return render_snapshot_prometheus(merged, helps)

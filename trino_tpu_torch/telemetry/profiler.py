@@ -43,7 +43,8 @@ __all__ = [
     "SPECULATION", "TASK", "ADAPTIVE", "RECOVERY",
     "level", "enabled", "is_full", "set_level", "event", "instant",
     "now", "set_context", "capture_context", "apply_context", "sync_batch",
-    "collect", "harvest", "events_for", "chrome_trace", "reset_for_test",
+    "collect", "harvest", "add_remote_events", "take_task_events",
+    "events_for", "chrome_trace", "reset_for_test",
 ]
 
 # event kinds (the ``cat`` field of the chrome trace)
@@ -337,6 +338,30 @@ def harvest(query_id: str, process_name: str = "coordinator") -> int:
         p["events"].extend(evs)
         p["procs"][str(_PID)] = process_name
     return len(evs)
+
+
+def add_remote_events(query_id: str, events: list[dict],
+                      process_name: str = "worker") -> None:
+    """Fold a worker ring (shipped back in task status JSON) into the
+    query's profile; events already carry the worker's pid/tid."""
+    if not query_id or not events:
+        return
+    with _PROFILES_LOCK:
+        p = _store(query_id)
+        p["events"].extend(events)
+        for ev in events:
+            pid = str(ev.get("pid", ""))
+            if pid and pid not in p["procs"]:
+                p["procs"][pid] = process_name
+
+
+def take_task_events(query_id: str, task_id: str,
+                     limit: int = 2000) -> list[dict]:
+    """A worker task's events, bounded for the status-JSON wire (newest
+    kept — the tail of a truncated timeline is where failures live)."""
+    evs = collect(query_id, task_id)
+    evs.sort(key=lambda e: e["ts"])
+    return evs[-limit:]
 
 
 def events_for(query_id: str) -> list[dict]:
