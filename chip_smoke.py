@@ -4,7 +4,7 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10-22, 6, 9, so the kernel phase holds the staged,
+the order 1-5, 7, 8, 10-23, 6, 9, so the kernel phase holds the staged,
 surface, window, nested, parallel, distributed, compiled,
 fault-tolerant and serving paths' calls too; every phase but 21 runs with
 TRINO_TPU_HBO=0 and TRINO_TPU_ADAPTIVE=0).  The
@@ -161,10 +161,10 @@ default optimizer, the iterative one:
      ``launches_telemetry``;
  19. distributed: the distributed runner at SF 1 over the tpch
      connector, four tasks per stage sharing the one card
-     (``distributed()``): the 24 queries, one cold run each, with rows
-     equal phase 3's, per query the stages, collective and host edges,
-     launches, host syncs by tag and device-to-host bytes; Q1 and Q3
-     with collectives on / off in turns; wire-format pages, the MERGE
+     (``distributed()``): the 24 queries but DIST_CUT, one cold run
+     each, with rows equal phase 3's, per query the stages, collective
+     and host edges, launches, host syncs by tag and device-to-host
+     bytes; Q1 with collectives on / off in turns; wire-format pages, the MERGE
      exchange, a DistinctLimit plan; the fused Q1 program (q1_step,
      q1_spmd over a 4-shard mesh) against q1_numpy.  Phase 6 adds a
      task's largest insert and q1_step's insert as "distributed" cases.
@@ -172,13 +172,15 @@ default optimizer, the iterative one:
      TRINO_TPU_RESIDENT_PLAN=0), the per-operator path PR 15 measured.
      Its launches are ``launches_distributed``;
  20. compiled: the distributed runner at its defaults, fused seams and
-     resident plans on (``compiled()``): the 16 queries that carry one,
+     resident plans on (``compiled()``): twelve of the 16 queries that
+     carry one (COMPILED_QUERIES),
      cold and warm, rows equal phase 3's, per query the seams, plans,
      fallbacks with their reasons, batches, program calls, first calls
      of a signature, merges, warm ms and device-to-host bytes of the
      cold run; kernel launches per accumulate call (a batch of a warm
-     run of Q1 and of Q3 through its sink again under torch.profiler); Q1 and Q3 under SG.forbidden(cuda_sync_debug=True)
-     with no hot-loop sync; Q1, Q3 default / =0 / =0 / default.
+     run of Q1 and of Q3 through its sink again under torch.profiler);
+     Q3 under SG.forbidden(cuda_sync_debug=True) with no hot-loop sync;
+     Q1 default / =0 / =0 / default.
      Its launches are ``launches_compiled``;
  21. resilient: HBO, the adaptive plane and fault-tolerant execution
      (``resilient()``); its launches are ``launches_fault_tolerant`` and
@@ -194,7 +196,21 @@ default optimizer, the iterative one:
      launches, summed over the workers, are ``launches_serving``.  Phase
      6 captures Q3's, Q12's and R1's calls from the same runner with its
      two workers' TaskServers in this process (a worker process's calls
-     are out of reach) and labels them "serving".
+     are out of reach) and labels them "serving";
+ 23. chaos: the port's chaos harness (trino_tpu_torch/testing/chaos.py)
+     at SF 1 on the tpch path (``chaos()``): the mix's expected rows from
+     the port's sqlite oracle (its load timed); one in-process and one
+     process scenario (two workers, five seeded queries with seeded
+     faults and drains), one FTE scenario (six queries, spool
+     corruption), the coordinator kill -9 drill over the mix's join (a
+     fresh coordinator resumes the query from the WAL, no committed
+     attempt re-executed), a CTAS into and a group-by over a
+     plugin-loaded catalog, and the warm-key journal replayed by a fresh
+     two-worker fleet (the first statement's wall with the replay off,
+     then on).  Zero hangs, zero unexpected outcomes, hash_insert
+     launched in every chaos run.  Its launches ((a)-(c): in this
+     process, the workers' /v1/info, the drill's coordinators) are
+     ``launches_chaos``.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -237,8 +253,9 @@ ORACLE_QUERIES = ("Q1", "Q3", "Q12", "R1", "R2")
 # the per-operator and kernel-capture phases run on this subset only
 CAPTURE_QUERIES = ("Q1", "Q3", "Q12", "Q18", "Q21", "R1", "R2")
 # the tpch path's queries run warm as well as cold in phase 3 (the others
-# were cut to one run to keep the script within its time limit)
-PATH_WARM = CAPTURE_QUERIES
+# were cut to one run to keep the script within its time limit; Q18, Q21
+# and R2 for phase 23)
+PATH_WARM = ("Q1", "Q3", "Q12", "R1")
 # phase 5's subset on the tpch path (Q18 and Q21 cut to keep the run within
 # its time limit; phase 8 still times all of CAPTURE_QUERIES staged)
 TPCH_OPERATORS = ("Q1", "Q3", "Q12", "R1", "R2")
@@ -265,6 +282,8 @@ T_START = time.perf_counter()
 # the run must end within 1200 s, the kernels' build included; a run still
 # going at this point prints every thread's stack to stderr and exits 1
 WATCHDOG_S = 1140
+# processes the script starts in the background (stopped at its end)
+BACKGROUND: list = []
 
 
 def log(msg: str) -> None:
@@ -2272,7 +2291,8 @@ def engine(torch, GK, StandaloneQueryRunner, staged_cat, tpch_runner,
 STORAGE_TABLES = ("customer", "orders", "lineitem")
 # Q18 over the file tables was cut to make room for phase 20
 STORAGE_QUERIES = ("Q1", "Q3", "Q12", "R1")
-STORAGE_WARM = ("Q1", "Q3")  # Q12, R1 cold only (cut for phase 22)
+# Q12, R1 cold only (cut for phase 22), Q3 too (for phase 23)
+STORAGE_WARM = ("Q1",)
 STORAGE_REQUIRED = {"Q3": ["hash_insert"], "Q12": ["hash_probe"],
                     "R1": ["masked_segment_sum_f32"]}
 DISK_LIMIT = 64 << 20  # spill_to_disk_bytes of (b)'s first two queries
@@ -3010,7 +3030,10 @@ def _level_scope(profiler, level: int):
 DIST_WORKERS = 4
 # collectives on / off in turns (Q18 and Q21 were cut to make room for
 # phase 20)
-DIST_TURNS = ("Q1", "Q3")
+DIST_TURNS = ("Q1",)  # Q3 cut for phase 23
+# the four slowest of (a) apart from Q21 (phase 6's capture), cut for
+# phase 23
+DIST_CUT = ("Q9", "Q10", "Q20", "Q22")
 DIST_SERDE = ("Q3",)  # Q18 cut to keep the run within its time limit
 # through the MERGE exchange: a small result (the producers' streams merged
 # on the host) and one past MergeSourceOperator.MERGE_ROW_LIMIT (sorted
@@ -3119,13 +3142,14 @@ def distributed(torch, GK, default_catalog, tpch_runner, sqls: dict,
                 path_rows: dict, smi: str) -> tuple:
     """Phase 19: the distributed runner on the card, SF 1, four tasks per
     stage sharing the one card (the mesh puts four shards on it, so no
-    interconnect is measured).  (a) the 24 queries, one cold run each
-    (the warm runs were cut to keep the script within its time limit),
+    interconnect is measured).  (a) the 24 queries but DIST_CUT, one cold
+    run each (the warm runs and DIST_CUT were cut to keep the script
+    within its time limit),
     through DistributedQueryRunner(worker_count=4): rows equal phase 3's
     standalone rows; per query the stages and task counts, the collective
     and host edges, launches by kernel, host syncs by tag and the
-    device-to-host bytes (traced); Q1 and Q3 warm with collectives on, off, off, on
-    (rows equal).  (b) Q3 with exchange_serde (rows equal, pages and bytes serialized), ORDER BY
+    device-to-host bytes (traced); DIST_TURNS warm with collectives on,
+    off, off, on (rows equal).  (b) Q3 with exchange_serde (rows equal, pages and bytes serialized), ORDER BY
     through the MERGE exchange (nation: the heap merge; orders of 1992:
     sorted again on the card) against the standalone runner, and a
     DistinctLimit plan.  (c) the fused Q1 program on make_q1_inputs(1):
@@ -3152,9 +3176,11 @@ def distributed(torch, GK, default_catalog, tpch_runner, sqls: dict,
         f"({smi}); the mesh's all_to_all is a copy within its memory, so "
         f"no interconnect is measured")
     GK.reset_launch_counts()
-    # -- (a) the 24 queries ------------------------------------------------
+    # -- (a) the queries ----------------------------------------------------
     cold_ms: dict = {}
     for name, sql in sqls.items():
+        if name in DIST_CUT:
+            continue
         before = dict(GK.LAUNCHES)
         out = []
         s0 = SG.snapshot()
@@ -3296,15 +3322,17 @@ def distributed(torch, GK, default_catalog, tpch_runner, sqls: dict,
 
 # the queries whose plan at four tasks carries a fused seam or a resident
 # plan (Q2, Q3, Q10, Q11)
-COMPILED_QUERIES = ("Q1", "Q2", "Q3", "Q4", "Q5", "Q9", "Q10", "Q11", "Q13",
-                    "Q15", "Q17", "Q18", "Q20", "Q21", "R1", "R2")
+# Q10, Q15, Q17 and Q20 (four of the seven that fall back) cut for phase 23
+COMPILED_QUERIES = ("Q1", "Q2", "Q3", "Q4", "Q5", "Q9", "Q11", "Q13", "Q18",
+                    "Q21", "R1", "R2")
 COMPILED_PROFILED = ("Q1", "Q3")  # launches per accumulate call
-COMPILED_SYNC = ("Q1", "Q3")  # under SG.forbidden(cuda_sync_debug=True)
+COMPILED_SYNC = ("Q3",)  # under SG.forbidden(cuda_sync_debug=True)
 # default / =0 / =0 / default (Q10 cut to make room for phase 22)
-COMPILED_TURNS = ("Q1", "Q3")
-# the seven queries that fall back run cold only (cut to make room for
-# phase 22)
-COMPILED_COLD_ONLY = ("Q2", "Q10", "Q13", "Q15", "Q17", "Q18", "Q20")
+COMPILED_TURNS = ("Q1",)  # Q3 cut for phase 23
+# the queries that fall back run cold only (cut to make room for phase 22)
+COMPILED_COLD_ONLY = ("Q2", "Q13", "Q18",
+                      # cut for phase 23: warm only Q1 and Q3
+                      "Q4", "Q5", "Q9", "Q11", "Q21", "R1", "R2")
 COMPILED_CAPTURE = ("Q1", "Q3")  # phase 6's "compiled" cases
 COMPILED_REQUIRED = ("hash_insert", "hash_probe")
 COMPILED_OFF = (("TRINO_TPU_FUSED_STAGE", "0"),
@@ -3412,7 +3440,8 @@ def compiled(torch, GK, default_catalog, sqls: dict, path_rows: dict,
     """Phase 20: the compiled stages on the card, SF 1 over the tpch
     connector, DistributedQueryRunner(worker_count=4) at the default knobs
     (fused seams and resident plans on, TRINO_TPU_FUSED_CAP 8192).  (a)
-    The 16 queries whose plan carries a fused seam or a resident plan,
+    The queries of COMPILED_QUERIES, twelve of the 16 whose plan carries
+    a fused seam or a resident plan,
     cold and warm (COMPILED_COLD_ONLY cold only): rows equal phase 3's;
     per query the fused seams,
     resident plans, fallbacks (with the reason), batches, program calls,
@@ -3442,7 +3471,7 @@ def compiled(torch, GK, default_catalog, sqls: dict, path_rows: dict,
         session=Session(node_count=DIST_WORKERS), device="cuda")
     log(f"compiled: {DIST_WORKERS} tasks per stage share one card ({smi}); "
         "fused seams and resident plans at their defaults")
-    # -- (a) the 16 queries -------------------------------------------------
+    # -- (a) the queries ----------------------------------------------------
     GK.reset_launch_counts()
     warm_ms: dict = {}
     fallbacks: dict = {}
@@ -3569,9 +3598,10 @@ def compiled(torch, GK, default_catalog, sqls: dict, path_rows: dict,
 # tolerant execution on the distributed path
 
 P21_PINS = ("TRINO_TPU_HBO", "TRINO_TPU_ADAPTIVE")  # "0" before phase 21
-P21_HBO = ("Q1", "Q3", "Q5", "Q18")  # twice each: record, plan from it
+# twice each: record, plan from it (Q3 and Q18 cut for phase 23)
+P21_HBO = ("Q1", "Q5")
 P21_ADAPTIVE_RUNS = 2  # decision-site queries run at auto
-P21_FTE = ("Q1", "Q3", "Q12", "R1")  # retry_policy=TASK
+P21_FTE = ("Q3", "Q12", "R1")  # retry_policy=TASK (Q1 cut for phase 23)
 P21_CAPTURE = ("Q3", "Q12", "R1")  # phase 6's "fault-tolerant" cases
 P21_JOIN = ("select c.c_mktsegment, count(*) n, sum(o.o_totalprice) s "
             "from orders o join customer c on o.o_custkey = c.c_custkey "
@@ -4302,7 +4332,10 @@ def serving(torch, GK, sqls: dict, path_rows: dict, dist_cold: dict,
     stopped and restarted while a TASK query is in flight (the restart
     resumes it from the write-ahead log under its original id and the
     client reattaches and gets the rows).  Returns the launches of (a)
-    and (b), summed over the workers, and (a)'s launches by query."""
+    and (b), summed over the workers, (a)'s launches by query, and the
+    fresh fleet's first statement (its query, wall, the fleet's boot
+    seconds and each worker's warm-key replay), which phase 23 (e)
+    compares with a fleet booted without the replay."""
     t_phase = time.perf_counter()
     import signal
     import threading
@@ -4339,10 +4372,13 @@ def serving(torch, GK, sqls: dict, path_rows: dict, dist_cold: dict,
         base = f"http://{host}:{port}"
         client = Client(host, port, timeout=SERVE_CLIENT_S)
         infos = [w.info() for w in runner.workers]
+        fresh = {"boot_s": time.perf_counter() - t0,
+                 "warm": [i["warm"] for i in infos]}
         log(f"serving: {SERVE_WORKERS} worker processes on {device} "
-            f"({smi}), up in {time.perf_counter() - t0:.1f} s; boot s "
+            f"({smi}), up in {fresh['boot_s']:.1f} s; boot s "
             f"{[round(w.boot_s, 2) for w in runner.workers]}; devices "
-            f"{[(i['device'], i['device_name']) for i in infos]}; compute "
+            f"{[(i['device'], i['device_name']) for i in infos]}; the "
+            f"warm-key journal replayed at boot {fresh['warm']}; compute "
             f"apps (pid, memory): {_compute_apps()}")
 
         # -- (a) the queries through the server ---------------------------
@@ -4365,6 +4401,8 @@ def serving(torch, GK, sqls: dict, path_rows: dict, dist_cold: dict,
             for k, n in launched.items():
                 launches[k] += n
             by_query[name] = launched
+            fresh.setdefault("ms", ms)
+            fresh.setdefault("query", name)
             log(f"serving {name}: {len(rows)} rows equal phase 3's "
                 f"(largest float rel diff {worst:.3g}); wall {ms:.1f} ms "
                 f"through the server and two worker processes, phase 19 "
@@ -4602,7 +4640,325 @@ def serving(torch, GK, sqls: dict, path_rows: dict, dist_cold: dict,
             f"(c) took {time.perf_counter() - t_part:.1f} s")
     log(f"serving launches (workers, (a) and (b)): {launches}")
     log(f"serving: {time.perf_counter() - t_phase:.1f} s for phase 22")
-    return launches, by_query
+    return launches, by_query, fresh
+
+
+CHAOS_SF = PATH_SF
+CHAOS_ORACLE_WAIT_S = 300.0  # phase 23's wait for the background oracle
+_ORACLE_CHILD = """
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from trino_tpu_torch.testing.chaos import build_expected
+t0 = time.perf_counter()
+expected = build_expected(float(sys.argv[1]))
+with open(sys.argv[2] + ".tmp", "w", encoding="utf-8") as f:
+    json.dump({"seconds": time.perf_counter() - t0,
+               "expected": [[sql, rows] for sql, rows in expected.items()]},
+              f)
+import os
+os.replace(sys.argv[2] + ".tmp", sys.argv[2])
+"""
+
+
+class BackgroundOracle:
+    """Phase 23's expected rows: the port's sqlite oracle of the chaos mix
+    at CHAOS_SF, computed in a subprocess on the host while the earlier
+    phases run (its load took 73.3 s of host time at SF 1 in one chip
+    run, too dear to wait for inside phase 23).  The subprocess touches
+    no card."""
+
+    def __init__(self, sf: float):
+        os.makedirs("build", exist_ok=True)
+        fd, self.path = tempfile.mkstemp(prefix="chip-smoke-oracle-",
+                                         suffix=".json", dir="build")
+        os.close(fd)
+        os.remove(self.path)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _ORACLE_CHILD, str(sf), self.path],
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+
+    def result(self) -> tuple:
+        """(expected rows by SQL, the oracle's seconds, the seconds phase
+        23 waited for it)."""
+        t0 = time.perf_counter()
+        rc = self.proc.wait(timeout=CHAOS_ORACLE_WAIT_S)
+        waited = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"the background oracle failed (rc={rc})")
+        with open(self.path, encoding="utf-8") as f:
+            doc = json.load(f)
+        return ({sql: [tuple(r) for r in rows]
+                 for sql, rows in doc["expected"]}, doc["seconds"], waited)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        for p in (self.path, self.path + ".tmp"):
+            if os.path.exists(p):
+                os.remove(p)
+
+
+CHAOS_SEEDS = (("inproc", 1010), ("process", 1009))  # both run the join
+CHAOS_QUERIES = 5
+CHAOS_FTE_SEED = 1516  # its six queries run the join three times
+CHAOS_FTE_QUERIES = 6
+CHAOS_DRILL = 4  # QUERY_MIX[4], the join: its build is a hash_insert
+CHAOS_REQUIRED = ("hash_insert",)
+CHAOS_PLUGIN_SQL = ("select l_orderkey, count(*) n, sum(l_quantity) q "
+                    "from {t} group by l_orderkey order by q desc, "
+                    "l_orderkey limit 10")
+CHAOS_PLUGIN_SRC = """
+from trino_tpu_torch.connectors.memory import MemoryConnector
+from trino_tpu_torch.plugin import Plugin
+
+
+class ChipPlugin(Plugin):
+    def get_connector_factories(self):
+        return {"chip_memory": lambda config: MemoryConnector()}
+
+
+def plugin():
+    return ChipPlugin()
+"""
+CHAOS_WARM_QUERY = "Q1"
+
+
+def _chaos_rows(rows: list) -> list:
+    """Rows as comparable cells: numbers rounded to cents (the server's
+    JSON sends decimals as text, sqlite gives floats), the rest as text."""
+    out = []
+    for row in rows:
+        cells = []
+        for v in row:
+            try:
+                cells.append(round(float(v), 2))
+            except (TypeError, ValueError):
+                cells.append(str(v))
+        out.append(tuple(cells))
+    return sorted(out, key=str)
+
+
+def _chaos_record(rec: dict, what: str, n: int, required) -> str:
+    """Fail unless every query is accounted (no hang, nothing unexpected)
+    and the required kernels launched; returns the outcomes as a line."""
+    counts = rec["counts"]
+    if len(rec["outcomes"]) != n or counts.get("hang", 0) or \
+            counts.get("unexpected", 0):
+        raise AssertionError(f"{what}: {counts}: {rec['outcomes']}")
+    for k in required:
+        if rec["launches"].get(k, 0) <= 0:
+            raise AssertionError(f"{what}: no {k} launched: "
+                                 f"{rec['launches']}")
+    return "; ".join(
+        f"q{o['query']} mix{_mix_index(o['sql'])} {o['fault']}"
+        f"(t{o['task_index']}) -> {o['outcome']} {o['wall_s'] * 1e3:.1f} ms"
+        for o in rec["outcomes"])
+
+
+def _mix_index(sql: str) -> str:
+    from trino_tpu_torch.testing.chaos import QUERY_MIX
+
+    return str(QUERY_MIX.index(sql)) if sql in QUERY_MIX else "-user-error"
+
+
+def chaos(torch, GK, sqls: dict, path_rows: dict, smi: str, served: dict,
+          expected=None, device: str = "cuda",
+          required=CHAOS_REQUIRED) -> dict:
+    """Phase 23: the chaos harness (trino_tpu_torch/testing/chaos.py), a
+    plugin-loaded catalog and the warm-key journal at SF 1 on the tpch
+    path.  The expected rows of the mix come from the port's sqlite oracle
+    over the mix's columns (``expected``: a BackgroundOracle's result,
+    else computed here; its load is timed).  (a) one in-process and
+    one process scenario (two workers each, five seeded queries with
+    seeded faults and drains); (b) one FTE scenario (six queries, task
+    retries and spool corruption); (c) the coordinator kill -9 drill over
+    the mix's join: a coordinator subprocess killed with a committed
+    attempt, a fresh one booted against the same state and spool
+    directories resumes the query under its id, and no committed attempt
+    re-executes; (d) CTAS into a table of a plugin-loaded memory catalog
+    (its pages on the card) and a group-by over it, rows equal the same
+    query over the tpch table; (e) a fresh two-worker fleet booted with
+    TRINO_TPU_EXEC_WARM=0: its first statement's wall through the
+    statement server beside ``served``, phase 22's fresh fleet, which
+    replayed the journal at boot (keys read, warmed, skipped, ms a
+    worker).  Zero hangs and zero unexpected
+    outcomes; hash_insert launched in (a) in-process, (a) process (the
+    workers' /v1/info), (b) and (c) (the drill's coordinator processes).
+    Returns the launches of (a)-(c)."""
+    t_phase = time.perf_counter()
+    from trino_tpu_torch.caching import executable_cache
+    from trino_tpu_torch.connectors.catalog import default_catalog
+    from trino_tpu_torch.execution.remote import ProcessDistributedQueryRunner
+    from trino_tpu_torch.plugin import PluginManager
+    from trino_tpu_torch.runner import Session, StandaloneQueryRunner
+    from trino_tpu_torch.server import Client, TrinoTpuServer
+    from trino_tpu_torch.testing import chaos as C
+
+    base_dir = tempfile.mkdtemp(prefix="chip-smoke-p23-", dir="build")
+    launches = {k: 0 for k in SOURCES}
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            launches[k] += n
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_env_scope("TRINO_TPU_SPOOL_DIR",
+                                       os.path.join(base_dir, "spool"))())
+        stack.enter_context(_env_scope("TRINO_TPU_QUERY_STATE_DIR",
+                                       os.path.join(base_dir, "state"))())
+        stack.callback(shutil.rmtree, base_dir, True)
+        if expected is None:
+            t0 = time.perf_counter()
+            expected = (C.build_expected(CHAOS_SF),
+                        time.perf_counter() - t0, 0.0)
+        expected, oracle_s, waited = expected
+        log(f"chaos: the sqlite oracle of the mix at SF {CHAOS_SF:g} "
+            f"(customer, orders, lineitem; the mix's columns): "
+            f"{oracle_s:.1f} s on the host, in a subprocess beside the "
+            f"earlier phases; phase 23 waited {waited:.1f} s for it")
+
+        # -- (a) one in-process and one process scenario ------------------
+        for mode, seed in CHAOS_SEEDS:
+            t0 = time.perf_counter()
+            rec = C.run_scenario(seed, mode=mode, n_queries=CHAOS_QUERIES,
+                                 expected=expected, device=device,
+                                 scale_factor=CHAOS_SF)
+            line = _chaos_record(rec, f"chaos {mode}", CHAOS_QUERIES,
+                                 required)
+            add(rec["launches"])
+            log(f"chaos {mode} seed {seed} ({smi}): {rec['counts']}, "
+                f"launches {rec['launches']}"
+                f"{' (workers /v1/info)' if mode == 'process' else ''}, "
+                f"speculative wins {rec['speculative_wins']}; {line}; "
+                f"{time.perf_counter() - t0:.1f} s with the runner's "
+                "set-up")
+
+        # -- (b) fault-tolerant execution under the FTE menu --------------
+        t0 = time.perf_counter()
+        rec = C.run_fte_scenario(CHAOS_FTE_SEED, CHAOS_FTE_QUERIES,
+                                 expected=expected, device=device,
+                                 scale_factor=CHAOS_SF)
+        line = _chaos_record(rec, "chaos fte", CHAOS_FTE_QUERIES, required)
+        add(rec["launches"])
+        repairs = sum(o["spool_corruption_repairs"] for o in rec["outcomes"])
+        log(f"chaos fte seed {CHAOS_FTE_SEED} ({smi}): {rec['counts']}, "
+            f"launches {rec['launches']}, spool corruptions repaired "
+            f"{repairs}; {line}; {time.perf_counter() - t0:.1f} s")
+
+        # -- (c) kill -9 of a coordinator mid-query, and its restart ------
+        t0 = time.perf_counter()
+        sql = C.QUERY_MIX[CHAOS_DRILL]
+        rec = C.run_coordinator_kill_drill(
+            workdir=os.path.join(base_dir, "drill"), device=device,
+            scale_factor=CHAOS_SF, sql=sql)
+        drill = {k: rec["launches_epoch1"].get(k, 0)
+                 + rec["launches_epoch2"].get(k, 0) for k in SOURCES}
+        if not rec["pass"] or rec["committed_reexecuted"] or \
+                rec["state"] != "FINISHED":
+            raise AssertionError(f"chaos drill: {rec}")
+        if _chaos_rows(rec["rows"]) != _chaos_rows(expected[sql]):
+            raise AssertionError(f"chaos drill rows {rec['rows']} != "
+                                 f"{expected[sql]}")
+        for k in required:
+            if drill[k] <= 0:
+                raise AssertionError(f"chaos drill: no {k} launched in "
+                                     f"the coordinators: {drill}")
+        add(drill)
+        log(f"chaos drill ({smi}): coordinator booted in "
+            f"{rec['boot1_s']:.1f} s, first commit {rec['first_commit_s']} s "
+            f"after the POST, {rec['committed_at_kill']} committed "
+            f"attempt(s) at the kill -9; fresh coordinator booted in "
+            f"{rec['boot2_s']:.1f} s, resumed {rec['query_id']} and "
+            f"finished in {rec['resume_s']} s; resumed attempt starts "
+            f"{rec['resumed_attempt_starts']}; committed re-executed "
+            f"{rec['committed_reexecuted']}; spool reclaimed "
+            f"{rec['spool_reclaimed']}; rows equal the oracle's; "
+            f"launches epoch 1 {rec['launches_epoch1']}, epoch 2 "
+            f"{rec['launches_epoch2']}; {time.perf_counter() - t0:.1f} s")
+
+        # -- (d) a plugin-loaded catalog ---------------------------------
+        t0 = time.perf_counter()
+        path = os.path.join(base_dir, "chip_plugin.py")
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(CHAOS_PLUGIN_SRC)
+        cat = default_catalog(CHAOS_SF)
+        pm = PluginManager(cat)
+        pm.load(path)
+        conn = pm.create_catalog("plugged", "chip_memory")
+        runner = StandaloneQueryRunner(cat, device=device, session=Session(
+            default_catalog="plugged"))
+        runner.execute("create table li23 as select l_orderkey, l_quantity "
+                       "from tpch.lineitem")
+        ctas_ms = (time.perf_counter() - t0) * 1e3
+        devices = {c.device.type for b in conn._data["li23"]
+                   for c in b.columns}
+        if devices != {torch.device(device).type}:
+            raise AssertionError(f"chaos plugin: pages on {devices}")
+        before = dict(GK.LAUNCHES)
+        ms, res = _timed(torch, runner, CHAOS_PLUGIN_SQL.format(t="li23"))
+        plugged = {k: GK.LAUNCHES[k] - before[k] for k in SOURCES}
+        want = runner.execute(CHAOS_PLUGIN_SQL.format(t="tpch.lineitem"))
+        same_rows(res.rows(), want.rows(), "chaos plugin", DOUBLE_RTOL)
+        for k in required:
+            if plugged[k] <= 0:
+                raise AssertionError(f"chaos plugin: no {k}: {plugged}")
+        log(f"chaos plugin ({smi}): {pm.loaded} loaded, catalog 'plugged' "
+            f"from its factory; CTAS of lineitem's l_orderkey, l_quantity "
+            f"({sum(b.num_rows for b in conn._data['li23'])} rows, pages on "
+            f"{sorted(devices)}) {ctas_ms:.1f} ms; the group-by over it "
+            f"{ms:.1f} ms, launches {plugged}; rows equal the same query "
+            "over tpch.lineitem")
+        runner.execute("drop table li23")
+        del runner, cat, pm, conn, res, want
+
+        # -- (e) the warm-key journal: a fresh fleet without its replay -----
+        with open(executable_cache.warm_file_path(), encoding="utf-8") as f:
+            journal = json.load(f)["keys"]
+        names: dict = {}
+        for name, _key in journal:
+            names[name] = names.get(name, 0) + 1
+        log(f"chaos warm journal: {executable_cache.warm_file_path()} holds "
+            f"{len(journal)} keys by memo {names}")
+        query = served["query"]
+        t0 = time.perf_counter()
+        fleet = ProcessDistributedQueryRunner(
+            C.catalog_spec(CHAOS_SF), worker_count=SERVE_WORKERS,
+            device=device, session=Session(node_count=SERVE_WORKERS),
+            env_overrides={"TRINO_TPU_EXEC_WARM": "0"})
+        try:
+            boot_s = time.perf_counter() - t0
+            server = TrinoTpuServer(fleet).start()
+            try:
+                host, port = server.address
+                warm = [w.info()["warm"] for w in fleet.workers]
+                t1 = time.perf_counter()
+                _cols, rows = Client(host, port, timeout=SERVE_CLIENT_S
+                                     ).execute(sqls[query])
+                ms = (time.perf_counter() - t1) * 1e3
+            finally:
+                server.stop()
+        finally:
+            fleet.close()
+        _same_dist(rows, _json_rows(path_rows[query]), sqls[query],
+                   "chaos warm off", DOUBLE_RTOL)
+        if any(w["read"] for w in warm) or not all(
+                w["read"] and w["warmed"] + w["skipped"] == w["read"]
+                for w in served["warm"]):
+            raise AssertionError(f"chaos warm: replay off {warm}, phase "
+                                 f"22's {served['warm']}")
+        log(f"chaos warm ({smi}): a fresh two-worker fleet with "
+            f"TRINO_TPU_EXEC_WARM=0, up in {boot_s:.1f} s (replay {warm}): "
+            f"first statement ({query}) through the server {ms:.1f} ms, "
+            f"rows equal phase 3's; phase 22's fresh fleet, which replayed "
+            f"the journal at boot ({served['warm']}), up in "
+            f"{served['boot_s']:.1f} s: first statement {served['ms']:.1f} "
+            "ms")
+    log(f"chaos launches ((a)-(c)): {launches}")
+    log(f"chaos: {time.perf_counter() - t_phase:.1f} s for phase 23")
+    return launches
 
 
 def kernel_cases(torch, GK, captured) -> list:
@@ -4778,6 +5134,8 @@ def main() -> int:
     finally:
         faulthandler.cancel_dump_traceback_later()
         executing.close()
+        for proc in BACKGROUND:
+            proc.stop()
         shutil.rmtree(journal_dir, ignore_errors=True)
 
 
@@ -4845,6 +5203,11 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
     # -- 5. per-operator time (synchronized after every operator call) -----
     per_operator(QueryStats, runner, sqls, f"SF{PATH_SF:g}", TPCH_OPERATORS)
     progress("5 (operators)")
+
+    # phase 23's expected rows: the sqlite oracle of the chaos mix at SF 1,
+    # in a subprocess on the host while phases 7-22 run
+    oracle = BackgroundOracle(CHAOS_SF)
+    BACKGROUND.append(oracle)
 
     # -- 7. staging: SF 1 into memory on cuda ------------------------------
     staged_cat = stage_sf1(torch, default_catalog, stage_memory_tables)
@@ -4954,9 +5317,14 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
 
     # -- 22. the control plane and the serving path: the statement server,
     # worker processes over HTTP
-    serving_launches, serving_by_query = serving(torch, GK, sqls, path_rows,
-                                                 dist_cold, smi)
+    serving_launches, serving_by_query, served = serving(
+        torch, GK, sqls, path_rows, dist_cold, smi)
     progress("22 (serving)")
+
+    # -- 23. the chaos harness, plugins, the warm-key journal --------------
+    chaos_launches = chaos(torch, GK, sqls, path_rows, smi,
+                           expected=oracle.result(), served=served)
+    progress("23 (chaos)")
 
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
@@ -5040,6 +5408,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
             "launches_fault_tolerant": ft_launches[kernel],
             "launches_adaptive": adaptive_launches[kernel],
             "launches_serving": serving_launches[kernel],
+            "launches_chaos": chaos_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],

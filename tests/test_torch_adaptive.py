@@ -30,7 +30,6 @@ from trino_tpu.runner import Session as RefSession
 from trino_tpu.spi.batch import Column as RefColumn
 from trino_tpu.spi.batch import ColumnBatch as RefBatch
 from trino_tpu.telemetry import runtime as ref_rt
-from trino_tpu.testing.chaos import QUERY_MIX
 from trino_tpu_torch.caching import result_cache
 from trino_tpu_torch.connectors.catalog import default_catalog
 from trino_tpu_torch.execution import adaptive as PA
@@ -44,6 +43,7 @@ from trino_tpu_torch.spi.batch import Column, ColumnBatch
 from trino_tpu_torch.spi.types import BIGINT, DOUBLE
 from trino_tpu_torch.telemetry import metrics as tm
 from trino_tpu_torch.telemetry import runtime as rt
+from trino_tpu_torch.testing.chaos import QUERY_MIX
 
 SF = 0.01
 PINS = (("TRINO_TPU_HASH_IMPL", "sort"), ("TRINO_TPU_PALLAS", "0"),

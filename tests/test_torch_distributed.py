@@ -28,7 +28,6 @@ from trino_tpu.connectors.catalog import default_catalog as ref_catalog
 from trino_tpu.execution.distributed_runner import (
     DistributedQueryRunner as RefDist)
 from trino_tpu.runner import Session as RefSession
-from trino_tpu.testing.oracle import SqliteOracle, assert_same_rows
 from trino_tpu_torch.caching import result_cache
 from trino_tpu_torch.connectors.catalog import default_catalog
 from trino_tpu_torch.connectors.tpch_queries import QUERIES
@@ -41,6 +40,8 @@ from trino_tpu_torch.planner.plan import DistinctLimit, plan_text
 from trino_tpu_torch.runner import Session, StandaloneQueryRunner
 from trino_tpu_torch.telemetry import metrics as tm
 from trino_tpu_torch.telemetry import runtime as rt
+from trino_tpu_torch.testing.oracle import (SqliteOracle, assert_same_rows,
+                                            load_tables)
 
 SF = 0.01
 _ORDERED = {1, 2, 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 16, 18, 21, 22}
@@ -148,19 +149,8 @@ def test_distributed_limit_early_close(runners):
 
 @pytest.fixture(scope="module")
 def oracle():
-    o = SqliteOracle()
-    conn = ref_catalog(scale_factor=SF).connector("tpch")
-    for t in ("nation", "orders", "lineitem"):
-        cols = conn.get_table_schema(t).column_names()
-        batches = []
-        for s in conn.get_splits(t, 2, 1):
-            src = conn.create_page_source(s, cols)
-            while not src.is_finished():
-                b = src.get_next_batch()
-                if b is not None:
-                    batches.append(b)
-        o.load_table(t, batches)
-    return o
+    return load_tables(SqliteOracle(),
+                       default_catalog(SF).connector("tpch"), ("nation", "orders", "lineitem"))
 
 
 def test_plan_uses_merge_exchange(runners):

@@ -31,7 +31,6 @@ from trino_tpu.execution.distributed_runner import (
     DistributedQueryRunner as RefDist)
 from trino_tpu.execution.task import PartitionedOutputSink as RefSink
 from trino_tpu.runner import Session as RefSession
-from trino_tpu.testing.oracle import SqliteOracle, assert_same_rows
 from trino_tpu_torch.caching import result_cache
 from trino_tpu_torch.connectors.catalog import default_catalog
 from trino_tpu_torch.connectors.tpch_queries import QUERIES
@@ -45,6 +44,8 @@ from trino_tpu_torch.execution.failure_injector import (
 from trino_tpu_torch.execution.fte import TaskFailure
 from trino_tpu_torch.execution.task import PartitionedOutputSink
 from trino_tpu_torch.runner import Session, StandaloneQueryRunner
+from trino_tpu_torch.testing.oracle import (SqliteOracle, assert_same_rows,
+                                            load_tables)
 
 SF = 0.01
 TABLES = ["nation", "region", "customer", "orders", "lineitem", "supplier"]
@@ -105,20 +106,8 @@ def _flaky_catalog(failures: int):
 
 @pytest.fixture(scope="module")
 def oracle():
-    catalog = ref_catalog(scale_factor=SF)
-    orc = SqliteOracle()
-    conn = catalog.connector("tpch")
-    for t in TABLES:
-        cols = conn.get_table_schema(t).column_names()
-        batches = []
-        for s in conn.get_splits(t, 2, 1):
-            src = conn.create_page_source(s, cols)
-            while not src.is_finished():
-                b = src.get_next_batch()
-                if b is not None:
-                    batches.append(b)
-        orc.load_table(t, batches)
-    return orc
+    return load_tables(SqliteOracle(),
+                       default_catalog(SF).connector("tpch"), TABLES)
 
 
 def _fte(workers=3, catalog=None, **kw):

@@ -31,7 +31,6 @@ from trino_tpu.execution.distributed_runner import (
     DistributedQueryRunner as RefDist)
 from trino_tpu.runner import Session as RefSession
 from trino_tpu.spi import knobs as RK
-from trino_tpu.testing.oracle import SqliteOracle, assert_same_rows
 from trino_tpu_torch.caching import result_cache
 from trino_tpu_torch.connectors.catalog import default_catalog
 from trino_tpu_torch.connectors.tpch_queries import QUERIES
@@ -45,6 +44,8 @@ from trino_tpu_torch.runner import Session
 from trino_tpu_torch.spi import knobs as PK
 from trino_tpu_torch.spi.errors import TrinoError
 from trino_tpu_torch.telemetry import metrics as tm
+from trino_tpu_torch.testing.oracle import (SqliteOracle, assert_same_rows,
+                                            load_tables)
 
 SF = 0.01
 TABLES = ["customer", "orders", "lineitem"]
@@ -127,19 +128,8 @@ def _drop_reference_programs() -> None:
 
 @pytest.fixture(scope="module")
 def oracle():
-    o = SqliteOracle()
-    conn = ref_catalog(scale_factor=SF).connector("tpch")
-    for t in TABLES:
-        cols = conn.get_table_schema(t).column_names()
-        batches = []
-        for s in conn.get_splits(t, 2, 1):
-            src = conn.create_page_source(s, cols)
-            while not src.is_finished():
-                b = src.get_next_batch()
-                if b is not None:
-                    batches.append(b)
-        o.load_table(t, batches)
-    return o
+    return load_tables(SqliteOracle(),
+                       default_catalog(SF).connector("tpch"), TABLES)
 
 
 def _rows(result):

@@ -62,6 +62,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "trino_tpu_torch.server.protocol",
                    "trino_tpu_torch.server.client",
                    "trino_tpu_torch.caching.plan_cache",
-                   "trino_tpu_torch.caching.result_cache"):
+                   "trino_tpu_torch.caching.result_cache",
+                   "trino_tpu_torch.plugin",
+                   "trino_tpu_torch.testing.oracle",
+                   "trino_tpu_torch.testing.chaos",
+                   "trino_tpu_torch.tools.dist_probe"):
         assert module in imported
     assert len(imported) > 40

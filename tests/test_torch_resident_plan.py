@@ -1,13 +1,17 @@
 """The port's whole-query compilation (execution/plan_compiler.py) against
 the reference's.
 
-The cases of the reference's tests/test_resident_plan.py but the three
-that wait for worker processes (``init_distributed``, the two-process
-mesh, the warm replay of resident programs), each held to the port's own
-fused path (``TRINO_TPU_RESIDENT_PLAN=0``), to the reference and to
-sqlite; then the build and probe through the hash kernels, the memo key's
-JSON round trip, the profiler's events and an error injected into the
-build prep, which must fail the query with no re-run.  Integer, decimal,
+The cases of the reference's tests/test_resident_plan.py, each held to
+the port's own fused path (``TRINO_TPU_RESIDENT_PLAN=0``), to the
+reference and to sqlite (the port's oracle, trino_tpu_torch/testing); then
+the build and probe through the hash kernels, the memo key's JSON round
+trip, the profiler's events and an error injected into the build prep,
+which must fail the query with no re-run.  The warm-key journal: the
+resident program's key warms (:265 of the reference's file), the port
+writes the reference's file format, and a worker process replays the
+file at boot, counting the keys it skips.  ``init_distributed`` brings up
+gloo (:288) and two processes gather a build across a gloo group on the
+CPU (:348).  Integer, decimal,
 string and count outputs are identical; float64 sums within rel 1e-12
 (the state merge adds in another order).  The reference is pinned as
 tests/test_torch_fused_stage.py pins it.
@@ -25,7 +29,6 @@ from trino_tpu.execution.distributed_runner import (
 from trino_tpu.execution.plan_compiler import (
     ResidentPlanExec as RefResidentPlanExec)
 from trino_tpu.runner import Session as RefSession
-from trino_tpu.testing.oracle import SqliteOracle, assert_same_rows
 from trino_tpu_torch.caching import executable_cache as ec
 from trino_tpu_torch.caching import result_cache
 from trino_tpu_torch.connectors.catalog import default_catalog
@@ -37,6 +40,8 @@ from trino_tpu_torch.ops import gpu_kernels as GK
 from trino_tpu_torch.runner import Session
 from trino_tpu_torch.telemetry import metrics as tm
 from trino_tpu_torch.telemetry import profiler
+from trino_tpu_torch.testing.oracle import (SqliteOracle, assert_same_rows,
+                                            load_tables)
 
 SF = 0.01
 TABLES = ["customer", "orders", "lineitem"]
@@ -92,19 +97,8 @@ def harness():
 
 @pytest.fixture(scope="module")
 def oracle():
-    o = SqliteOracle()
-    conn = ref_catalog(scale_factor=SF).connector("tpch")
-    for t in TABLES:
-        cols = conn.get_table_schema(t).column_names()
-        batches = []
-        for s in conn.get_splits(t, 2, 1):
-            src = conn.create_page_source(s, cols)
-            while not src.is_finished():
-                b = src.get_next_batch()
-                if b is not None:
-                    batches.append(b)
-        o.load_table(t, batches)
-    return o
+    return load_tables(SqliteOracle(),
+                       default_catalog(SF).connector("tpch"), TABLES)
 
 
 def _rows(result):
@@ -333,3 +327,232 @@ def test_profiler_records_build_and_merge_events(harness):
     assert sum(n.startswith("resident-build[") for n in names) == 2
     assert sum(n.startswith("fused-merge[") for n in names) == 1
     assert any(n.startswith("resident-accumulate[") for n in names)
+
+
+# ---------------------------------------------------------------------------
+# the warm-key journal
+
+
+@pytest.fixture
+def warm_dir(tmp_path, monkeypatch):
+    """A fresh journal directory (where exec_warm.json goes) and a fresh
+    set of seen keys."""
+    monkeypatch.setenv("TRINO_TPU_JOURNAL_DIR", str(tmp_path))
+    ec.reset_warm_state_for_test()
+    yield tmp_path
+    ec.reset_warm_state_for_test()
+
+
+def _resident_key(port) -> tuple:
+    (ex,) = _resident_execs(port)
+    return (ex.spec_b64, ex.spec.cap, str(port.device))
+
+
+def test_resident_program_memo_key_warms(harness, warm_dir):
+    """The resident accumulate memo keys on a value (the base64 plan
+    payload), so a miss journals the key, the key survives the JSON round
+    trip and ``warm`` re-instantiates the program (the reference's
+    test_resident_program_memo_key_warms)."""
+    port, _ = harness
+    cache = ec._REGISTRY["resident._program"]
+    cache.clear()
+    port.execute(QUERIES[3])
+    with ec._WARM_LOCK:
+        keys = [list(key) for (name, key) in ec._WARM_SEEN
+                if name == "resident._program"]
+    assert keys == [list(_resident_key(port))]
+    round_tripped = tuple(json.loads(json.dumps(keys[0])))
+    cache.clear()
+    assert cache.warm(round_tripped), \
+        "boot replay must rebuild the resident program from the journal"
+    assert cache.cache.peek(round_tripped) is not None
+
+
+def test_query_end_flushes_the_reference_format(harness, warm_dir):
+    """The query's completion writes exec_warm.json next to the journal,
+    in the reference's format; identical keys recorded through both
+    packages give identical files."""
+    from trino_tpu.caching import executable_cache as ref_ec
+
+    port, _ = harness
+    ec._REGISTRY["resident._program"].clear()
+    port.execute(QUERIES[3])
+    path = warm_dir / "exec_warm.json"
+    assert ec.warm_file_path() == str(path)
+    doc = json.loads(path.read_text())
+    assert doc["version"] == 1
+    assert ["resident._program", list(_resident_key(port))] in doc["keys"]
+    assert all(isinstance(n, str) and isinstance(k, list)
+               for n, k in doc["keys"])
+    # nothing new: the next query writes nothing
+    path.unlink()
+    assert ec.flush_warm_keys() is None and not path.exists()
+
+    pairs = [("stage._ingest_program", (8192, (True, False), True)),
+             ("x.y", ("s", 1, 2.5, None))]
+    docs = []
+    for mod, sub in ((ec, "port"), (ref_ec, "ref")):
+        (warm_dir / sub).mkdir()
+        mod.reset_warm_state_for_test()
+        for name, key in pairs:
+            mod._record_warm_key(name, key)
+        os_env = {"TRINO_TPU_JOURNAL_DIR": str(warm_dir / sub)}
+        with pytest.MonkeyPatch.context() as mp:
+            for k, v in os_env.items():
+                mp.setenv(k, v)
+            docs.append(json.loads(open(mod.flush_warm_keys()).read()))
+        mod.reset_warm_state_for_test()
+    assert docs[0] == docs[1]
+
+
+def _foreign_payload() -> str:
+    """A plan payload of the reference's package, as a journal the
+    reference wrote holds."""
+    import base64
+    import pickle
+    import zlib
+
+    from trino_tpu.spi.types import BIGINT as REF_BIGINT
+
+    raw = pickle.dumps(((REF_BIGINT,), None, (), ()), protocol=4)
+    return base64.b64encode(zlib.compress(raw)).decode("ascii")
+
+
+def test_warm_at_boot_counts_what_it_skips(harness, warm_dir, monkeypatch):
+    port, _ = harness
+    port.execute(QUERIES[3])
+    key = list(_resident_key(port))
+    pairs = [["resident._program", key],
+             ["stage._ingest_program", [64, [True], False]],
+             ["kernels._group_ids_fn", [3, "int64"]],  # a reference memo
+             ["resident._program", [_foreign_payload(), 8192, "cpu"]],
+             ["stage._ingest_program", [1, 2, 3, 4]],  # arguments drifted
+             ["broken"]]
+    (warm_dir / "exec_warm.json").write_text(
+        json.dumps({"version": 1, "keys": pairs}))
+    cache = ec._REGISTRY["resident._program"]
+    cache.clear()
+    out = ec.warm_at_boot()
+    assert (out["read"], out["warmed"], out["skipped"]) == (6, 2, 4)
+    assert out["ms"] > 0
+    assert cache.cache.peek(tuple(key)) is not None
+    monkeypatch.setenv("TRINO_TPU_EXEC_WARM", "0")
+    assert ec.warm_at_boot() == {"read": 0, "warmed": 0, "skipped": 0,
+                                 "ms": 0.0}
+
+
+def test_weak_memo_keys_are_never_journaled(warm_dir):
+    """A weak memo is keyed by an object's identity: meaningless in
+    another process, so never journaled, and never warmed."""
+    import numpy as np
+
+    from trino_tpu_torch.spi.batch import _object_payload_nbytes
+
+    dictionary = np.array(["a", "bb"], dtype=object)
+    assert _object_payload_nbytes(dictionary) == 3
+    with ec._WARM_LOCK:
+        names = {name for (name, _key) in ec._WARM_SEEN}
+    assert "batch.dictionary_nbytes" not in names
+    assert not _object_payload_nbytes.warm((id(dictionary),))
+
+
+def test_worker_replays_the_journal_at_boot(harness, warm_dir):
+    """A worker process boots, replays exec_warm.json and reports the
+    replay in ``GET /v1/info``; with TRINO_TPU_EXEC_WARM=0 it reads
+    nothing."""
+    from trino_tpu_torch.execution.remote import WorkerProcess
+
+    port, _ = harness
+    pairs = [["resident._program", list(_resident_key(port))],
+             ["stage._ingest_program", [64, [True], False]],
+             ["kernels._group_ids_fn", [3, "int64"]]]
+    (warm_dir / "exec_warm.json").write_text(
+        json.dumps({"version": 1, "keys": pairs}))
+    for env, want in (({}, (3, 2, 1)), ({"TRINO_TPU_EXEC_WARM": "0"},
+                                        (0, 0, 0))):
+        w = WorkerProcess(dict(env, OMP_NUM_THREADS="1"), device="cpu")
+        try:
+            warm = w.info()["warm"]
+        finally:
+            w.kill()
+        assert (warm["read"], warm["warmed"], warm["skipped"]) == want
+
+
+# ---------------------------------------------------------------------------
+# multi-process: a build gathered across two host processes
+
+
+def test_init_distributed_gloo(monkeypatch):
+    """init_distributed brings up a gloo group (the reference's
+    gloo-before-initialize case): NCCL takes no two ranks on one card."""
+    import torch.distributed as dist
+
+    seen = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: seen.append((backend, kw)))
+    PC.init_distributed("127.0.0.1:9999", num_processes=2, process_id=1)
+    assert seen == [
+        ("gloo", {"init_method": "tcp://127.0.0.1:9999", "world_size": 2,
+                  "rank": 1})]
+
+
+_CHILD = """
+import sys
+
+import torch
+import torch.distributed as dist
+
+from trino_tpu_torch.execution import plan_compiler as PC
+
+port, pid = sys.argv[1], int(sys.argv[2])
+PC.init_distributed(f"127.0.0.1:{port}", num_processes=2, process_id=pid)
+assert dist.get_world_size() == 2 and dist.get_rank() == pid
+# four local shards of three rows each: eight shards in all, as the
+# reference's 2 x 4 device mesh; the gather replicates the whole build
+per = 3
+local = torch.cat([torch.arange(per, dtype=torch.int64) + (pid * 4 + i) * per
+                   for i in range(4)])
+parts = [torch.empty_like(local) for _ in range(2)]
+dist.all_gather(parts, local)
+rep = torch.cat(parts)
+assert torch.equal(rep, torch.arange(8 * per)), rep
+dist.destroy_process_group()
+print(f"RESIDENT-MP-OK {pid}")
+"""
+
+
+def test_two_process_gloo_build_gather(tmp_path):
+    """torch.distributed over gloo between two host processes: a
+    broadcast gather gives the full build in both, in rank order (the
+    reference's two-process CPU mesh case)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    script = tmp_path / "resident_mp_child.py"
+    script.write_text(_CHILD)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        free = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(free), str(pid)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=120)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"process {pid} failed:\n{out}"
+        assert f"RESIDENT-MP-OK {pid}" in out

@@ -27,12 +27,26 @@ identity of its first argument (a dictionary) and the rest; the entry
 holds no reference to that argument and is dropped when it is freed, so
 a memo keeps no per-query dictionary alive.
 
-The reference also journals memo keys for a worker to replay at boot.
-The port journals none, so its worker boot path (execution/worker.py)
-only binds the kernel library and replays nothing (ROADMAP queue 1
-item 6).  XLA's persistent compile cache has no counterpart:
-:func:`init_compile_cache` only reports the directory nvcc's library
-lives in.
+**The warm-key journal**, as in the reference: a memo miss remembers its
+key when the key survives a JSON round trip (:func:`_record_warm_key`;
+keys that hold a device, a dtype or a type object do not, and a ``weak``
+memo's key is an object's identity, never journaled).  At the end of every
+query the keys seen go to ``exec_warm.json`` next to the query journal
+(:func:`flush_warm_keys`, called from ``runner.run_with_query_events``), in
+the reference's format ``{"version": 1, "keys": [[name, key], ...]}``, so
+each package reads the other's file.  A worker process replays it at boot
+(:func:`warm_at_boot`, from execution/worker.py) under
+``TRINO_TPU_EXEC_WARM``.  The reference's replay re-creates jitted
+wrappers whose first call loads from XLA's disk cache; the port compiles
+nothing, so its replay re-instantiates the memoized programs
+(``resident._program``: the plan payload decoded and its expressions
+compiled; ``stage._ingest_program``, ``stage._merge_program``).  A key
+whose cache this process does not register, whose arguments no longer fit
+(code drift, or a key the reference journaled) or whose payload names a
+module of the reference is skipped, and the replay counts the keys it
+skipped beside those it warmed.  XLA's persistent compile cache has no
+counterpart: :func:`init_compile_cache` only reports the directory
+nvcc's library lives in.
 
 ``TRINO_TPU_EXEC_CACHE=0`` (read when a cache is made) keeps every memo
 bounded but leaves it out of the registry and its counters.
@@ -40,8 +54,10 @@ bounded but leaves it out of the registry and its counters.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
+import time
 import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Optional
@@ -51,8 +67,13 @@ from ..spi import knobs
 __all__ = [
     "BoundedCache", "bounded", "memo", "register_external", "enabled",
     "default_maxsize", "registry_stats", "aggregate_stats", "clear_all",
-    "init_compile_cache",
+    "init_compile_cache", "warm_at_boot", "flush_warm_keys",
+    "warm_file_path", "reset_warm_state_for_test",
 ]
+
+_WARM_FILE = "exec_warm.json"
+_WARM_KEY_CAP = 256  # most recent keys journaled per process
+_WARM_REPLAY_LIMIT = 64  # most recent keys a boot replays
 
 
 def enabled() -> bool:
@@ -178,6 +199,8 @@ class _Memo:
             # computed outside the lock: a factory may re-enter the registry
             value = self.fn(*args)
             self.cache.put(args, value)
+            if self.cache._counted:
+                _record_warm_key(self.cache.name, args)
             return value
         key = (id(args[0]),) + args[1:]
         hit = self.cache.get(key, _MISSING)
@@ -194,6 +217,18 @@ class _Memo:
             old.detach()
         return value
 
+    def warm(self, key: tuple) -> bool:
+        """Re-instantiate the entry of a journaled key; never raises: a
+        key this memo cannot take (a weak memo's, or one whose arguments
+        no longer fit) is skipped."""
+        if self._weak:
+            return False
+        try:
+            self(*key)
+            return True
+        except Exception:  # noqa: BLE001 — boot warming is best-effort
+            return False
+
     def clear(self) -> None:
         for entry in self.cache.clear():
             if self._weak:
@@ -206,6 +241,12 @@ class _Memo:
 _REGISTRY: dict[str, Any] = {}
 _EXTERNAL: dict[str, Callable[[], dict]] = {}
 _REGISTRY_LOCK = threading.Lock()
+
+# JSON-able (cache_name, key) pairs seen this process, flushed to the warm
+# file at query end (flush_warm_keys) and replayed at worker boot
+_WARM_LOCK = threading.Lock()
+_WARM_SEEN: OrderedDict = OrderedDict()
+_WARM_DIRTY = False
 
 
 def _register(name: str, obj) -> None:
@@ -302,3 +343,114 @@ def init_compile_cache() -> Optional[str]:
     d = str(GK._BUILD_DIR)
     return d if os.path.isdir(d) else None
 
+
+# ---------------------------------------------------------------------------
+# the warm-key journal
+
+
+def warm_file_path() -> str:
+    """``exec_warm.json`` in the query journal's directory."""
+    from ..telemetry import journal as tj
+
+    return os.path.join(tj.journal_dir(), _WARM_FILE)
+
+
+def _record_warm_key(cache_name: str, key: tuple) -> None:
+    """Remember a JSON-round-trippable memo key for the warm journal.
+    Keys holding devices / dtypes / type objects fail json.dumps and are
+    not journaled."""
+    global _WARM_DIRTY
+    try:
+        json.dumps(key)
+    except (TypeError, ValueError):
+        return
+    pair = (cache_name, key)
+    with _WARM_LOCK:
+        if pair in _WARM_SEEN:
+            _WARM_SEEN.move_to_end(pair)
+            return
+        _WARM_SEEN[pair] = True
+        while len(_WARM_SEEN) > _WARM_KEY_CAP:
+            _WARM_SEEN.popitem(last=False)
+        _WARM_DIRTY = True
+
+
+def flush_warm_keys() -> Optional[str]:
+    """Write the seen-key set to the warm file if it changed since the
+    last flush (called at query completion: one flag check, and at most
+    one small atomic write, per query).  Returns the path written."""
+    global _WARM_DIRTY
+    if not enabled():
+        return None
+    with _WARM_LOCK:
+        if not _WARM_DIRTY:
+            return None
+        pairs = [[name, list(key)] for (name, key) in _WARM_SEEN]
+        _WARM_DIRTY = False
+    path = warm_file_path()
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"version": 1, "keys": pairs}, f)
+        os.replace(tmp, path)
+    except OSError:
+        return None
+    return path
+
+
+def _freeze(v):
+    """A JSON round trip turns tuples into lists; memo keys are tuples."""
+    if isinstance(v, list):
+        return tuple(_freeze(x) for x in v)
+    return v
+
+
+# the modules that define the registered memos: a memo exists only once
+# its module is imported
+_MEMO_MODULES = ("exec.local_exchange", "exec.join_exec", "spi.batch",
+                 "ops.gpu_kernels", "execution.stage_compiler",
+                 "execution.serde", "execution.plan_compiler")
+
+
+def warm_at_boot() -> dict:
+    """Replay the warm journal: import the memo-owning modules, then
+    re-instantiate up to 64 recorded entries (most recent first —
+    the file is LRU-ordered oldest-first).  Returns ``{"read", "warmed",
+    "skipped", "ms"}``: the keys taken from the file, those re-instantiated
+    and those skipped (no registered memo of that name in this process, or
+    the memo could not take the key), and the replay's wall; all zero when
+    ``TRINO_TPU_EXEC_CACHE`` or ``TRINO_TPU_EXEC_WARM`` is off or there is
+    no file."""
+    out = {"read": 0, "warmed": 0, "skipped": 0, "ms": 0.0}
+    if not enabled() or not knobs.switched_on("TRINO_TPU_EXEC_WARM"):
+        return out
+    t0 = time.perf_counter()
+    try:
+        with open(warm_file_path(), encoding="utf-8") as f:
+            pairs = json.load(f).get("keys", [])
+    except (OSError, ValueError, AttributeError):
+        return out
+    pkg = __package__.rsplit(".", 1)[0]
+    for mod in _MEMO_MODULES:
+        __import__(f"{pkg}.{mod}", fromlist=["_"])
+    for pair in reversed(pairs[-_WARM_REPLAY_LIMIT:]):
+        out["read"] += 1
+        try:
+            name, key = pair
+            with _REGISTRY_LOCK:
+                cache = _REGISTRY.get(name)
+            ok = cache is not None and hasattr(cache, "warm") \
+                and cache.warm(_freeze(key))
+        except (TypeError, ValueError):
+            ok = False
+        out["warmed" if ok else "skipped"] += 1
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def reset_warm_state_for_test() -> None:
+    global _WARM_DIRTY
+    with _WARM_LOCK:
+        _WARM_SEEN.clear()
+        _WARM_DIRTY = False

@@ -50,8 +50,8 @@ from ..exec import syncguard as SG
 from ..exec.operators import Operator
 from ..parallel.distributed import Mesh, all_to_all
 from ..spi.batch import Column, ColumnBatch, torch_dtype, unify_dictionaries
-from ..spi.errors import (GENERIC_INTERNAL_ERROR, PAGE_TRANSPORT_TIMEOUT,
-                          TrinoError)
+from ..spi.errors import (DEVICE_FAULT, GENERIC_INTERNAL_ERROR,
+                          PAGE_TRANSPORT_TIMEOUT, TrinoError, is_device_fault)
 from ..telemetry import metrics as tm
 from ..telemetry import profiler
 from . import task as T
@@ -277,9 +277,11 @@ class CollectiveRepartitionExchange:
         if self._error is not None:
             if isinstance(self._error, TrinoError):
                 raise self._error      # keep the original classification
-            raise TrinoError(
-                GENERIC_INTERNAL_ERROR,
-                f"collective exchange failed: {self._error}") from self._error
+            # a fault of the card keeps its code: it must not be retried
+            code = (DEVICE_FAULT if is_device_fault(self._error)
+                    else GENERIC_INTERNAL_ERROR)
+            raise TrinoError(code, f"collective exchange failed: {self._error}") \
+                from self._error
         return self._results[task_index]
 
 

@@ -1,7 +1,8 @@
 """Whole-query compilation: one program call per batch of a resident plan.
 
-The port of the reference ``execution/plan_compiler.py`` (without its
-``init_distributed``: worker processes come with the worker boot path).
+The port of the reference ``execution/plan_compiler.py``.  Its
+``init_distributed`` brings up ``torch.distributed`` over gloo where the
+reference brings up ``jax.distributed`` with gloo CPU collectives.
 The fragmenter coalesces a maximal connected subtree of device-resident
 fragments, a broadcast multi-join tree under a fusable PARTIAL->FINAL
 seam, into a ``ResidentPlan`` record (execution/fragmenter.py).  This
@@ -25,7 +26,10 @@ module runs each record as:
    the Filter/Project chain, the partial aggregation and the carried-state
    merge of the fused stage run in the same call, with no host read.  The
    program is memoized under a value key (base64 of the zlib-pickled plan
-   payload, as the reference builds it), which survives a JSON round trip.
+   payload, as the reference builds it), which survives a JSON round trip
+   and so reaches the warm-key journal (caching/executable_cache.py).  A
+   payload is unpickled only when it names no module of the reference (a
+   journal written by the reference's package holds such payloads).
 
 3. **Seam merge**: the fused stage's (execution/stage_compiler.py).
 
@@ -40,6 +44,7 @@ path.
 from __future__ import annotations
 
 import base64
+import io
 import pickle
 import threading
 import zlib
@@ -70,6 +75,7 @@ from .stage_compiler import (FusedStageExec, FusedStageOverflow,
                              build_fused_spec, fused_cap, fused_stage_mode)
 
 __all__ = ["ResidentPlanExec", "ResidentPlanOverflow", "ResidentPlanSpec",
+           "init_distributed",
            "ResidentBuildHandle", "ResidentBuildSinkOperator",
            "ResidentPlanSinkOperator", "build_resident_spec",
            "plan_resident_plans", "resident_plan_mode",
@@ -105,6 +111,24 @@ def _mesh_device_cap() -> int:
             return 0
         n *= d
     return n
+
+
+def init_distributed(coordinator_address: str, num_processes: int,
+                     process_id: int) -> None:
+    """``torch.distributed`` bring-up for resident plans that span
+    processes, with the reference's signature: a gloo process group of
+    ``num_processes`` ranks rendezvousing at ``coordinator_address``
+    (``host:port``), this process being rank ``process_id``.  Gloo, not NCCL: the port's
+    processes share one card, and NCCL refuses two ranks on one card
+    ("Duplicate GPU detected"), while gloo's ``all_gather`` takes the
+    card's tensors as they are (both measured on the H100 by
+    tools/dist_probe.py), so a broadcast gather needs no copy to host
+    tensors by the caller."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://{coordinator_address}",
+                            world_size=num_processes, rank=process_id)
 
 
 class ResidentPlanOverflow(FusedStageOverflow):
@@ -223,11 +247,22 @@ def encode_resident_payload(spec: ResidentPlanSpec) -> str:
     return base64.b64encode(zlib.compress(raw)).decode("ascii")
 
 
+class _PortUnpickler(pickle.Unpickler):
+    """Unpickles a plan payload, refusing any class of the reference's
+    package (the port never imports it)."""
+
+    def find_class(self, module: str, name: str):
+        if module.split(".", 1)[0] in ("trino_tpu", "jax"):
+            raise pickle.UnpicklingError(
+                f"plan payload names {module}.{name}, not a port class")
+        return super().find_class(module, name)
+
+
 @memo("resident._program", maxsize=64)
 def _resident_program(spec_b64: str, cap: int,
                       device: str) -> _ResidentProgram:
-    chain, partial, joins, state_specs = pickle.loads(
-        zlib.decompress(base64.b64decode(spec_b64)))
+    chain, partial, joins, state_specs = _PortUnpickler(io.BytesIO(
+        zlib.decompress(base64.b64decode(spec_b64)))).load()
     feed = chain[0].source if chain else partial.source
     spec = ResidentPlanSpec(
         producer_fid=-1, consumer_fid=-1, n_tasks=0, feed=feed,

@@ -390,6 +390,9 @@ class ProcessDistributedQueryRunner(DistributedQueryRunner):
 
             GK.build_library()
         self.workers = self._spawn_all(worker_count)
+        # a drain (an operator's thread) and a query retry's self-heal may
+        # replace the same dead worker at once: one of them fills the slot
+        self._fleet_lock = threading.RLock()
         self._query_seq = 0
         # replace the base in-process pinger with the real heartbeat sweep
         # over worker /v1/status (execution/failure_detector.py); shares the
@@ -466,7 +469,7 @@ class ProcessDistributedQueryRunner(DistributedQueryRunner):
         GONE node, bounded by ``Session.max_worker_replacements`` over the
         runner's lifetime."""
         self.failure_detector.sweep_once()
-        for i, w in enumerate(self.workers):
+        for i, w in enumerate(list(self.workers)):
             # a process that has exited is gone whatever the last sweep
             # saw; an unresponsive one gets a bounded wait to exit
             state = self.failure_detector.state_of(w.url)
@@ -477,19 +480,22 @@ class ProcessDistributedQueryRunner(DistributedQueryRunner):
                     pass
             if state != GONE and w.alive():
                 continue
-            cap = self.session.get("max_worker_replacements")
-            if self._replacements_used >= cap:
-                self.resilience_events.append(("replacement_cap", w.url,
-                                               cap))
-                continue
-            replacement = self._spawn()
-            self._replacements_used += 1
-            self.resilience.worker_replacements += 1
-            self.resilience_events.append(
-                ("worker_replaced", w.url, replacement.url))
-            self.failure_detector.unmonitor(w.url)
-            self._monitor_worker(replacement)
-            self.workers[i] = replacement
+            with self._fleet_lock:
+                if i >= len(self.workers) or self.workers[i] is not w:
+                    continue  # a drain replaced it meanwhile
+                cap = self.session.get("max_worker_replacements")
+                if self._replacements_used >= cap:
+                    self.resilience_events.append(
+                        ("replacement_cap", w.url, cap))
+                    continue
+                replacement = self._spawn()
+                self._replacements_used += 1
+                self.resilience.worker_replacements += 1
+                self.resilience_events.append(
+                    ("worker_replaced", w.url, replacement.url))
+                self.failure_detector.unmonitor(w.url)
+                self._monitor_worker(replacement)
+                self.workers[i] = replacement
             try:
                 if w.alive():
                     w.kill()
@@ -557,16 +563,18 @@ class ProcessDistributedQueryRunner(DistributedQueryRunner):
         self.failure_detector.sweep_once()
         summary = {"worker": w.url, "escalated": escalated,
                    "exit_code": w.proc.poll(), "replacement": None}
-        if replace:
-            slot = self.workers.index(w)
-            replacement = self._spawn()
-            self.failure_detector.unmonitor(w.url)
-            self._monitor_worker(replacement)
-            self.workers[slot] = replacement
-            self.failure_detector.sweep_once()
-            self.resilience_events.append(
-                ("drain", w.url, "replaced", replacement.url))
-            summary["replacement"] = replacement.url
+        with self._fleet_lock:
+            # a query retry's self-heal may have replaced it meanwhile
+            if replace and w in self.workers:
+                slot = self.workers.index(w)
+                replacement = self._spawn()
+                self.failure_detector.unmonitor(w.url)
+                self._monitor_worker(replacement)
+                self.workers[slot] = replacement
+                self.failure_detector.sweep_once()
+                self.resilience_events.append(
+                    ("drain", w.url, "replaced", replacement.url))
+                summary["replacement"] = replacement.url
         self.resilience_events.append(("drain", w.url, "drained"))
         return summary
 

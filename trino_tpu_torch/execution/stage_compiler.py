@@ -68,8 +68,8 @@ from ..planner import plan as PL
 from ..spi import knobs
 from ..spi.batch import (Column, ColumnBatch, host_table, torch_dtype,
                          unify_dictionaries)
-from ..spi.errors import (GENERIC_INTERNAL_ERROR, PAGE_TRANSPORT_TIMEOUT,
-                          TrinoError)
+from ..spi.errors import (DEVICE_FAULT, GENERIC_INTERNAL_ERROR,
+                          PAGE_TRANSPORT_TIMEOUT, TrinoError, is_device_fault)
 from ..spi.types import DOUBLE, DecimalType
 from ..telemetry import metrics as tm
 from ..telemetry import profiler
@@ -663,9 +663,11 @@ class FusedStageExec:
         if self._error is not None:
             if isinstance(self._error, (FusedStageOverflow, TrinoError)):
                 raise self._error
-            raise TrinoError(
-                GENERIC_INTERNAL_ERROR,
-                f"fused stage failed: {self._error}") from self._error
+            # a fault of the card keeps its code: it must not be retried
+            code = (DEVICE_FAULT if is_device_fault(self._error)
+                    else GENERIC_INTERNAL_ERROR)
+            raise TrinoError(code, f"fused stage failed: {self._error}") \
+                from self._error
         return self._results[task_index]
 
 

@@ -33,8 +33,12 @@ The port of the reference ``execution/worker.py``.  What differs:
   ``build/kernels/libtrino_kernels.so`` at boot (``gpu_kernels._lib(
   build=False)``) and never runs nvcc: the coordinator builds the library
   before it spawns workers, so workers sharing one card do not each
-  rebuild a stale library.  It then replays the warm-key journal where
-  the port has a memo for the key (caching/executable_cache.py).
+  rebuild a stale library.  It then imports the task path's modules and
+  replays the warm-key journal (caching/executable_cache.py
+  ``warm_at_boot``, under ``TRINO_TPU_EXEC_WARM``): each journaled key of
+  a memo this process registers re-instantiates its program; the others
+  are counted as skipped.  ``GET /v1/info`` reports the replay as
+  ``warm`` (keys read, warmed, skipped, and its ms).
 - Launch counts are per process.  ``GET /v1/info`` keeps the reference's
   ``state`` and ``tasks`` and adds the worker's ``device``, the card's
   name (``device_name``) and ``launches``, the kernel launch counts of
@@ -150,11 +154,15 @@ class _Task:
 class TaskServer:
     """The worker's HTTP surface; every task runs on ``device``."""
 
-    def __init__(self, port: int = 0, device="cuda"):
+    def __init__(self, port: int = 0, device="cuda",
+                 warm: Optional[dict] = None):
         from ..spi import knobs
         from .tracing import Tracer
 
         self.device = torch.device(device)
+        # the boot's warm-key replay (executable_cache.warm_at_boot), or
+        # None where no replay ran (a TaskServer on a thread)
+        self.warm = warm
         self.tasks: dict[str, _Task] = {}
         self._lock = threading.Lock()
         self._draining = False
@@ -226,8 +234,9 @@ class TaskServer:
 
     def info(self) -> dict:
         """``/v1/info``: the reference's ``state`` and ``tasks``, then the
-        port's ``device``, ``device_name`` and ``launches`` (this process's
-        kernel launches since boot)."""
+        port's ``device``, ``device_name``, ``launches`` (this process's
+        kernel launches since boot) and ``warm`` (the boot's warm-key
+        replay)."""
         from ..ops import gpu_kernels as GK
 
         name = str(self.device)
@@ -235,7 +244,8 @@ class TaskServer:
             name = torch.cuda.get_device_name(self.device)
         return {"state": "SHUTTING_DOWN" if self._draining else "ACTIVE",
                 "tasks": len(self.tasks), "device": str(self.device),
-                "device_name": name, "launches": dict(GK.LAUNCHES)}
+                "device_name": name, "launches": dict(GK.LAUNCHES),
+                "warm": self.warm}
 
     # ------------------------------------------------------------ handlers
     def _authorized(self, h) -> bool:
@@ -720,9 +730,11 @@ def main(argv=None) -> None:
         sys.exit(4)
     # the task path's modules, imported before LISTENING so the first
     # task does not pay for them
+    from ..caching import executable_cache
     from ..exec import driver, local_planner  # noqa: F401
     from . import durable_spool, exchange, remote, task  # noqa: F401
-    server = TaskServer(args.port, device)
+    warm = executable_cache.warm_at_boot()
+    server = TaskServer(args.port, device, warm=warm)
     print(f"LISTENING {server.port}", flush=True)
     server.serve_forever()
     # serve_forever returns when a drain shut the server down; exit code 9

@@ -66,7 +66,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .caching import plan_cache, result_cache
+from .caching import executable_cache, plan_cache, result_cache
 from .caching.plan_cache import scan_tables
 from .connectors.catalog import Catalog, ViewDefinition, default_catalog
 from .exec import kernels as K
@@ -612,8 +612,9 @@ def run_with_query_events(qid: str, sql: str, user: str,
     result with a live mask (:func:`_output_rows`), counted by
     exec/syncguard.py under ``runner.output-rows`` after the query's own
     sync window; a result-cache hit reuses the count and reads nothing.
-    The reference's warm-key flush has no counterpart (the port keeps no
-    warm journal: caching/executable_cache.py)."""
+    After the harvest the memo keys the query minted go to the warm-key
+    journal (caching/executable_cache.py ``flush_warm_keys``; nothing is
+    written when no key is new)."""
     listeners.query_created(QueryCreatedEvent(qid, sql, user))
     rec = rt.query_started(qid, sql, user)
     tm.QUERIES_STARTED.inc()
@@ -633,6 +634,9 @@ def run_with_query_events(qid: str, sql: str, user: str,
         # the rings' events move into the bounded per-query profile store
         # before the rings can wrap
         profiler.harvest(qid)
+        # the warm-key journal: persist the memo keys this query minted so
+        # a worker booted later can re-instantiate them
+        executable_cache.flush_warm_keys()
         profiler.apply_context(prof_ctx)
         listeners.query_completed(QueryCompletedEvent(
             qid, sql, state, user, wall, rows, error,

@@ -17,6 +17,12 @@ on carries an :class:`ErrorCode` whose :class:`ErrorType` decides
 - ``INSUFFICIENT_RESOURCES``  memory/admission pressure; retryable (the FTE
                               scheduler grows the memory budget on retry).
 
+One INTERNAL code is the port's own and never retries: ``DEVICE_FAULT``,
+a CUDA error or a kernel library that did not build, bind or launch.  A
+CUDA error is sticky in its process (every later launch there fails too)
+and a library that did not build does not build on a re-run, so a retry
+would only hide the fault behind a second failure or a slow success.
+
 ``classify()`` maps arbitrary exceptions onto :class:`TrinoError` so the
 worker can report ``error_type`` in its status JSON and the coordinator's
 ``retry_policy="QUERY"`` loop can decide fail-fast vs re-run without parsing
@@ -38,8 +44,8 @@ __all__ = [
     "REMOTE_HOST_GONE", "PAGE_TRANSPORT_TIMEOUT", "PAGE_TRANSPORT_ERROR",
     "EXCEEDED_MEMORY_LIMIT_CODE", "NO_NODES_AVAILABLE",
     "QUERY_QUEUE_FULL", "QUERY_QUEUED_TIMEOUT", "CLUSTER_OUT_OF_MEMORY",
-    "EXCEEDED_GLOBAL_MEMORY_LIMIT",
-    "classify", "is_retryable_type", "lookup_code",
+    "EXCEEDED_GLOBAL_MEMORY_LIMIT", "DEVICE_FAULT",
+    "classify", "is_device_fault", "is_retryable_type", "lookup_code",
 ]
 
 USER = "USER"
@@ -69,7 +75,7 @@ class ErrorCode:
     error_type: str
 
     def is_retryable(self) -> bool:
-        return is_retryable_type(self.error_type)
+        return self != DEVICE_FAULT and is_retryable_type(self.error_type)
 
 
 GENERIC_USER_ERROR = ErrorCode("GENERIC_USER_ERROR", 0x0000, USER)
@@ -85,6 +91,9 @@ SUBQUERY_MULTIPLE_ROWS = ErrorCode("SUBQUERY_MULTIPLE_ROWS", 0x0019, USER)
 QUERY_QUEUE_FULL = ErrorCode("QUERY_QUEUE_FULL", 0x0009, USER)
 QUERY_QUEUED_TIMEOUT = ErrorCode("QUERY_QUEUED_TIMEOUT", 0x000A, USER)
 GENERIC_INTERNAL_ERROR = ErrorCode("GENERIC_INTERNAL_ERROR", 0x1_0000, INTERNAL)
+# a CUDA error or a kernel library that did not build, bind or launch
+# (ops/gpu_kernels.py); INTERNAL, but never retried (module docstring)
+DEVICE_FAULT = ErrorCode("DEVICE_FAULT", 0x1_0001, INTERNAL)
 EXCEEDED_MEMORY_LIMIT_CODE = ErrorCode(
     "EXCEEDED_LOCAL_MEMORY_LIMIT", 0x2_0000, INSUFFICIENT_RESOURCES)
 NO_NODES_AVAILABLE = ErrorCode(
@@ -106,8 +115,8 @@ REMOTE_HOST_GONE = ErrorCode("REMOTE_HOST_GONE", 0x3_0003, EXTERNAL)
 _CODES = {c.name: c for c in (
     GENERIC_USER_ERROR, SYNTAX_ERROR, DIVISION_BY_ZERO,
     SUBQUERY_MULTIPLE_ROWS, QUERY_QUEUE_FULL, QUERY_QUEUED_TIMEOUT,
-    GENERIC_INTERNAL_ERROR, EXCEEDED_MEMORY_LIMIT_CODE, NO_NODES_AVAILABLE,
-    CLUSTER_OUT_OF_MEMORY, EXCEEDED_GLOBAL_MEMORY_LIMIT,
+    GENERIC_INTERNAL_ERROR, DEVICE_FAULT, EXCEEDED_MEMORY_LIMIT_CODE,
+    NO_NODES_AVAILABLE, CLUSTER_OUT_OF_MEMORY, EXCEEDED_GLOBAL_MEMORY_LIMIT,
     REMOTE_TASK_ERROR, PAGE_TRANSPORT_ERROR, PAGE_TRANSPORT_TIMEOUT,
     REMOTE_HOST_GONE,
 )}
@@ -158,6 +167,24 @@ _USER_ERROR_CLASS_NAMES = frozenset({
     "PatternSyntaxError",  # exec/row_pattern.py MATCH_RECOGNIZE pattern text
 })
 _NETWORK_ERROR_TYPES = (ConnectionError, TimeoutError)
+# what torch and the kernel library (ops/gpu_kernels.py) raise for a fault
+# of the card or of the library, matched by class name and message so the
+# SPI does not import torch
+_DEVICE_ERROR_CLASS_NAMES = frozenset({"AcceleratorError", "OutOfMemoryError"})
+_DEVICE_ERROR_TEXT = ("CUDA error", "CUDA driver error", "CUDA out of memory",
+                      "device-side assert", "the kernel library",
+                      "libtrino_kernels", "nvcc")
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """A CUDA error, or a kernel library that did not build (the failed
+    nvcc command is in the message), bind or launch."""
+    if isinstance(exc, TrinoError):
+        return exc.code is DEVICE_FAULT
+    if type(exc).__name__ in _DEVICE_ERROR_CLASS_NAMES:
+        return True
+    text = str(exc)
+    return any(t in text for t in _DEVICE_ERROR_TEXT)
 
 
 def classify(exc: BaseException) -> TrinoError:
@@ -171,6 +198,8 @@ def classify(exc: BaseException) -> TrinoError:
     from .memory import ExceededMemoryLimitError
 
     msg = f"{type(exc).__name__}: {exc}"
+    if is_device_fault(exc):
+        return TrinoError(DEVICE_FAULT, msg)
     if isinstance(exc, ExceededMemoryLimitError):
         return TrinoError(EXCEEDED_MEMORY_LIMIT_CODE, msg)
     name = type(exc).__name__

@@ -81,6 +81,9 @@ _DECLARATIONS = (
          "but out of the registry and its counters."),
     Knob("TRINO_TPU_EXEC_CACHE_ENTRIES", "int", "256",
          "LRU capacity (entries) of each registered executable memo."),
+    Knob("TRINO_TPU_EXEC_WARM", "bool", "1",
+         "Replay exec_warm.json (journaled executable memo keys) on the "
+         "worker boot path."),
     Knob("TRINO_TPU_FUSED_CAP", "int", "8192",
          "Fused-stage carried-state capacity (groups per task); overflow "
          "re-runs the query on the per-operator path."),
