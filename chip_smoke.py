@@ -4,7 +4,7 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the final line; they run in
-the order 1-5, 7, 8, 10-23, 6, 9, so the kernel phase holds the staged,
+the order 1-5, 7, 8, 10-24, 6, 9, so the kernel phase holds the staged,
 surface, window, nested, parallel, distributed, compiled,
 fault-tolerant and serving paths' calls too; every phase but 21 runs with
 TRINO_TPU_HBO=0 and TRINO_TPU_ADAPTIVE=0).  The
@@ -72,7 +72,8 @@ default optimizer, the iterative one:
      optimizer="legacy" and optimizer="iterative": whether the plans are
      identical, rows equal (phase 8's tolerances), planning ms (median of
      5 create_plan calls) and warm ms per mode; the tpch path's planning
-     ms per mode and with the lineitem row count recomputed per call; and
+     ms of the subset per mode and with the lineitem row count recomputed
+     per call; and
      EXPLAIN ANALYZE of Q3 and Q21 on the card;
  11. surface: the twelve queries of connectors/surface_queries.py (set
      operations, grouping sets, RIGHT / FULL joins, scalar and statistical
@@ -172,7 +173,7 @@ default optimizer, the iterative one:
      TRINO_TPU_RESIDENT_PLAN=0), the per-operator path PR 15 measured.
      Its launches are ``launches_distributed``;
  20. compiled: the distributed runner at its defaults, fused seams and
-     resident plans on (``compiled()``): twelve of the 16 queries that
+     resident plans on (``compiled()``): nine of the 16 queries that
      carry one (COMPILED_QUERIES),
      cold and warm, rows equal phase 3's, per query the seams, plans,
      fallbacks with their reasons, batches, program calls, first calls
@@ -210,7 +211,21 @@ default optimizer, the iterative one:
      then on).  Zero hangs, zero unexpected outcomes, hash_insert
      launched in every chaos run.  Its launches ((a)-(c): in this
      process, the workers' /v1/info, the drill's coordinators) are
-     ``launches_chaos``.
+     ``launches_chaos``;
+ 24. ha: the HA coordinator fleet at SF 1 (``ha()``): (a) the takeover
+     drill over the mix's join, two coordinator processes on the card
+     with leases and watchers, A killed -9 with a committed attempt and
+     B claiming its lease and WAL directory and finishing the query (no
+     committed attempt re-executed, nothing claimed before the kill, rows
+     equal the oracle's, hash_insert launched by B after the kill); (b)
+     Q3, Q12 and R1 through a front tier over two statement servers of
+     one distributed runner (the per-operator path of phase 19), each on
+     its rendezvous owner with phase 3's rows, launching the three
+     kernels, a disowned query rerouted and system.runtime.coordinators
+     listing both; (c) the worker autoscaler growing a one-process fleet
+     to two under queue pressure (Q3 launches hash_insert in the new
+     worker) and draining it back to one while a Q3 is in flight.  Its
+     launches are ``launches_ha``.
 It prints the card line and one JSON line of kernels, and ends with
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1068,7 +1083,8 @@ def optimizers(torch, StandaloneQueryRunner, staged_cat, tpch_catalog,
     """Phase 10: every query over the staged tables under the legacy and
     the iterative optimizer: plans compared, rows equal, planning ms (the
     median of 5 create_plan calls) and warm ms per mode; then the tpch
-    path's planning ms per mode, with the lineitem row count memoized and
+    path's planning ms of CAPTURE_QUERIES per mode, with the lineitem row
+    count memoized and
     recomputed on every statistics call as it was before
     (tools/planning_ms.py); then EXPLAIN ANALYZE of Q3 and Q21 on the
     card."""
@@ -1102,8 +1118,8 @@ def optimizers(torch, StandaloneQueryRunner, staged_cat, tpch_catalog,
             f"warm ms legacy {out['legacy'][3]:.1f}, iterative "
             f"{out['iterative'][3]:.1f}")
     log(f"optimizers: {same_plans} of {len(sqls)} plans identical")
-    for name, sql in sqls.items():
-        ms = planning_ms(tpch_catalog, sql)
+    for name in CAPTURE_QUERIES:  # the 24 cut to the subset for phase 24
+        ms = planning_ms(tpch_catalog, sqls[name])
         log(f"planning tpch SF{PATH_SF:g} {name}: legacy {ms['legacy']:.2f}"
             f" ms ({ms['legacy_recomputed']:.2f} recomputing the lineitem "
             f"row count per statistics call), iterative "
@@ -3032,8 +3048,8 @@ DIST_WORKERS = 4
 # phase 20)
 DIST_TURNS = ("Q1",)  # Q3 cut for phase 23
 # the four slowest of (a) apart from Q21 (phase 6's capture), cut for
-# phase 23
-DIST_CUT = ("Q9", "Q10", "Q20", "Q22")
+# phase 23; Q18 and Q21 (phase 6 still captures Q21) cut for phase 24
+DIST_CUT = ("Q9", "Q10", "Q20", "Q22", "Q18", "Q21")
 DIST_SERDE = ("Q3",)  # Q18 cut to keep the run within its time limit
 # through the MERGE exchange: a small result (the producers' streams merged
 # on the host) and one past MergeSourceOperator.MERGE_ROW_LIMIT (sorted
@@ -3322,17 +3338,17 @@ def distributed(torch, GK, default_catalog, tpch_runner, sqls: dict,
 
 # the queries whose plan at four tasks carries a fused seam or a resident
 # plan (Q2, Q3, Q10, Q11)
-# Q10, Q15, Q17 and Q20 (four of the seven that fall back) cut for phase 23
-COMPILED_QUERIES = ("Q1", "Q2", "Q3", "Q4", "Q5", "Q9", "Q11", "Q13", "Q18",
-                    "Q21", "R1", "R2")
+# Q10, Q15, Q17 and Q20 (four of the seven that fall back) cut for phase
+# 23; Q9, Q18 (a fallback) and Q21 cut for phase 24
+COMPILED_QUERIES = ("Q1", "Q2", "Q3", "Q4", "Q5", "Q11", "Q13", "R1", "R2")
 COMPILED_PROFILED = ("Q1", "Q3")  # launches per accumulate call
 COMPILED_SYNC = ("Q3",)  # under SG.forbidden(cuda_sync_debug=True)
 # default / =0 / =0 / default (Q10 cut to make room for phase 22)
 COMPILED_TURNS = ("Q1",)  # Q3 cut for phase 23
 # the queries that fall back run cold only (cut to make room for phase 22)
-COMPILED_COLD_ONLY = ("Q2", "Q13", "Q18",
+COMPILED_COLD_ONLY = ("Q2", "Q13",
                       # cut for phase 23: warm only Q1 and Q3
-                      "Q4", "Q5", "Q9", "Q11", "Q21", "R1", "R2")
+                      "Q4", "Q5", "Q11", "R1", "R2")
 COMPILED_CAPTURE = ("Q1", "Q3")  # phase 6's "compiled" cases
 COMPILED_REQUIRED = ("hash_insert", "hash_probe")
 COMPILED_OFF = (("TRINO_TPU_FUSED_STAGE", "0"),
@@ -3440,7 +3456,7 @@ def compiled(torch, GK, default_catalog, sqls: dict, path_rows: dict,
     """Phase 20: the compiled stages on the card, SF 1 over the tpch
     connector, DistributedQueryRunner(worker_count=4) at the default knobs
     (fused seams and resident plans on, TRINO_TPU_FUSED_CAP 8192).  (a)
-    The queries of COMPILED_QUERIES, twelve of the 16 whose plan carries
+    The queries of COMPILED_QUERIES, nine of the 16 whose plan carries
     a fused seam or a resident plan,
     cold and warm (COMPILED_COLD_ONLY cold only): rows equal phase 3's;
     per query the fused seams,
@@ -4961,6 +4977,293 @@ def chaos(torch, GK, sqls: dict, path_rows: dict, smi: str, served: dict,
     return launches
 
 
+HA_FLEET = ("coord-a", "coord-b")  # tests/test_ha.py's fleet fixture
+HA_TIER_QUERIES = ("Q3", "Q12", "R1")
+HA_REQUIRED = {"drill": ("hash_insert",), "Q3": ("hash_insert",),
+               "Q12": ("hash_probe",), "R1": ("masked_segment_sum_f32",),
+               "autoscaled": ("hash_insert",)}
+HA_AUTOSCALE_QUERY = "Q3"
+HA_IDLE_ROUNDS = 2  # pressure-free rounds before the autoscaler drains
+HA_WAIT_S = 120.0  # every wait of the phase
+
+
+def _tier_statement(tier, sql: str) -> tuple:
+    """POST ``sql`` through the front tier and follow nextUri through it:
+    (query id, final state, rows)."""
+    import urllib.request
+
+    host, port = tier.address
+    req = urllib.request.Request(f"http://{host}:{port}/v1/statement",
+                                 data=sql.encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=SERVE_CLIENT_S) as resp:
+        out = json.load(resp)
+    qid, rows = out["id"], list(out.get("data", []))
+    deadline = time.monotonic() + SERVE_CLIENT_S
+    while True:
+        state, nxt = out["stats"]["state"], out.get("nextUri")
+        if state == "FAILED" or (state == "FINISHED" and not nxt):
+            return qid, state, rows
+        if time.monotonic() > deadline:
+            raise AssertionError(f"ha tier {qid}: still {state}")
+        if state != "FINISHED":
+            time.sleep(0.05)
+        with urllib.request.urlopen(f"http://{host}:{port}{nxt}",
+                                    timeout=SERVE_CLIENT_S) as resp:
+            out = json.load(resp)
+        rows += out.get("data", [])
+
+
+def ha(torch, GK, sqls: dict, path_rows: dict, smi: str, expected: dict,
+       device: str = "cuda", required: dict = HA_REQUIRED) -> dict:
+    """Phase 24: the HA coordinator fleet at SF 1 (execution/ha.py,
+    server/front_tier.py).  (a) the takeover drill
+    (``chaos.run_ha_takeover_drill``) over the mix's join: coordinators A
+    and B, each a process with its own CUDA context, lease and watcher;
+    A is killed -9 with a committed attempt, B claims A's expired lease,
+    takes custody of its WAL directory and finishes the query under its
+    id: no committed attempt re-executed, nothing claimed before the
+    kill, rows equal the sqlite oracle's (``expected``, phase 23's), and B
+    launches hash_insert after the kill.  (b) the front tier: two
+    statement servers over one DistributedQueryRunner on ``device``, each
+    with a lease in a fleet directory (tests/test_ha.py's fleet), on the
+    per-operator path of phase 19; Q3, Q12 and R1 POSTed through a
+    FrontTier land on their rendezvous owners with phase 3's rows (as
+    phase 19's) and launch hash_insert, hash_probe and the segment sum; a
+    query one owner disowns is rerouted (``trino_ha_reroutes_total``
+    moves); ``system.runtime.coordinators`` lists both.  (c) the worker
+    autoscaler over a ProcessDistributedQueryRunner of one worker
+    process: one round of queue pressure grows it to two, Q3 launches
+    hash_insert in the new worker (``/v1/info``), and after
+    HA_IDLE_ROUNDS rounds without pressure it drains back to one while a
+    Q3 is in flight, which still returns phase 3's rows.  Returns the
+    launches of (a)-(c): the drill's coordinators, this process, the
+    workers."""
+    t_phase = time.perf_counter()
+    import threading
+    import urllib.request
+
+    from trino_tpu_torch.connectors.catalog import default_catalog
+    from trino_tpu_torch.execution import ha as HA
+    from trino_tpu_torch.execution.distributed_runner import (
+        DistributedQueryRunner)
+    from trino_tpu_torch.execution.remote import ProcessDistributedQueryRunner
+    from trino_tpu_torch.runner import Session
+    from trino_tpu_torch.server import Client, TrinoTpuServer
+    from trino_tpu_torch.server.front_tier import FrontTier
+    from trino_tpu_torch.telemetry import metrics as tm
+    from trino_tpu_torch.testing import chaos as C
+
+    base_dir = tempfile.mkdtemp(prefix="chip-smoke-p24-", dir="build")
+    launches = {k: 0 for k in SOURCES}
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            launches[k] += n
+
+    def need(what: str, counts: dict, kernels) -> None:
+        for k in kernels:
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"ha {what}: no {k} launched: {counts}")
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_env_scope("TRINO_TPU_SPOOL_DIR",
+                                       os.path.join(base_dir, "spool"))())
+        stack.enter_context(_env_scope("TRINO_TPU_QUERY_STATE_DIR",
+                                       os.path.join(base_dir, "state"))())
+        stack.callback(shutil.rmtree, base_dir, True)
+
+        # -- (a) kill -9 of one fleet member, a peer's takeover ------------
+        t0 = time.perf_counter()
+        sql = C.QUERY_MIX[CHAOS_DRILL]
+        rec = C.run_ha_takeover_drill(
+            workdir=os.path.join(base_dir, "drill"), device=device,
+            scale_factor=CHAOS_SF, sql=sql, boot_timeout_s=HA_WAIT_S * 2,
+            finish_timeout_s=HA_WAIT_S * 2)
+        if not (rec["pass"] and rec["committed_at_kill"] >= 1
+                and rec["committed_reexecuted"] == {}
+                and rec["claimed_dirs"] and rec["wal_ended"] == "FINISHED"
+                and rec["lease_a_gone"] and not rec["claimed_before_kill"]):
+            raise AssertionError(f"ha drill: {rec}")
+        if _chaos_rows(rec["rows"]) != _chaos_rows(expected[sql]):
+            raise AssertionError(f"ha drill rows {rec['rows']} != "
+                                 f"{expected[sql]}")
+        need("drill (coordinator B after the kill)",
+             rec["launches_b_after_kill"], required.get("drill", ()))
+        add(rec["launches_a"])
+        add(rec["launches_b"])
+        log(f"ha drill ({smi}): coordinators A and B booted at once, up in "
+            f"{rec['boot_a_s']:.1f} s and {rec['boot_b_s']:.1f} s; first "
+            f"commit on A {rec['first_commit_s']} s after the POST, "
+            f"{rec['committed_at_kill']} committed attempt(s) at the kill "
+            f"-9; nothing claimed before it ({rec['claimed_before_kill']}); "
+            f"A's longest gap between lease writes "
+            f"{rec['lease_a_max_gap_s']:.3f} s, its lease "
+            f"{rec['lease_a_age_at_kill_s']:.3f} s old at the kill (TTL "
+            f"{rec['lease_ttl_s']} s, heartbeat {rec['heartbeat_s']} s); "
+            f"B took over "
+            f"{rec['takeovers_b']} and finished {rec['query_id']} "
+            f"{rec['takeover_s']} s after the kill; claimed "
+            f"{rec['claimed_dirs']}; committed re-executed "
+            f"{rec['committed_reexecuted']}; rows equal the oracle's; "
+            f"launches A {rec['launches_a']}, B {rec['launches_b']} (after "
+            f"the kill {rec['launches_b_after_kill']}); "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # -- (b) the front tier over a two-coordinator fleet ---------------
+        t0 = time.perf_counter()
+        root = os.path.join(base_dir, "fleet")
+        with _compiled_off(), contextlib.ExitStack() as members:
+            runner = DistributedQueryRunner(
+                default_catalog(PATH_SF), worker_count=SERVE_WORKERS,
+                session=Session(node_count=SERVE_WORKERS), device=device)
+            servers = {}
+            for nid in HA_FLEET:
+                srv = TrinoTpuServer(runner).start()
+                members.callback(srv.stop)
+                host, port = srv.address
+                lease = HA.CoordinatorLease(
+                    nid, url=f"http://{host}:{port}", root=root, ttl=30.0,
+                    interval=60.0).register()
+                members.callback(lease.release)
+                servers[nid] = srv
+            tier = FrontTier(root=root, ttl=30.0, retry_s=2.0).start()
+            members.callback(tier.stop)
+            for name in HA_TIER_QUERIES:
+                before = dict(GK.LAUNCHES)
+                t1 = time.perf_counter()
+                qid, state, rows = _tier_statement(tier, sqls[name])
+                ms = (time.perf_counter() - t1) * 1e3
+                counts = {k: GK.LAUNCHES[k] - before[k] for k in SOURCES}
+                owner = HA.owner_of(qid, list(HA_FLEET))
+                landed = [n for n, s in servers.items()
+                          if s.dispatcher.get(qid) is not None]
+                if state != "FINISHED" or landed != [owner]:
+                    raise AssertionError(f"ha tier {name}: {state}, owner "
+                                         f"{owner}, landed on {landed}")
+                rtol = (REAL_PARITY_RTOL if name in REAL_QUERIES
+                        else DOUBLE_RTOL)
+                worst = _same_dist(rows, _json_rows(path_rows[name]),
+                                   sqls[name], f"ha tier {name}", rtol)
+                need(f"tier {name}", counts, required.get(name, ()))
+                add(counts)
+                log(f"ha tier {name} ({smi}): query {qid} landed on its "
+                    f"owner {owner}; {len(rows)} rows equal phase 3's "
+                    f"(largest float rel diff {worst:.3g}); {ms:.1f} ms "
+                    f"through the tier; launches {counts}")
+            for probe in range(1000):  # a qid whose hash owner is coord-b
+                qid = f"p24reroute{probe:04d}"
+                if HA.owner_of(qid, list(HA_FLEET)) == HA_FLEET[1]:
+                    break
+            q = servers[HA_FLEET[0]].dispatcher.submit(
+                "select count(*) from region", qid=qid)
+            if not q.done.wait(HA_WAIT_S):
+                raise AssertionError("ha reroute: the query never finished")
+            reroutes = tm.HA_REROUTES.value()
+            host, port = tier.address
+            with urllib.request.urlopen(
+                    f"http://{host}:{port}/v1/statement/{qid}/0",
+                    timeout=SERVE_CLIENT_S) as resp:
+                out = json.load(resp)
+            moved = tm.HA_REROUTES.value() - reroutes
+            if out["stats"]["state"] != "FINISHED" or \
+                    out.get("data") != [[5]] or moved != 1:
+                raise AssertionError(f"ha reroute: {out}, reroutes {moved}")
+            with _env_scope("TRINO_TPU_HA", "1")(), \
+                    _env_scope("TRINO_TPU_HA_DIR", root)(), \
+                    _env_scope("TRINO_TPU_HA_LEASE_TTL_S", "30")():
+                coords = runner.execute(
+                    "select coordinator, state, url from "
+                    "system.runtime.coordinators order by coordinator"
+                ).rows()
+            urls = {n: "http://%s:%d" % s.address for n, s in servers.items()}
+            if coords != [(n, "ACTIVE", urls[n]) for n in HA_FLEET]:
+                raise AssertionError(f"ha coordinators table: {coords}")
+        log(f"ha tier: a query on {HA_FLEET[0]} whose hash owner is "
+            f"{HA_FLEET[1]} rerouted ({moved} reroute); "
+            f"system.runtime.coordinators {coords}; "
+            f"{time.perf_counter() - t0:.1f} s for (b)")
+        del runner, servers
+
+        # -- (c) the worker autoscaler over worker processes ---------------
+        t0 = time.perf_counter()
+        name = HA_AUTOSCALE_QUERY
+        fleet = ProcessDistributedQueryRunner(
+            C.catalog_spec(CHAOS_SF), worker_count=1, device=device,
+            session=Session(node_count=1, retry_policy="QUERY"))
+        stack.callback(fleet.close)
+        boot_s = [round(w.boot_s, 2) for w in fleet.workers]
+        server = TrinoTpuServer(fleet).start()
+        stack.callback(server.stop)
+        host, port = server.address
+        scaler = HA.WorkerAutoscaler(fleet, min_workers=1, max_workers=2,
+                                     idle_rounds=HA_IDLE_ROUNDS,
+                                     interval_s=3600.0)
+        pressure = scaler.queue_s + 1.0
+        t1 = time.perf_counter()
+        if scaler.step(queued_delta_s=pressure) != "up" or \
+                scaler.worker_count() != 2:
+            raise AssertionError(f"ha autoscale up: {scaler.events}")
+        up_s = time.perf_counter() - t1
+        new = fleet.workers[-1]
+        boot_s.append(round(new.boot_s, 2))
+        before = _fleet_launches(fleet)
+        t1 = time.perf_counter()
+        _cols, rows = Client(host, port, timeout=SERVE_CLIENT_S).execute(
+            sqls[name])
+        ms = (time.perf_counter() - t1) * 1e3
+        after = _fleet_launches(fleet)
+        in_new = _launch_delta({new.url: before.get(new.url, {})},
+                               {new.url: after[new.url]})
+        need(f"autoscaled {name} (the new worker)", in_new,
+             required.get("autoscaled", ()))
+        add(_launch_delta(before, after))
+        _same_dist(rows, _json_rows(path_rows[name]), sqls[name],
+                   f"ha autoscaled {name}", DOUBLE_RTOL)
+        # the drain: pressure-free rounds while a query is in flight
+        retries = fleet.resilience.query_retries
+        before = _fleet_launches(fleet)
+        result: dict = {}
+
+        def run():
+            try:
+                result["rows"] = Client(host, port, timeout=SERVE_CLIENT_S
+                                        ).execute(sqls[name])[1]
+            except Exception as e:  # noqa: BLE001 — reported below
+                result["error"] = e
+
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        t1 = time.perf_counter()
+        steps = [scaler.step(queued_delta_s=0.0)
+                 for _ in range(HA_IDLE_ROUNDS)]
+        down_s = time.perf_counter() - t1
+        th.join(SERVE_CLIENT_S)
+        if steps[-1] != "down" or scaler.worker_count() != 1 or \
+                len(fleet.workers) != 1:
+            raise AssertionError(f"ha autoscale down: {steps}, "
+                                 f"{scaler.events}")
+        if "rows" not in result:
+            raise AssertionError(f"ha autoscale: the query in flight "
+                                 f"during the drain was lost: {result}")
+        _same_dist(result["rows"], _json_rows(path_rows[name]), sqls[name],
+                   f"ha drained {name}", DOUBLE_RTOL)
+        add(_launch_delta(before, _fleet_launches(fleet)))
+        log(f"ha autoscale ({smi}): one worker process up in "
+            f"{boot_s[0]} s; one round of queue pressure ({pressure:g} s "
+            f"queued) grew the fleet to two in {up_s:.1f} s (the new "
+            f"worker booted in {boot_s[1]} s); {name} through the server "
+            f"{ms:.1f} ms, rows equal phase 3's, launches in the new "
+            f"worker {in_new}; {HA_IDLE_ROUNDS} pressure-free rounds "
+            f"{steps} drained it back to one in {down_s:.1f} s while a "
+            f"{name} was in flight, which returned phase 3's rows "
+            f"({fleet.resilience.query_retries - retries} query retries); "
+            f"events {scaler.events}; {time.perf_counter() - t0:.1f} s "
+            "for (c)")
+    log(f"ha launches ((a)-(c)): {launches}")
+    log(f"ha: {time.perf_counter() - t_phase:.1f} s for phase 24")
+    return launches
+
+
 def kernel_cases(torch, GK, captured) -> list:
     """(kernel, label, args): the path's shapes, then per kernel the
     largest call of the staged path."""
@@ -5322,9 +5625,14 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
     progress("22 (serving)")
 
     # -- 23. the chaos harness, plugins, the warm-key journal --------------
+    expected = oracle.result()
     chaos_launches = chaos(torch, GK, sqls, path_rows, smi,
-                           expected=oracle.result(), served=served)
+                           expected=expected, served=served)
     progress("23 (chaos)")
+
+    # -- 24. the HA coordinator fleet: takeover, front tier, autoscaler ----
+    ha_launches = ha(torch, GK, sqls, path_rows, smi, expected[0])
+    progress("24 (ha)")
 
     # -- 6. kernels vs plain versions at the paths' shapes ------------------
     # One more run per query records every wrapper call's arguments; it is
@@ -5409,6 +5717,7 @@ def _main(torch, GK, result_cache, executing, smi, kind, sqls,
             "launches_adaptive": adaptive_launches[kernel],
             "launches_serving": serving_launches[kernel],
             "launches_chaos": chaos_launches[kernel],
+            "launches_ha": ha_launches[kernel],
             "max_abs_err": res["err"], "ms": res["ms"],
             "kernels_alone_ms": res["alone_ms"],
             "device_ms": res["device_ms"],

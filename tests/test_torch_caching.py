@@ -405,6 +405,33 @@ def test_identity_keyed_memo_keeps_no_dictionary_alive(name):
     assert row["entries"] == entries0
 
 
+def test_a_finalizer_inside_the_caches_lock_does_not_deadlock():
+    """The garbage collector may run a weak entry's finalizer on a thread
+    that holds the cache's lock (inside ``put``'s insertion, when an
+    allocation triggers a collection): the finalizer must not wait for
+    that lock.  The entry goes when the lock is let go."""
+    import threading
+
+    cache = executable_cache.BoundedCache("test.finalizer", 4)
+    cache.put("a", 1)
+    cache.put("b", 2)
+    done = threading.Event()
+
+    def collect_inside_the_lock():
+        with cache._lock:
+            cache.discard("a")  # what the finalizer of "a" calls
+        done.set()
+
+    t = threading.Thread(target=collect_inside_the_lock, daemon=True)
+    t.start()
+    t.join(timeout=10)
+    assert done.is_set(), "the finalizer waited for its own thread's lock"
+    assert cache.stats()["entries"] == 1
+    assert cache.get("a") is None and cache.get("b") == 2
+    cache.discard("b")  # the lock is free: dropped at once
+    assert len(cache) == 0
+
+
 def test_exec_kill_switch_gives_bounded_unregistered_memos(monkeypatch):
     monkeypatch.setenv("TRINO_TPU_EXEC_CACHE", "0")
     name = f"test.off_{uuid.uuid4().hex[:8]}"

@@ -10,8 +10,9 @@ through a stand-in runner and injector.  Then the reference's tier-1
 gates on the port, on the CPU, each in a subprocess of its own with a
 timeout and its state under ``tmp_path``: the in-process chaos smoke
 (seeds 1009, 1010, five queries each, tests/test_chaos.py:319), the FTE
-smoke (seed 1515, :498) and the coordinator kill -9 drill
-(tests/test_query_state.py:216); every query accounted, zero hangs.  A
+smoke (seed 1515, :498), the coordinator kill -9 drill
+(tests/test_query_state.py:216) and the HA fleet's peer takeover drill
+(:267); every query accounted, zero hangs.  A
 device fault (a CUDA error, a kernel library that did not build) is
 unexpected and never retried.  Process-mode chaos and the two soaks are
 marked slow, as the reference marks its soak.
@@ -293,6 +294,31 @@ def test_self_heal_leaves_a_slot_a_drain_refilled():
     assert runner.resilience.worker_replacements == 0
 
 
+def test_self_heal_leaves_a_worker_the_autoscaler_removes():
+    """The autoscaler's scale-down drains a worker WITHOUT a replacement;
+    a query retry's self-heal that reads the drained worker as GONE
+    meanwhile must not respawn it (the fleet would not shrink) or take
+    it out of the list under remove_worker (which then failed with
+    list.remove on the card)."""
+    from trino_tpu_torch.execution.failure_detector import GONE
+
+    keep, leaving = _Worker("keep", True), _Worker("leaving", True)
+    runner = _fleet([keep, leaving])
+    runner.failure_detector.state_of = \
+        lambda url: GONE if url == "leaving" else "ACTIVE"
+
+    def drain(w, timeout_s=None, replace=True):
+        assert not replace
+        w._alive = False  # the drained worker exits ...
+        runner._replace_gone_workers()  # ... while a retry heals the fleet
+
+    runner.drain_worker = drain
+    assert runner.remove_worker() == "leaving"
+    assert runner.workers == [keep] and runner.spawned == []
+    assert runner.resilience.worker_replacements == 0
+    assert runner.resilience_events == [("scale", "leaving", "removed")]
+
+
 # ---------------------------------------------------------------------------
 # the reference's tier-1 gates, on the port, on the CPU
 
@@ -398,6 +424,35 @@ def test_coordinator_kill9_restart_resume(tmp_path):
         return sorted(out, key=str)
 
     assert norm(got) == norm(expected)
+
+
+def test_ha_peer_takeover_kill9(tmp_path):
+    """Coordinator A of a two-member fleet commits >=1 attempt and dies by
+    SIGKILL; peer B claims A's expired lease (an atomic rename), takes
+    custody of A's WAL directory and finishes the query under its
+    original id, with no committed attempt re-executed, polled the whole
+    time through B's statement surface (tests/test_query_state.py:267,
+    on the port's CPU path)."""
+    rec = chaos.run_ha_takeover_drill(
+        workdir=str(tmp_path), device="cpu", boot_timeout_s=120.0,
+        finish_timeout_s=120.0)
+    assert rec["state"] == "FINISHED", rec.get("error")
+    assert rec["committed_at_kill"] >= 1
+    assert rec["committed_reexecuted"] == {}, \
+        "committed attempts were re-executed after the takeover"
+    assert rec["claimed_dirs"], "B never took custody of A's WAL dir"
+    assert rec["wal_ended"] == "FINISHED"
+    assert rec["lease_a_gone"], "A's lease must leave the directory"
+    assert rec["pass"]
+    # the adopted query's rows are the drill aggregation (4 flag/status
+    # groups at sf=0.01)
+    assert len(rec["rows"]) == 4
+    # a takeover, not a deposition: nothing was claimed while A lived
+    assert rec["claimed_before_kill"] == [] and rec["lease_a_at_kill"]
+    assert rec["takeovers_b"] == ["coordA"]
+    assert rec["boot_a_s"] > 0 and rec["boot_b_s"] > 0
+    # CPU coordinators launch no kernel; the counts are published
+    assert rec["launches_b"] == {k: 0 for k in GK.LAUNCHES}
 
 
 # ---------------------------------------------------------------------------

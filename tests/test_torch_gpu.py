@@ -1198,3 +1198,28 @@ def test_worker_processes_launch_kernels_on_card(cuda, monkeypatch,
                     assert math.isclose(a, b, rel_tol=1e-4), (name, g, w)
                 else:
                     assert a == b, (name, g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sql", [
+    "select count(*) from region",
+    "select count(*), sum(n_nationkey) from nation where n_regionkey = 1"],
+    ids=["region", "nation"])
+def test_global_aggregation_over_a_task_without_split_on_card(
+        cuda, monkeypatch, sql):
+    """A small table gives one of two tasks no split: that task's PARTIAL
+    global aggregation emits its row of defaults, and the FINAL task on
+    the card takes it beside the other task's device batch (a host batch
+    there raised a device mismatch in torch.cat).  Rows equal the port's
+    CPU run of the same SQL at the same scale factor and worker count."""
+    from trino_tpu_torch.execution.distributed_runner import (
+        DistributedQueryRunner)
+    from trino_tpu_torch.runner import Session
+
+    monkeypatch.setenv("TRINO_TPU_FUSED_STAGE", "0")
+    monkeypatch.setenv("TRINO_TPU_RESIDENT_PLAN", "0")
+    rows = {dev: DistributedQueryRunner(
+        default_catalog(1.0), worker_count=2, session=Session(node_count=2),
+        device=dev).execute(sql).rows() for dev in ("cpu", "cuda")}
+    assert len(rows["cpu"]) == 1
+    assert rows["cuda"] == rows["cpu"]

@@ -58,9 +58,11 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "trino_tpu_torch.execution.resource_manager",
                    "trino_tpu_torch.execution.worker",
                    "trino_tpu_torch.execution.remote",
+                   "trino_tpu_torch.execution.ha",
                    "trino_tpu_torch.server",
                    "trino_tpu_torch.server.protocol",
                    "trino_tpu_torch.server.client",
+                   "trino_tpu_torch.server.front_tier",
                    "trino_tpu_torch.caching.plan_cache",
                    "trino_tpu_torch.caching.result_cache",
                    "trino_tpu_torch.plugin",

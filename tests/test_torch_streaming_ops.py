@@ -243,6 +243,32 @@ def test_partial_state_columns_and_empty_global_input():
         (None, None, None, None, 0, 0, None, None, None, None)]
 
 
+@pytest.mark.parametrize("grouped", [True, False])
+def test_a_result_without_input_is_built_on_the_task_device(grouped):
+    """A task that got no split hands its aggregation's result over no
+    input (a global one's row of defaults) to a consumer that concatenates
+    it with the other tasks' device batches, so it is built on the task's
+    device: the planner gives the operator its device and
+    split_aggregation's pair keeps it.  "meta" stands for the card here;
+    an operator given no device builds on the host."""
+    keys = [0] if grouped else []
+    names = ["k"] * grouped + [f"a{i}" for i in range(len(AGGS))]
+    types = [BIGINT] * grouped + [a.type for a in AGGS]
+    op = HashAggregationOperator(keys, AGGS, names, types, device="meta")
+    for o in (op, *split_aggregation(op)):
+        out = o._compute()
+        assert out.num_rows == (0 if grouped else 1)
+        assert {c.device.type for c in out.columns} == {"meta"}
+    host = HashAggregationOperator(keys, AGGS, names, types)._compute()
+    assert {c.device.type for c in host.columns} == {"cpu"}
+    runner = StandaloneQueryRunner(default_catalog(SF), device="cpu")
+    local = LocalPlanner(runner.catalog, "meta").plan(runner.create_plan(
+        "select count(*) from region"))
+    aggs = [o for p in local.pipelines for o in p
+            if isinstance(o, HashAggregationOperator)]
+    assert aggs and all(o.device == torch.device("meta") for o in aggs)
+
+
 def test_distinct_and_long_decimal_avg_do_not_split():
     from trino_tpu_torch.spi.types import DecimalType
 

@@ -1,6 +1,8 @@
 """The port's system connector and query journal held to the reference:
 the eight system tables have the reference's schemas and standalone
-contents, a journal written by either package is read by the other's
+contents, ``runtime.coordinators`` is the reference's on a distributed
+runner, under ``TRINO_TPU_HA_NODE_ID`` and over an HA fleet directory, a
+journal written by either package is read by the other's
 ``system.runtime.query_history`` with equal rows, and the journal's
 rotation, torn-tail handling and kill switch behave as in
 tests/test_journal.py.  Every run gets fresh caches and a journal in
@@ -8,6 +10,7 @@ tests/test_journal.py.  Every run gets fresh caches and a journal in
 
 import json
 import os
+import time
 from collections import deque
 
 import pytest
@@ -15,6 +18,9 @@ import pytest
 from trino_tpu import caching as ref_caching
 from trino_tpu.connectors.catalog import default_catalog as ref_catalog
 from trino_tpu.connectors.system import SystemConnector as RefSystem
+from trino_tpu.execution.distributed_runner import (
+    DistributedQueryRunner as RefDistributed)
+from trino_tpu.runner import Session as RefSession
 from trino_tpu.runner import StandaloneQueryRunner as RefRunner
 from trino_tpu.telemetry import journal as ref_journal
 from trino_tpu.telemetry import runtime as ref_rt
@@ -22,7 +28,9 @@ from trino_tpu.telemetry import runtime as ref_rt
 from trino_tpu_torch import caching
 from trino_tpu_torch.connectors.catalog import default_catalog
 from trino_tpu_torch.connectors.system import SystemConnector
-from trino_tpu_torch.runner import StandaloneQueryRunner
+from trino_tpu_torch.execution.distributed_runner import (
+    DistributedQueryRunner)
+from trino_tpu_torch.runner import Session, StandaloneQueryRunner
 from trino_tpu_torch.spi.eventlistener import QueryCompletedEvent
 from trino_tpu_torch.telemetry import journal
 from trino_tpu_torch.telemetry import runtime as rt
@@ -108,6 +116,59 @@ def test_one_local_coordinator():
     (name,), = port.execute(
         "select coordinator from system.runtime.coordinators").rows()
     assert name.startswith("coord-") and name.endswith(f"-{os.getpid()}")
+
+
+COORDINATOR_SQL = ("select state, lease_age_ms, in_flight_queries, url "
+                   "from system.runtime.coordinators")
+
+
+def test_local_coordinator_counts_the_dispatchers_queries():
+    """On a distributed runner the statement itself is a dispatcher query
+    RUNNING on the one local coordinator: the reference counts it."""
+    port = DistributedQueryRunner(default_catalog(SF), worker_count=2,
+                                  session=Session(node_count=2),
+                                  device="cpu")
+    ref = RefDistributed(ref_catalog(SF), worker_count=2,
+                         session=RefSession(node_count=2))
+    assert port.execute(COORDINATOR_SQL).rows() == \
+        ref.execute(COORDINATOR_SQL).rows() == [("ACTIVE", 0.0, 1, "")]
+
+
+def test_local_coordinator_is_named_by_the_node_id(monkeypatch):
+    monkeypatch.setenv("TRINO_TPU_HA_NODE_ID", "coord-x")
+    port = StandaloneQueryRunner(default_catalog(SF), device="cpu")
+    ref = RefRunner(ref_catalog(SF))
+    sql = "select coordinator from system.runtime.coordinators"
+    assert port.execute(sql).rows() == ref.execute(sql).rows() == \
+        [("coord-x",)]
+
+
+def test_fleet_rows_are_the_references(tmp_path, monkeypatch):
+    """With TRINO_TPU_HA=1 and a fleet directory both packages list the
+    fleet's leases: the live one, the expired one, their in-flight counts
+    and urls."""
+    root = tmp_path / "ha" / "coordinators"
+    root.mkdir(parents=True)
+    now = time.time()
+    for nid, age_s, in_flight in (("coord-a", 0.0, 2), ("coord-b", 60.0, 0)):
+        with open(root / f"{nid}.json", "w", encoding="utf-8") as f:
+            json.dump({"node_id": nid, "url": f"http://{nid}:1", "pid": 1,
+                       "epoch": 1.0, "ts": now - age_s, "state": "ACTIVE",
+                       "in_flight": in_flight}, f)
+    monkeypatch.setenv("TRINO_TPU_HA", "1")
+    monkeypatch.setenv("TRINO_TPU_HA_DIR", str(tmp_path / "ha"))
+    monkeypatch.setenv("TRINO_TPU_HA_LEASE_TTL_S", "30")
+    sql = ("select coordinator, state, in_flight_queries, url, lease_age_ms "
+           "from system.runtime.coordinators order by coordinator")
+    port = StandaloneQueryRunner(default_catalog(SF), device="cpu")
+    ref = RefRunner(ref_catalog(SF))
+    got = port.execute(sql).rows()
+    want = ref.execute(sql).rows()
+    assert [r[:4] for r in got] == [r[:4] for r in want] == [
+        ("coord-a", "ACTIVE", 2, "http://coord-a:1"),
+        ("coord-b", "EXPIRED", 0, "http://coord-b:1")]
+    for g, w in zip(got, want):  # ages read a few ms apart
+        assert abs(g[4] - w[4]) < 5000.0
 
 
 def test_queries_table_sees_itself_running():

@@ -112,6 +112,11 @@ class BoundedCache:
         self._counted = counted
         self._entries: OrderedDict = OrderedDict()
         self._lock = threading.Lock()
+        # keys a weak entry's finalizer dropped: the garbage collector may
+        # run that finalizer inside a locked section of this cache on the
+        # same thread, so it only queues the key (list.append takes no
+        # lock) and the next holder of the lock removes it
+        self._dead: list = []
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -119,6 +124,7 @@ class BoundedCache:
     def get(self, key, default=None):
         """The value under ``key`` (a hit), or ``default`` (a miss)."""
         with self._lock:
+            self._drop_dead()
             value = self._entries.get(key, _MISSING)
             if value is not _MISSING:
                 self._entries.move_to_end(key)
@@ -135,25 +141,40 @@ class BoundedCache:
         """The value under ``key`` without counting a hit or a miss or
         refreshing its LRU place (for a read-modify-write)."""
         with self._lock:
+            self._drop_dead()
             return self._entries.get(key, default)
 
     def put(self, key, value) -> list:
         """Store ``value``; returns the values evicted to make room."""
         evicted = []
         with self._lock:
+            self._drop_dead()
             self._entries[key] = value
             self._entries.move_to_end(key)
             while len(self._entries) > self.maxsize:
                 evicted.append(self._entries.popitem(last=False)[1])
             self.evictions += len(evicted)
+            self._drop_dead()
         if evicted and self._counted:
             _metrics().CACHE_EXEC_EVICTIONS.inc(len(evicted))
         return evicted
 
     def discard(self, key) -> None:
-        """Drop ``key`` if present (not counted as an eviction)."""
-        with self._lock:
-            self._entries.pop(key, None)
+        """Drop ``key`` if present (not counted as an eviction): now when
+        the lock is free, else by the lock's holder before it lets go (it
+        may be this thread, inside a collection that ran the finalizer
+        calling this; waiting for the lock there never returns)."""
+        self._dead.append(key)
+        if self._lock.acquire(blocking=False):
+            try:
+                self._drop_dead()
+            finally:
+                self._lock.release()
+
+    def _drop_dead(self) -> None:
+        """Remove the queued keys (under the lock)."""
+        while self._dead:
+            self._entries.pop(self._dead.pop(), None)
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -161,12 +182,14 @@ class BoundedCache:
     def clear(self) -> list:
         """Drop every entry; returns their values."""
         with self._lock:
+            self._dead.clear()
             values = list(self._entries.values())
             self._entries.clear()
         return values
 
     def stats(self) -> dict:
         with self._lock:
+            self._drop_dead()
             return {
                 "tier": "exec", "name": self.name,
                 "entries": len(self._entries), "bytes": 0,

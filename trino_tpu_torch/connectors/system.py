@@ -18,8 +18,11 @@ query record covers.  A standalone runner has no dispatcher, worker fleet
 or coordinator fleet, so there those tables give what the reference's
 standalone runner gives: ``runtime.resource_groups`` and
 ``runtime.workers`` are empty.  ``runtime.tasks`` holds what the task
-registry holds, and ``runtime.coordinators`` is the one local
-coordinator (the HA fleet's table comes with the HA modules).
+registry holds.  ``runtime.coordinators`` is the HA fleet's lease
+directory (execution/ha.py) when ``TRINO_TPU_HA=1`` and
+``TRINO_TPU_HA_DIR`` are set, else the one local coordinator, named by
+``ha.node_id()`` (``TRINO_TPU_HA_NODE_ID`` when set) and counting the
+attached runner's dispatcher queries that are QUEUED or RUNNING.
 ``data_version`` is None for every table, so a system read is never
 result-cached.
 
@@ -35,8 +38,6 @@ Cookbook:
 
 from __future__ import annotations
 
-import os
-import socket
 import time
 import weakref
 from typing import Optional, Sequence
@@ -233,10 +234,7 @@ class SystemConnector(Connector):
                 for t in runtime.tasks()
             ]
         if table == "runtime.coordinators":
-            # the one local coordinator, named as the reference names it
-            # with HA off; nothing queued in front of it
-            return [(f"coord-{socket.gethostname()}-{os.getpid()}",
-                     "ACTIVE", 0.0, 0, "")]
+            return self._coordinator_rows()
         if table == "runtime.caches":
             from .. import caching
 
@@ -265,6 +263,26 @@ class SystemConnector(Connector):
 
     def _attached(self):
         return self._runner() if self._runner is not None else None
+
+    def _coordinator_rows(self) -> list[tuple]:
+        """The coordinator fleet from the HA lease directory.  With HA off
+        (or no fleet registered yet) the one local coordinator, named by
+        ``ha.node_id()``, with the attached runner's dispatcher queries
+        that are QUEUED or RUNNING (this statement's own among them)."""
+        from ..execution import ha
+
+        rows = []
+        if ha.ha_enabled() and ha.ha_dir():
+            rows = [(m.node_id, m.state, m.age_s * 1000.0, m.in_flight,
+                     m.url) for m in ha.read_members()]
+        if not rows:
+            dispatcher = getattr(self._attached(), "dispatcher", None)
+            running = 0
+            if dispatcher is not None:
+                running = sum(1 for i in dispatcher.queries()
+                              if i.state in ("QUEUED", "RUNNING"))
+            rows.append((ha.node_id(), "ACTIVE", 0.0, running, ""))
+        return rows
 
     def _worker_rows(self) -> list[tuple]:
         """Per-worker operational view: failure-detector state, cluster

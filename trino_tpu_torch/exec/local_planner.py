@@ -221,7 +221,7 @@ class LocalPlanner:
                 LocalExchangeSourceOperator(exch, j),
                 HashAggregationOperator(agg.group_keys, agg.aggs,
                                         agg.output_names, agg.output_types,
-                                        agg.step),
+                                        agg.step, self.device),
                 LocalExchangeSinkOperator(gather, j, agg.output_names)]))
         return chains + [tag([LocalExchangeSourceOperator(gather, 0)]
                              + rest[1:])]
@@ -313,7 +313,8 @@ class LocalPlanner:
             chain = self._chain(node.source)
             chain.append(HashAggregationOperator(
                 node.group_keys, node.aggregates,
-                node.output_names, node.output_types, node.step))
+                node.output_names, node.output_types, node.step,
+                self.device))
             return chain
 
         if isinstance(node, P.GroupId):

@@ -837,9 +837,9 @@ def split_aggregation(op: "HashAggregationOperator") -> Optional[tuple]:
             names.append(f"_s{i}_{j}")
             types.append(t)
     partial = HashAggregationOperator(op.group_keys, op.aggs, names, types,
-                                      "PARTIAL")
+                                      "PARTIAL", op.device)
     final = HashAggregationOperator(list(range(nk)), calls, op.output_names,
-                                    op.output_types, "FINAL")
+                                    op.output_types, "FINAL", op.device)
     return partial, final
 
 
@@ -875,7 +875,7 @@ class HashAggregationOperator(BufferedInputMixin, Operator):
 
     def __init__(self, group_keys: Sequence[int], aggs: Sequence[AggCall],
                  output_names: Sequence[str], output_types: Sequence[Type],
-                 step: str = "SINGLE"):
+                 step: str = "SINGLE", device=None):
         if step not in ("SINGLE", "PARTIAL", "FINAL"):
             raise ValueError(f"aggregation step {step}")
         self.group_keys = list(group_keys)
@@ -883,6 +883,8 @@ class HashAggregationOperator(BufferedInputMixin, Operator):
         self.output_names = list(output_names)
         self.output_types = list(output_types)
         self.step = step
+        # the task's device: where a result built without input lies
+        self.device = None if device is None else torch.device(device)
         self._batches: list[ColumnBatch] = []
         self._buffered_rows = 0
         self._flushed: list[ColumnBatch] = []
@@ -938,7 +940,7 @@ class HashAggregationOperator(BufferedInputMixin, Operator):
                     names.append(f"s{i}_{j}")
                     types.append(t)
             tmp = HashAggregationOperator(self.group_keys, self.aggs, names,
-                                          types, "PARTIAL")
+                                          types, "PARTIAL", self.device)
             tmp._batches = batches
             state = tmp._compute()
         if state.live is not None:
@@ -1000,7 +1002,8 @@ class HashAggregationOperator(BufferedInputMixin, Operator):
                 continue
             merger = HashAggregationOperator(list(range(nk)), calls,
                                              self.output_names,
-                                             self.output_types, "FINAL")
+                                             self.output_types, "FINAL",
+                                             self.device)
             merger._batches = batches
             out = merger._compute()
             if out.num_rows:
@@ -1040,6 +1043,12 @@ class HashAggregationOperator(BufferedInputMixin, Operator):
         self.release_memory()
 
     def _empty_result(self, nk: int) -> ColumnBatch:
+        """The result over no live input, on the task's device (a FINAL
+        task concatenates it with its other producers' batches)."""
+        out = self._empty_columns(nk)
+        return out if self.device is None else out.to(self.device)
+
+    def _empty_columns(self, nk: int) -> ColumnBatch:
         if nk:  # grouped agg over empty input -> empty result
             cols = [Column(t, np.empty(0, t.storage_dtype))
                     for t in self.output_types]

@@ -482,7 +482,7 @@ class ProcessDistributedQueryRunner(DistributedQueryRunner):
                 continue
             with self._fleet_lock:
                 if i >= len(self.workers) or self.workers[i] is not w:
-                    continue  # a drain replaced it meanwhile
+                    continue  # a drain replaced it or removes it
                 cap = self.session.get("max_worker_replacements")
                 if self._replacements_used >= cap:
                     self.resilience_events.append(
@@ -595,17 +595,21 @@ class ProcessDistributedQueryRunner(DistributedQueryRunner):
 
     def remove_worker(self, timeout_s: Optional[float] = None
                       ) -> Optional[str]:
-        """Shrink the fleet by one worker (autoscaler scale-down): drain
-        the last slot through the zero-loss shutdown protocol WITHOUT a
-        replacement, then drop it from the fleet.  Returns the removed
-        worker's url, or None when only one worker remains."""
-        live = [w for w in self.workers if w.alive()]
-        if len(live) <= 1:
-            return None
-        w = live[-1]
+        """Shrink the fleet by one worker (autoscaler scale-down): take
+        the last live worker out of the fleet, then drain it through the
+        zero-loss shutdown protocol WITHOUT a replacement.  Returns the
+        removed worker's url, or None when only one worker remains."""
+        with self._fleet_lock:
+            live = [w for w in self.workers if w.alive()]
+            if len(live) <= 1:
+                return None
+            w = live[-1]
+            # out of the fleet before its drain: its exit is the
+            # scale-down, and a query retry's self-heal finds no slot of
+            # it to refill
+            self.workers.remove(w)
         self.drain_worker(w, timeout_s=timeout_s, replace=False)
         self.failure_detector.unmonitor(w.url)
-        self.workers.remove(w)
         self.resilience_events.append(("scale", w.url, "removed"))
         return w.url
 

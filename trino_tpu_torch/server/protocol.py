@@ -59,6 +59,21 @@ class _Query:
         self.recovered = False  # rehydrated from the query-state WAL
 
 
+def _claimed_spool_roots() -> list:
+    """With the HA fleet on, the spool roots of the in-flight queries in
+    the WAL directories this node claimed from dead peers: their leases
+    name a dead pid, and the boot sweep must not reclaim them before
+    ``HACoordinator.start`` adopts the queries again.  Nothing with HA
+    off."""
+    from ..execution import ha, query_state
+
+    if not (ha.ha_enabled() and ha.ha_dir()):
+        return []
+    return [pq.spool_root
+            for d in ha.claimed_wal_dirs(ha.node_id())
+            for pq in query_state.pending(d) if pq.spool_root]
+
+
 class QueryDispatcher:
     """Admission + execution: a bounded pool of query slots (the stand-in
     for DispatchManager + resource groups).  At boot it also runs
@@ -92,6 +107,7 @@ class QueryDispatcher:
         for pq in pending:
             if self.adopt(pq) and pq.spool_root:
                 keep.append(pq.spool_root)
+        keep.extend(_claimed_spool_roots())
         try:
             query_state.prune_ended()
             # roots under recovery are pinned; everything else follows
@@ -388,6 +404,9 @@ class TrinoTpuServer:
                        {"dispatcher": self.dispatcher})
         self.httpd = ThreadingHTTPServer((host, port), handler)
         self._thread: Optional[threading.Thread] = None
+        # TRINO_TPU_AUTOSCALE=1: the elastic worker fleet's controller
+        # (execution/ha.WorkerAutoscaler), running while the server does
+        self.autoscaler = None
 
     @property
     def address(self) -> tuple[str, int]:
@@ -398,9 +417,29 @@ class TrinoTpuServer:
             target=self.httpd.serve_forever, name="trino-tpu-http",
             daemon=True)
         self._thread.start()
+        self._start_autoscaler()
         return self
 
+    def _start_autoscaler(self) -> None:
+        """With ``TRINO_TPU_AUTOSCALE=1``, a controller grows and drains
+        the runner's workers by the ``TRINO_TPU_AUTOSCALE_*`` knobs: worker
+        processes on the process runner, logical drains on the in-process
+        one.  A runner with no workers to scale gets none."""
+        from ..spi import knobs
+
+        runner = self.dispatcher.runner
+        if not knobs.get_bool("TRINO_TPU_AUTOSCALE") or not (
+                hasattr(runner, "remove_worker")
+                or hasattr(runner, "drain_worker")):
+            return
+        from ..execution.ha import WorkerAutoscaler
+
+        self.autoscaler = WorkerAutoscaler(runner).start()
+
     def stop(self) -> None:
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+            self.autoscaler = None
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread is not None:

@@ -13,8 +13,10 @@ optimization (planner/history.py), the adaptive plane
 (execution/adaptive.py, with the planner's broadcast row limit) and
 fault-tolerant execution (the spool, its retention, the query-state log,
 speculation and the cluster blacklist), the control plane (resource
-groups, the cluster memory cap and its killer, per-query memory) and
-worker processes (the internal secret, the drain budget).  Both
+groups, the cluster memory cap and its killer, per-query memory), worker
+processes (the internal secret, the drain budget) and the HA coordinator
+fleet with its worker autoscaler (execution/ha.py,
+server/front_tier.py).  Both
 packages read the same variables, so one setting reaches both (a harness that sets ``TRINO_TPU_RESULT_CACHE=0``
 turns the result tier off in each).
 """
@@ -48,6 +50,24 @@ _DECLARATIONS = (
          "Adaptive query execution (runtime join-distribution switching, "
          "skew-aware repartitioning); 0 is bit-for-bit legacy.",
          choices=("auto", "1", "0")),
+    Knob("TRINO_TPU_AUTOSCALE", "bool", "0",
+         "Elastic worker autoscaling: a controller watches admission queue "
+         "pressure and cluster memory and grows or drains the worker fleet "
+         "through the zero-loss shutdown protocol."),
+    Knob("TRINO_TPU_AUTOSCALE_IDLE_ROUNDS", "int", "3",
+         "Consecutive pressure-free controller rounds before the "
+         "autoscaler drains one worker down toward the floor."),
+    Knob("TRINO_TPU_AUTOSCALE_INTERVAL_S", "float", "5",
+         "Autoscaler controller cadence (seconds between policy rounds)."),
+    Knob("TRINO_TPU_AUTOSCALE_MAX_WORKERS", "int", "4",
+         "Autoscaler ceiling: the controller never grows the worker fleet "
+         "past this."),
+    Knob("TRINO_TPU_AUTOSCALE_MIN_WORKERS", "int", "1",
+         "Autoscaler floor: the controller never drains the worker fleet "
+         "below this."),
+    Knob("TRINO_TPU_AUTOSCALE_QUEUE_S", "float", "0.5",
+         "Scale-up trigger: admission queued-seconds accumulated per "
+         "controller round at or above this means queue pressure."),
     Knob("TRINO_TPU_BLACKLIST_PATH", "path", "",
          "Shared durable cluster-blacklist file (append-only JSONL).  When "
          "set, every coordinator in the fleet appends its strikes here and "
@@ -91,6 +111,29 @@ _DECLARATIONS = (
          "Whole-stage compilation of PARTIAL->shuffle->FINAL seams; 0 is "
          "the per-operator and collective-exchange path.",
          choices=("auto", "1", "0")),
+    Knob("TRINO_TPU_HA", "bool", "0",
+         "Horizontally-scaled HA control plane: the coordinator registers "
+         "a heartbeated lease in TRINO_TPU_HA_DIR, owns queries by "
+         "consistent hash, and claims dead peers' WAL directories; 0 is "
+         "bit-for-bit single-coordinator legacy."),
+    Knob("TRINO_TPU_HA_DIR", "path", "",
+         "Shared cluster directory for the coordinator fleet (lease files, "
+         "claim markers, per-coordinator query-state WAL roots); required "
+         "when TRINO_TPU_HA=1."),
+    Knob("TRINO_TPU_HA_HEARTBEAT_S", "float", "2",
+         "Coordinator lease renewal cadence; must be well under the lease "
+         "TTL."),
+    Knob("TRINO_TPU_HA_LEASE_TTL_S", "float", "10",
+         "Coordinator lease expiry: a lease not renewed for this long is "
+         "dead and a peer may claim its WAL directory."),
+    Knob("TRINO_TPU_HA_NODE_ID", "str", "",
+         "Stable coordinator identity in the fleet directory (also "
+         "suffixes the per-coordinator journal file); unset derives "
+         "host-pid."),
+    Knob("TRINO_TPU_HA_ROUTE_RETRY_S", "float", "15",
+         "Front-tier retry-and-rehash budget: how long a routed request "
+         "keeps probing live coordinators while the owner is mid-failover "
+         "before reporting the query still QUEUED."),
     Knob("TRINO_TPU_HBO", "enum", "auto",
          "History-based optimization: the cost model prefers journaled "
          "per-fingerprint observed stats (rows, build bytes, partial-agg "

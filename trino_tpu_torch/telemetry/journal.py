@@ -60,6 +60,10 @@ PLAN_STATS_FIELDS = ("rows", "bytes", "groups", "skew")
 _FILE = "query_journal.jsonl"
 
 
+def _safe_node(node: str) -> str:
+    return "".join(c if c.isalnum() or c in "_.-" else "_" for c in node)
+
+
 def default_dir() -> str:
     try:
         uid = os.getuid()
@@ -172,7 +176,13 @@ class QueryJournal(EventListener):
             knobs.get_int("TRINO_TPU_JOURNAL_MAX_BYTES")
         self.max_files = max_files if max_files is not None else \
             knobs.get_int("TRINO_TPU_JOURNAL_FILES")
-        self.path = os.path.join(self.directory, _FILE)
+        # a coordinator fleet shares one TRINO_TPU_JOURNAL_DIR: each member
+        # appends to its own stream (appends of two processes to one file
+        # would race its rotation) and readers fold every member's stream
+        node = knobs.get_str("TRINO_TPU_HA_NODE_ID").strip()
+        name = _FILE if not node else \
+            _FILE[:-len(".jsonl")] + "-" + _safe_node(node) + ".jsonl"
+        self.path = os.path.join(self.directory, name)
         self._lock = threading.Lock()
         # first write of this process checks for a torn tail line (a crash
         # mid-write); appending straight onto it would corrupt the next

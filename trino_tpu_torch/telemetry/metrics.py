@@ -32,8 +32,9 @@ flight recorder (profiler and journal), the three cache tiers, the
 compiled stages (fused seams and resident plans), resilience (query
 retry, speculation, the cluster blacklist), fault-tolerant execution,
 the adaptive plane, HBO, the control plane (admission, resource groups,
-the cluster memory view and its killer) and the serving path (the HTTP
-dispatcher and exchange).  The HA families come with the HA modules.
+the cluster memory view and its killer), the serving path (the HTTP
+dispatcher and exchange) and the HA coordinator fleet (leases,
+takeovers, front-tier reroutes, autoscaler actions).
 """
 
 from __future__ import annotations
@@ -421,6 +422,30 @@ CLUSTER_MEMORY_RESERVED = REGISTRY.gauge(
 CLUSTER_MEMORY_FREE = REGISTRY.gauge(
     "trino_cluster_memory_free_bytes",
     "cluster memory capacity minus reservations (0 when uncapped)")
+
+# HA control plane (execution/ha.py + server/front_tier.py): coordinator
+# fleet leases, lease-based failover, front-tier routing, worker autoscaling
+HA_LEASES_HELD = REGISTRY.gauge(
+    "trino_ha_leases_held",
+    "coordinator leases this process currently holds (its own plus any "
+    "claimed from dead peers)")
+HA_FLEET_COORDINATORS = REGISTRY.gauge(
+    "trino_ha_fleet_coordinators",
+    "live coordinators visible in the cluster directory")
+HA_TAKEOVERS = REGISTRY.counter(
+    "trino_ha_takeovers_total",
+    "dead-coordinator WAL directories claimed by this coordinator")
+HA_ADOPTED_QUERIES = REGISTRY.counter(
+    "trino_ha_adopted_queries_total",
+    "in-flight queries adopted from a claimed WAL directory and resumed "
+    "under their original ids")
+HA_REROUTES = REGISTRY.counter(
+    "trino_ha_reroutes_total",
+    "front-tier requests rerouted off the hash owner (owner dead or "
+    "mid-failover)")
+HA_AUTOSCALE_EVENTS = REGISTRY.counter(
+    "trino_ha_autoscale_events_total",
+    "autoscaler scale-up and drain actions applied to the worker fleet")
 
 # device memory watermark (the caching allocator of the runner's card)
 DEVICE_MEMORY_IN_USE = REGISTRY.gauge(

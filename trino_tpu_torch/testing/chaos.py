@@ -1,7 +1,7 @@
 """Randomized fault-injection soak harness ("chaos certification").
 
-The port of the reference ``testing/chaos.py``, without its HA takeover
-drill (the HA coordinator fleet is not in the port yet).  Seeded scenario
+The port of the reference ``testing/chaos.py``, its HA takeover drill
+included.  Seeded scenario
 generator that drives the engine-level FailureInjector (TASK_FAILURE /
 TASK_STALL / TASK_OOM / GET_RESULTS_FAILURE / PROCESS_EXIT /
 SPOOL_CORRUPTION) plus live coordinator-driven drains under a sustained
@@ -37,7 +37,7 @@ loads only the columns the mix reads, so that its sqlite tables stay
 affordable at SF 1.  Each scenario record carries ``launches``, the
 kernel launches of its queries: counted in this process for the
 in-process runners and summed over the workers' ``GET /v1/info`` for
-``process`` mode; the kill drill's coordinator child publishes its own.
+``process`` mode; the drills' coordinator children publish their own.
 """
 
 from __future__ import annotations
@@ -66,7 +66,8 @@ from .oracle import SqliteOracle, assert_same_rows, load_tables
 
 __all__ = ["QUERY_MIX", "USER_ERROR_SQL", "build_expected",
            "scenario_plan", "run_scenario", "run_chaos", "run_fte_scenario",
-           "run_fte_chaos", "run_coordinator_kill_drill", "catalog_spec"]
+           "run_fte_chaos", "run_coordinator_kill_drill",
+           "run_ha_takeover_drill", "catalog_spec"]
 
 SCALE_FACTOR = 0.01
 
@@ -472,27 +473,24 @@ _DRILL_SQL = ("select l_returnflag, l_linestatus, count(*), "
               "l_linestatus order by l_returnflag, l_linestatus")
 
 
-def _publish_launches(path: str) -> None:
-    """Rewrite ``path`` with this process's kernel launch counts every
-    0.2 s (atomic rename), for the drill's parent to read."""
+def _publish(path: str, fn) -> None:
+    """Rewrite ``path`` with ``fn()`` as JSON every 0.2 s (atomic rename),
+    for the drill's parent to read."""
     while True:
         tmp = f"{path}.tmp"
         with open(tmp, "w", encoding="utf-8") as f:
-            json.dump(_local_launches(), f)
+            json.dump(fn(), f)
         os.replace(tmp, path)
         time.sleep(0.2)
 
 
-def _coordinator_child() -> None:
-    """Subprocess entry for the coordinator-kill drill: boot a 2-worker
-    FTE coordinator on ``CHAOS_DEVICE`` at ``CHAOS_SF`` behind the HTTP
-    statement protocol, write the bound port to ``CHAOS_PORT_FILE``
-    (atomic rename), publish its kernel launches to ``CHAOS_PORT_FILE``
-    + ``.launches``, and serve until killed.  ``CHAOS_STALL_S`` arms a
-    one-shot TASK_STALL on task 0 of the first stage scheduled — the
-    deterministic 'mid-query' the parent kills into; with
-    ``fte_speculative`` off nothing can rescue the stall, so the kill is
-    guaranteed to land with the query in flight."""
+def _drill_server():
+    """The drill's coordinator: a 2-worker FTE DistributedQueryRunner on
+    ``CHAOS_DEVICE`` at ``CHAOS_SF`` behind a started statement server.
+    ``CHAOS_STALL_S`` arms a one-shot TASK_STALL on task 0 of the first
+    stage scheduled, the deterministic 'mid-query' the parent kills into;
+    with ``fte_speculative`` off nothing can rescue the stall, so the
+    kill lands with the query in flight."""
     from ..server.protocol import TrinoTpuServer
 
     inj = None
@@ -508,15 +506,28 @@ def _coordinator_child() -> None:
             "CHAOS_SF", str(SCALE_FACTOR)))),
         worker_count=2, session=session,
         device=os.environ.get("CHAOS_DEVICE", _ENV["CHAOS_DEVICE"]))
-    srv = TrinoTpuServer(runner).start()
-    port_file = os.environ["CHAOS_PORT_FILE"]
-    threading.Thread(target=_publish_launches,
-                     args=(port_file + ".launches",), daemon=True).start()
+    return TrinoTpuServer(runner).start()
+
+
+def _announce(srv, port_file: str) -> None:
+    """Publish the process's kernel launches to ``port_file`` +
+    ``.launches`` and write the server's bound port to ``port_file``
+    (atomic rename), then serve until killed."""
+    threading.Thread(target=_publish,
+                     args=(port_file + ".launches", _local_launches),
+                     daemon=True).start()
     with open(port_file + ".tmp", "w", encoding="utf-8") as f:
         f.write(str(srv.address[1]))
     os.replace(port_file + ".tmp", port_file)
     while True:
         time.sleep(1.0)
+
+
+def _coordinator_child() -> None:
+    """Subprocess entry for the coordinator-kill drill: the drill's
+    coordinator (:func:`_drill_server`), its port written to
+    ``CHAOS_PORT_FILE`` and its launches published beside it."""
+    _announce(_drill_server(), os.environ["CHAOS_PORT_FILE"])
 
 
 def _http_json(method: str, url: str, body: Optional[bytes] = None,
@@ -528,7 +539,8 @@ def _http_json(method: str, url: str, body: Optional[bytes] = None,
         return json.loads(resp.read())
 
 
-def _read_launches(path: str) -> dict:
+def _read_json(path: str) -> dict:
+    """A JSON file a drill's child publishes; {} until it exists."""
     try:
         with open(path, encoding="utf-8") as f:
             return json.load(f)
@@ -643,7 +655,7 @@ def run_coordinator_kill_drill(stall_s: float = 300.0,
         starts_at_kill = dict(pq.attempt_counts)
         record["committed_at_kill"] = len(committed_at_kill)
         record["first_commit_s"] = round(time.monotonic() - t0, 3)
-        record["launches_epoch1"] = _read_launches(launch_file)
+        record["launches_epoch1"] = _read_json(launch_file)
         os.kill(proc1.pid, signal.SIGKILL)
         proc1.wait(timeout=30)
 
@@ -697,13 +709,252 @@ def run_coordinator_kill_drill(stall_s: float = 300.0,
             time.sleep(0.2)
         record["spool_reclaimed"] = not os.path.isdir(spool_root)
         time.sleep(0.5)  # one more publication of epoch 2's launches
-        record["launches_epoch2"] = _read_launches(launch_file)
+        record["launches_epoch2"] = _read_json(launch_file)
         record["pass"] = (state == "FINISHED" and not re_executed
                           and record["spool_reclaimed"]
                           and final.ended == "FINISHED")
         return record
     finally:
         for p in (proc1, proc2):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait(timeout=15)
+        if workdir is None:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+# ------------------------------------------------- HA fleet lease takeover
+
+def _ha_coordinator_child() -> None:
+    """Subprocess entry for the HA takeover drill: one fleet member.  The
+    drill's coordinator (:func:`_drill_server`; ``CHAOS_STALL_S`` arms the
+    stall on the victim only) wrapped in an
+    :class:`~trino_tpu_torch.execution.ha.HACoordinator` (lease + failover
+    watcher).  Besides its launches it publishes ``CHAOS_PORT_FILE`` +
+    ``.ha``: its lease's longest gap between two writes, whether it was
+    deposed, and the peers it took over."""
+    from ..execution.ha import HACoordinator
+
+    srv = _drill_server()
+    coord = HACoordinator(srv).start()
+    port_file = os.environ["CHAOS_PORT_FILE"]
+
+    def ha_state() -> dict:
+        return {"lease_max_gap_s": coord.lease.max_gap_s,
+                "deposed": coord.lease.deposed,
+                "takeovers": list(coord.takeovers)}
+
+    threading.Thread(target=_publish, args=(port_file + ".ha", ha_state),
+                     daemon=True).start()
+    _announce(srv, port_file)
+
+
+def run_ha_takeover_drill(stall_s: float = 300.0,
+                          lease_ttl_s: float = 2.0,
+                          heartbeat_s: float = 0.5,
+                          boot_timeout_s: float = 180.0,
+                          finish_timeout_s: float = 180.0,
+                          workdir: Optional[str] = None,
+                          device="cuda",
+                          scale_factor: float = SCALE_FACTOR,
+                          sql: str = _DRILL_SQL) -> dict:
+    """kill -9 one coordinator of a two-member fleet mid-FTE-query and
+    certify that a peer (not a restart) finishes it.
+
+    Coordinators A and B boot at once as subprocesses on ``device``, each
+    with its own CUDA context, lease and failover watcher; A carries the
+    un-rescuable one-shot stall and gets ``sql`` (the reference's
+    ``_DRILL_SQL`` by default) straight on its statement endpoint.  Once
+    A's WAL holds a committed attempt, the parent checks that nothing was
+    claimed yet (a claim of a live A would be a deposition, not a
+    takeover) and SIGKILLs A.  B's watcher must claim A's expired lease
+    (an atomic rename), take custody of A's WAL directory, adopt the
+    query under its original id, resume it from the committed-attempt
+    map and finish, polled through B's ``GET /v1/statement/{qid}/{token}``.
+    Asserts from the claimed WAL's attempt counters that committed
+    attempts were never re-executed, and that A's lease left the
+    directory.  The record has the reference's keys plus each
+    coordinator's boot seconds and launches (B's after the kill apart),
+    ``takeover_s``, A's longest gap between lease writes and its lease's
+    age at the kill, and ``claimed_before_kill``."""
+    import shutil
+    import signal
+    import subprocess
+    import sys
+    import tempfile
+
+    from ..execution import query_state
+
+    work = workdir or tempfile.mkdtemp(prefix="trino-tpu-ha-drill-")
+    os.makedirs(work, exist_ok=True)
+    ha_root = os.path.join(work, "ha")
+    wal_root = os.path.join(ha_root, "wal")
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    base_env = dict(os.environ)
+    base_env.update(_env(device))
+    base_env.update({
+        "CHAOS_SF": str(scale_factor),
+        "TRINO_TPU_HA": "1",
+        "TRINO_TPU_HA_DIR": ha_root,
+        "TRINO_TPU_HA_LEASE_TTL_S": str(lease_ttl_s),
+        "TRINO_TPU_HA_HEARTBEAT_S": str(heartbeat_s),
+        "TRINO_TPU_QUERY_STATE": "1",
+        "TRINO_TPU_SPOOL_DIR": os.path.join(work, "spool"),
+        "TRINO_TPU_JOURNAL_DIR": os.path.join(work, "journal"),
+        "TRINO_TPU_RESULT_CACHE": "0",
+        "PYTHONPATH": repo_root + os.pathsep + base_env.get("PYTHONPATH",
+                                                            ""),
+    })
+    child_cmd = [sys.executable, "-c",
+                 "from trino_tpu_torch.testing.chaos import "
+                 "_ha_coordinator_child; _ha_coordinator_child()"]
+
+    def port_file(node: str) -> str:
+        return os.path.join(work, f"port-{node}")
+
+    def start(node: str, extra_env: dict):
+        env = {**base_env,
+               "TRINO_TPU_HA_NODE_ID": node,
+               "TRINO_TPU_QUERY_STATE_DIR": os.path.join(wal_root, node),
+               "CHAOS_PORT_FILE": port_file(node),
+               **extra_env}
+        return subprocess.Popen(child_cmd, env=env, cwd=repo_root)
+
+    def booted(node: str, proc, t0: float) -> tuple:
+        deadline = t0 + boot_timeout_s
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    f"HA child {node} died at boot (rc={proc.returncode})")
+            if os.path.exists(port_file(node)):
+                with open(port_file(node), encoding="utf-8") as f:
+                    return int(f.read().strip()), time.monotonic() - t0
+            time.sleep(0.1)
+        raise TimeoutError(f"HA child {node} never wrote its port")
+
+    record: dict = {"sql": sql, "workdir": work, "device": str(device),
+                    "scale_factor": scale_factor,
+                    "lease_ttl_s": lease_ttl_s, "heartbeat_s": heartbeat_s}
+    proc_a = proc_b = None
+    try:
+        # both members boot at once, each in a process of its own
+        t0 = time.monotonic()
+        proc_a = start("coordA", {"CHAOS_STALL_S": str(stall_s)})
+        proc_b = start("coordB", {})
+        port_a, record["boot_a_s"] = booted("coordA", proc_a, t0)
+        port_b, record["boot_b_s"] = booted("coordB", proc_b, t0)
+
+        # the query must land on A, the stalled victim: ownership in the
+        # drill is by submission (the front tier's hash path has its own
+        # tests)
+        t0 = time.monotonic()
+        sub = _http_json("POST", f"http://127.0.0.1:{port_a}/v1/statement",
+                         sql.encode("utf-8"))
+        qid = sub["id"]
+        record["query_id"] = qid
+        wal_a = os.path.join(wal_root, "coordA", qid + ".wal")
+        pq = None
+        deadline = time.monotonic() + boot_timeout_s
+        while time.monotonic() < deadline:
+            pq = query_state.load(wal_a)
+            if pq is not None and len(pq.committed) >= 1:
+                break
+            time.sleep(0.1)
+        if pq is None or not pq.committed:
+            raise TimeoutError("no committed attempt before the kill")
+        committed_at_kill = dict(pq.committed)
+        starts_at_kill = dict(pq.attempt_counts)
+        record["committed_at_kill"] = len(committed_at_kill)
+        record["first_commit_s"] = round(time.monotonic() - t0, 3)
+        # a claim before the kill would have deposed a live A
+        claims = os.path.join(ha_root, "claims")
+        record["claimed_before_kill"] = sorted(
+            os.listdir(claims)) if os.path.isdir(claims) else []
+        lease_a = _read_json(os.path.join(ha_root, "coordinators",
+                                          "coordA.json"))
+        record["lease_a_at_kill"] = bool(lease_a)
+        record["lease_a_age_at_kill_s"] = (time.time() - lease_a["ts"]
+                                           if lease_a else None)
+        record["launches_a"] = _read_json(port_file("coordA")
+                                              + ".launches")
+        launches_b_at_kill = _read_json(port_file("coordB")
+                                            + ".launches")
+        ha_a = _read_json(port_file("coordA") + ".ha")
+        record["lease_a_max_gap_s"] = ha_a.get("lease_max_gap_s")
+        record["deposed_a"] = ha_a.get("deposed")
+        t_kill = time.monotonic()
+        os.kill(proc_a.pid, signal.SIGKILL)
+        proc_a.wait(timeout=30)
+
+        # B's watcher claims the expired lease and finishes the query under
+        # its original id; the client switches the address it polls
+        rows: list = []
+        state = None
+        token = 0
+        deadline = time.monotonic() + finish_timeout_s
+        while time.monotonic() < deadline:
+            try:
+                out = _http_json(
+                    "GET",
+                    f"http://127.0.0.1:{port_b}/v1/statement/{qid}/{token}")
+            except OSError:  # 404 until B adopts; keep polling
+                time.sleep(0.2)
+                continue
+            state = out.get("stats", {}).get("state")
+            if state == "FAILED":
+                record["error"] = out.get("error")
+                break
+            rows += out.get("data", [])
+            nxt = out.get("nextUri")
+            if state == "FINISHED":
+                if not nxt:
+                    break
+                token += 1
+                continue
+            time.sleep(0.2)
+        record["state"] = state
+        record["rows"] = rows
+        record["takeover_s"] = round(time.monotonic() - t_kill, 3)
+
+        # A's WAL now lives under B's custody
+        claimed = [d for d in sorted(os.listdir(wal_root))
+                   if d.startswith("coordA.claimed-coordB-")]
+        record["claimed_dirs"] = claimed
+        final = None
+        if claimed:
+            final = query_state.load(
+                os.path.join(wal_root, claimed[0], qid + ".wal"))
+        re_executed = {}
+        if final is not None:
+            re_executed = {
+                f"f{fid}_t{t}": final.attempt_counts.get((fid, t), 0)
+                - starts_at_kill.get((fid, t), 0)
+                for (fid, t) in committed_at_kill
+                if final.attempt_counts.get((fid, t), 0)
+                > starts_at_kill.get((fid, t), 0)
+            }
+        record["committed_reexecuted"] = re_executed
+        record["wal_ended"] = final.ended if final is not None else None
+        record["lease_a_gone"] = not os.path.exists(
+            os.path.join(ha_root, "coordinators", "coordA.json"))
+        time.sleep(0.5)  # one more publication of B's launches
+        launches_b = _read_json(port_file("coordB") + ".launches")
+        record["launches_b"] = launches_b
+        record["launches_b_after_kill"] = {
+            k: n - launches_b_at_kill.get(k, 0)
+            for k, n in launches_b.items()}
+        record["takeovers_b"] = _read_json(
+            port_file("coordB") + ".ha").get("takeovers")
+        record["pass"] = (state == "FINISHED" and bool(claimed)
+                          and final is not None and not re_executed
+                          and final.ended == "FINISHED"
+                          and record["lease_a_gone"]
+                          and not record["claimed_before_kill"]
+                          and record["lease_a_at_kill"])
+        return record
+    finally:
+        for p in (proc_a, proc_b):
             if p is not None and p.poll() is None:
                 p.kill()
                 p.wait(timeout=15)
